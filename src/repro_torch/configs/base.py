@@ -1,0 +1,96 @@
+"""Model and run configs plus the arch registry (the port's own copy of the
+fields the dense prefill path reads; mirrors ``repro.configs.base``)."""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Callable, Dict, Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    arch: str
+    family: str  # dense (the only family of this slice)
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // num_heads
+    qk_norm: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    # Granite-style scalars (1.0 = disabled)
+    embedding_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float = 0.0  # 0 -> 1/sqrt(head_dim)
+    dtype: str = "bfloat16"
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // self.num_heads if self.num_heads else 0
+
+    @property
+    def attn_free(self) -> bool:
+        return self.family == "ssm"
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """The knobs of one chunked-pipeline run that this path reads."""
+    num_chunks: int = 16
+    num_stages: int = 16
+    mbkr: bool = True
+    kv_spill_dtype: str = "bfloat16"  # int8 -> wire-only spill compression
+    remote_attn: str = "qship"        # fetch | qship
+    # self block: "torch" (per-block reference) | "cuda" (kernel K1)
+    attn_backend: str = "torch"
+    # pool-sourced partials: auto (follows attn_backend) | torch | cuda
+    # (slot-stack kernel K2) | paged (in-place page kernel K3)
+    pool_backend: str = "auto"
+    kv_dtype: str = "auto"            # auto | bfloat16 | float32 | int8 | fp8
+    kv_page_tokens: int = 0           # 0 = one page per chunk
+
+
+ATTN_BACKENDS = ("torch", "cuda")
+POOL_BACKENDS = ("auto", "torch", "cuda", "paged")
+
+_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
+_SMOKE_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
+
+
+def register(name: str, full: Callable[[], ModelConfig],
+             smoke: Callable[[], ModelConfig]) -> None:
+    _REGISTRY[name] = full
+    _SMOKE_REGISTRY[name] = smoke
+
+
+def _ensure_loaded() -> None:
+    from repro_torch.configs import qwen3_8b  # noqa: F401
+
+
+def get_config(arch: str) -> ModelConfig:
+    _ensure_loaded()
+    if arch not in _REGISTRY:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[arch]()
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    _ensure_loaded()
+    return _SMOKE_REGISTRY[arch]()
+
+
+def list_archs() -> Tuple[str, ...]:
+    _ensure_loaded()
+    return tuple(sorted(_REGISTRY))
+
+
+def replace(cfg, **kw):
+    return dataclasses.replace(cfg, **kw)

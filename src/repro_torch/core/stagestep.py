@@ -1,0 +1,125 @@
+"""The stage program: what every stage computes in one pipeline tick
+(mirrors the dense path of ``repro.core.stagestep``).
+
+The reference runs one stage per chip; here all N stages run in lockstep as
+a leading tensor axis. Activations are [N, B, C, d]; projections are
+batched products over the stage axis ([N, B*C, d] x [N, d, q]); attention
+folds the stage axis into the batch (N*B rows), so one kernel launch per
+(layer, tick) covers every stage. ``StageCtx`` carries the per-stage
+scalars as host-side numpy arrays of shape [N]: the phases are known on the
+host before a tick runs, so gating needs no device round trip.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import remote
+from repro_torch.core.attention import (attn_finish, attn_init, get_backend,
+                                        group_queries, pool_scan)
+from repro_torch.core.plan import PipelinePlan
+from repro_torch.core.transport import Ledger, StageAxisTransport
+from repro_torch.models import layers as L
+
+Params = Dict[str, Any]
+
+
+@dataclass
+class StageCtx:
+    """Per-tick context: ``stage``, ``phase`` and ``first_half`` are [N]."""
+    cfg: ModelConfig
+    plan: PipelinePlan
+    stage: np.ndarray         # [N] stage ids
+    phase: np.ndarray         # [N] chunk index of each stage this tick (may be OOR)
+    first_half: np.ndarray    # [N] bool: stage < N/2
+    scale: float
+    transport: StageAxisTransport
+
+    @property
+    def active(self) -> np.ndarray:
+        """[N] the stage's phase is a real chunk (not fill/drain garbage)."""
+        return (self.phase >= 0) & (self.phase < self.plan.num_chunks)
+
+
+def attend_chunk(ctx: StageCtx, l_idx: int, q: torch.Tensor,
+                 k_new: torch.Tensor, v_new: torch.Tensor, pool,
+                 led: Ledger = None):
+    """Full MOCAP attention for one layer of every stage's current chunk:
+    own-pool prefix + remote prefix + causal self block. q [N*B, C, H, D];
+    k_new / v_new [N*B, C, K, D]. The self block runs ``plan.attn_backend``;
+    every pool-sourced partial runs ``plan.pool_backend``."""
+    plan = ctx.plan
+    backend = get_backend(plan.attn_backend)
+    pool_be = (backend if plan.pool_backend == plan.attn_backend
+               else get_backend(plan.pool_backend))
+    gb, c, h, d = q.shape
+    kvh = k_new.shape[2]
+    qg = group_queries(q, kvh)
+    st = attn_init(gb, c, kvh, h // kvh, d, device=q.device)
+    pool_l = remote._pool_layer(pool, l_idx)
+
+    # 1. own local prefix: chunks j < min(phase, p2)
+    st = pool_scan(pool_be, qg, pool_l, plan.slot_pages, plan.slot_own_chunk,
+                   np.minimum(ctx.phase, plan.p2), ctx.scale, st)
+    # 2. remote prefix: chunks p2 <= j < phase live at the pair
+    if plan.p2 < plan.num_chunks and plan.mode == "mocap":
+        if plan.remote_attn == "fetch":
+            st, led = remote.fetch_remote(ctx, pool_be, qg, pool_l, st, led)
+        else:
+            st, led = remote.qship_remote(ctx, pool_be, qg, pool_l, st, led)
+    # 3. causal self block
+    st = backend.self_block(qg, k_new, v_new, ctx.scale, st)
+    return attn_finish(st, q.dtype), led
+
+
+def _stage_w(w: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A per-stage vector [N, f] shaped to broadcast against [N, ..., f]."""
+    return w.reshape(w.shape[0], *([1] * (ndim - 2)), w.shape[-1])
+
+
+def tfm_stage_step(ctx: StageCtx, layers: Params, x: torch.Tensor, pool,
+                   led: Ledger = None):
+    """Apply every stage's lps layers to its chunk ``ctx.phase``.
+    ``layers`` leaves are [N, lps, ...]; x [N, B, C, d]. Returns
+    (x_out, pool, ledger); the pool is updated in place."""
+    cfg, plan = ctx.cfg, ctx.plan
+    n, b, c, dm = x.shape
+    hd = cfg.resolved_head_dim
+    rm = cfg.residual_multiplier
+    positions = (np.clip(ctx.phase, 0, plan.num_chunks - 1)[:, None]
+                 * plan.chunk_len + np.arange(c)[None, :])       # [N, C]
+    cos, sin = L.rope_angles(torch.as_tensor(positions, device=x.device), hd,
+                             cfg.rope_theta)
+    cos = cos.repeat_interleave(b, dim=0)                       # [N*B, C, half]
+    sin = sin.repeat_interleave(b, dim=0)
+    ks, vs = [], []
+    for li in range(plan.layers_per_stage):
+        lp = {k: w[:, li] for k, w in layers.items()}
+        hn = L.rms_norm(x, _stage_w(lp["ln1"], 4), cfg.norm_eps).reshape(n, b * c, dm)
+        q = torch.matmul(hn, lp["wq"]).reshape(n, b, c, -1, hd)
+        k = torch.matmul(hn, lp["wk"]).reshape(n, b, c, -1, hd)
+        v = torch.matmul(hn, lp["wv"]).reshape(n, b, c, -1, hd)
+        if cfg.qk_norm:
+            q = L.rms_norm(q, _stage_w(lp["q_norm"], 5), cfg.norm_eps)
+            k = L.rms_norm(k, _stage_w(lp["k_norm"], 5), cfg.norm_eps)
+        q = L.apply_rope(q.flatten(0, 1), cos, sin)
+        k = L.apply_rope(k.flatten(0, 1), cos, sin)
+        v = v.flatten(0, 1)
+        att, led = attend_chunk(ctx, li, q, k, v, pool, led)
+        upd = torch.matmul(att.reshape(n, b * c, -1), lp["wo"])
+        x = x + rm * upd.reshape(n, b, c, dm)
+        hn = L.rms_norm(x, _stage_w(lp["ln2"], 4), cfg.norm_eps).reshape(n, b * c, dm)
+        ffn = L.swiglu({"wg": lp["wg"], "wu": lp["wu"], "wd": lp["wd"]}, hn)
+        x = x + rm * ffn.reshape(n, b, c, dm)
+        ks.append(k)
+        vs.append(v)
+    stage_k = torch.stack(ks, dim=1).reshape(n, b, plan.layers_per_stage,
+                                             *ks[0].shape[1:]).transpose(1, 2)
+    stage_v = torch.stack(vs, dim=1).reshape(n, b, plan.layers_per_stage,
+                                             *vs[0].shape[1:]).transpose(1, 2)
+    pool, led = remote.write_pools(ctx, pool, stage_k, stage_v, led)
+    return x, pool, led

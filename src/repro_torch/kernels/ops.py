@@ -1,0 +1,261 @@
+"""Public wrappers of the three CUDA attention kernels
+(``csrc/chunk_attn.cu``), the counterparts of ``repro.kernels.ops``.
+
+Each wrapper checks device, dtype, shape and layout and raises on what the
+kernel does not take, allocates its outputs with ``torch.empty`` and
+launches on the current stream. A tensor on the CPU goes to the plain
+version in ``kernels.ref``; a CUDA tensor launches the kernel or raises —
+there is no fallback. ``LAUNCHES`` counts kernel launches per tag, and only
+those.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ref
+
+LAUNCHES = {"chunk_attention": 0, "pool_attention": 0,
+            "pool_attention_paged": 0}
+
+_Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+             torch.float8_e4m3fn: 3}
+# (q, kv) dtype combination -> the part of csrc/chunk_attn.cu that holds it
+# (``-DKV_COMBO``, see kernels/build.py)
+_COMBOS = {(torch.float32, torch.float32): 0, (torch.float32, torch.int8): 1,
+           (torch.float32, torch.float8_e4m3fn): 2,
+           (torch.bfloat16, torch.bfloat16): 3, (torch.bfloat16, torch.int8): 4,
+           (torch.bfloat16, torch.float8_e4m3fn): 5}
+_HEAD_DIMS = (16, 128)   # the smoke and the full-width head dims
+_MAX_SLOTS = 1024
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    "chunk_attention_launch": [_P] * 9 + [_I] * 10 + [_F, _P],
+    "pool_attention_launch": [_P] * 9 + [_I] * 11 + [_F, _P],
+    "pool_attention_paged_launch": [_P] * 10 + [_I] * 12 + [_LL] * 9 + [_F, _P],
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _fn(name: str, q_dtype: torch.dtype, kv_dtype: torch.dtype):
+    from repro_torch.kernels import build
+    lib = build.lib(f"chunk_attn.{_COMBOS[(q_dtype, kv_dtype)]}")
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _call(name: str, tag: str, q_dtype, kv_dtype, *args) -> None:
+    err = _fn(name, q_dtype, kv_dtype)(
+        *args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err}")
+    LAUNCHES[tag] += 1
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _on_card(*ts) -> bool:
+    """True for CUDA tensors, False for CPU tensors; raises on a mix or on
+    another device type."""
+    devs = {t.device for t in ts if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+def _check_types(q, k, v, k_scale, v_scale) -> None:
+    if q.dtype not in _Q_CODES:
+        raise TypeError(f"q dtype {q.dtype} not in {list(_Q_CODES)}")
+    if k.dtype not in _KV_CODES or v.dtype != k.dtype:
+        raise TypeError(f"k/v dtypes {k.dtype}/{v.dtype} not supported")
+    quantized = k.dtype in (torch.int8, torch.float8_e4m3fn)
+    if quantized != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError("int8/fp8 K/V need k_scale and v_scale; float K/V take none")
+    if not quantized and k.dtype != q.dtype:
+        raise TypeError(f"float K/V must match q's dtype ({k.dtype} vs {q.dtype})")
+    for sc in (k_scale, v_scale):
+        if sc is not None and sc.dtype != torch.float32:
+            raise TypeError("scales must be float32")
+    d = q.shape[-1]
+    if d not in _HEAD_DIMS or k.shape[-1] != d:
+        raise ValueError(f"head dim {d} (k: {k.shape[-1]}) not in {_HEAD_DIMS}")
+    if q.shape[2] % k.shape[-2]:
+        raise ValueError(f"{q.shape[2]} query heads do not group over {k.shape[-2]} kv heads")
+
+
+def _check_dense(*ts) -> None:
+    for t in ts:
+        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError("kernel inputs must be contiguous and 16-byte aligned")
+
+
+def _valid_groups(valid: torch.Tensor, gb: int, s: int) -> torch.Tensor:
+    valid = valid if valid.ndim == 2 else valid[None]
+    if valid.shape[1] != s or gb % valid.shape[0]:
+        raise ValueError(f"valid {tuple(valid.shape)} does not fit {gb} rows x {s} slots")
+    if s > _MAX_SLOTS:
+        raise ValueError(f"{s} slots > {_MAX_SLOTS}")
+    return valid.to(torch.int32).contiguous()
+
+
+# -------------------------------------------------------------------- K1
+
+def chunk_attention(q, k, v, *, causal_offset: int = 0,
+                    scale: Optional[float] = None,
+                    kv_len: Optional[int] = None, return_state: bool = False,
+                    k_scale=None, v_scale=None):
+    """Chunked-prefill flash attention (K1). q [B,C,H,D]; k/v [B,T,KVH,D]
+    in q's dtype, or int8/fp8 payloads with per-token fp32 scales
+    [B,T,KVH]. Key j is visible to query i iff j <= i + causal_offset and
+    j < kv_len (default T). Returns out [B,C,H,D] (q's dtype) and, with
+    ``return_state``, also (m, l) [B,H,C] and acc [B,C,H,D] fp32."""
+    b, c, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kv_len = t if kv_len is None else int(kv_len)
+    if not 0 <= kv_len <= t or k.shape != (b, t, kvh, d) or v.shape != k.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} kv_len {kv_len}")
+    _check_types(q, k, v, k_scale, v_scale)
+    if k_scale is not None and (k_scale.shape != (b, t, kvh) or v_scale.shape != k_scale.shape):
+        raise ValueError(f"scales must be [B, T, KVH] = {(b, t, kvh)}")
+    if not _on_card(q, k, v, k_scale, v_scale):
+        res = ref.chunk_attention_plain(
+            q, k, v, causal_offset=causal_offset, scale=scale, kv_len=kv_len,
+            k_scale=k_scale, v_scale=v_scale)
+        return res if return_state else res[0]
+    _check_dense(q, k, v, k_scale, v_scale)
+    out = torch.empty_like(q)
+    m = l = acc = None
+    if return_state:
+        m = torch.empty((b, h, c), device=q.device)
+        l = torch.empty((b, h, c), device=q.device)
+        acc = torch.empty((b, c, h, d), device=q.device)
+    _call("chunk_attention_launch", "chunk_attention", q.dtype, k.dtype,
+          _ptr(q), _ptr(k), _ptr(v), _ptr(k_scale), _ptr(v_scale), _ptr(out),
+          _ptr(m), _ptr(l), _ptr(acc), _Q_CODES[q.dtype], _KV_CODES[k.dtype],
+          b, c, h, t, kvh, d, int(causal_offset), kv_len, float(scale))
+    return (out, m, l, acc) if return_state else out
+
+
+def full_attention(q, k, v, *, scale: Optional[float] = None):
+    """Non-causal K1: every query sees every key (a causal offset past the
+    last key) — the encoder-decoder cross-attention shape."""
+    return chunk_attention(q, k, v, causal_offset=int(k.shape[1]), scale=scale)
+
+
+# -------------------------------------------------------------------- K2
+
+def pool_attention(q, k, v, valid, *, scale: Optional[float] = None,
+                   kv_len: Optional[int] = None, k_scale=None, v_scale=None):
+    """Pool attention over a stack of stored chunks in one launch (K2).
+    q [G*B,C,H,D]; k/v [S,G*B,T,KVH,D] (scales [S,G*B,T,KVH]); ``valid``
+    [S] (G = 1) or [G,S] gates each (group, slot). Returns the fp32 state
+    (m, l) [G*B,H,C] and acc [G*B,C,H,D]."""
+    gb, c, h, d = q.shape
+    s, _, t, kvh, _ = k.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kv_len = t if kv_len is None else int(kv_len)
+    if not 0 <= kv_len <= t or k.shape != (s, gb, t, kvh, d) or v.shape != k.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} kv_len {kv_len}")
+    _check_types(q, k, v, k_scale, v_scale)
+    if k_scale is not None and (k_scale.shape != (s, gb, t, kvh)
+                                or v_scale.shape != k_scale.shape):
+        raise ValueError(f"scales must be [S, G*B, T, KVH] = {(s, gb, t, kvh)}")
+    valid = _valid_groups(torch.as_tensor(valid, device=q.device), gb, s)
+    if not _on_card(q, k, v, valid, k_scale, v_scale):
+        return ref.pool_attention_plain(q, k, v, valid, scale=scale,
+                                        kv_len=kv_len, k_scale=k_scale,
+                                        v_scale=v_scale)
+    _check_dense(q, k, v, k_scale, v_scale)
+    m = torch.empty((gb, h, c), device=q.device)
+    l = torch.empty((gb, h, c), device=q.device)
+    acc = torch.empty((gb, c, h, d), device=q.device)
+    ng = valid.shape[0]
+    _call("pool_attention_launch", "pool_attention", q.dtype, k.dtype,
+          _ptr(q), _ptr(k), _ptr(v), _ptr(k_scale), _ptr(v_scale), _ptr(valid),
+          _ptr(m), _ptr(l), _ptr(acc), _Q_CODES[q.dtype], _KV_CODES[k.dtype],
+          ng, gb // ng, c, h, s, t, kvh, d, kv_len, float(scale))
+    return m, l, acc
+
+
+# -------------------------------------------------------------------- K3
+
+def pool_attention_paged(q, k_pages, v_pages, handles, valid, *, ppc: int,
+                         scale: Optional[float] = None,
+                         kv_len: Optional[int] = None, k_scale=None,
+                         v_scale=None):
+    """Paged pool attention straight off the page store (K3), one launch.
+
+    q [G*B,C,H,D]; ``k_pages``/``v_pages`` [P,B,pt,KVH,D] or, for G stage
+    groups, [G,P,B,pt,KVH,D] — any strides with a contiguous head dim, so a
+    layer slice of the stage-stacked pool (``pool.k[:, :, l]``) is read in
+    place, never copied. ``handles`` [S*ppc] int32 page handles of the
+    visited slots; ``valid`` [S] or [G,S]; per-page scales [P,B,1,KVH,1] /
+    [G,P,B,1,KVH,1] (any strides). ``kv_len`` (default ppc*pt) drops
+    trailing empty pages and masks a partial last page. Returns the fp32
+    state like ``pool_attention``."""
+    gb, c, h, d = q.shape
+    grouped = k_pages.ndim == 6
+    kp = k_pages if grouped else k_pages[None]
+    vp = v_pages if grouped else v_pages[None]
+    ks = vs = None
+    if k_scale is not None:
+        ks = k_scale if grouped else k_scale[None]
+        vs = v_scale if grouped else v_scale[None]
+    ng, npages, b, pt, kvh, _ = kp.shape
+    handles = torch.as_tensor(handles, device=q.device)
+    s = handles.numel() // ppc
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kv_len = ppc * pt if kv_len is None else int(kv_len)
+    if (handles.numel() != s * ppc or ng * b != gb or vp.shape != kp.shape
+            or not 0 <= kv_len <= ppc * pt):
+        raise ValueError(f"shapes q {tuple(q.shape)} pages {tuple(kp.shape)} "
+                         f"handles {handles.numel()} ppc {ppc} kv_len {kv_len}")
+    _check_types(q, kp, vp, ks, vs)
+    if ks is not None and (ks.shape != (ng, npages, b, 1, kvh, 1) or vs.shape != ks.shape):
+        raise ValueError(f"scales must be [G, P, B, 1, KVH, 1] = {(ng, npages, b, 1, kvh, 1)}")
+    valid = _valid_groups(torch.as_tensor(valid, device=q.device), gb, s)
+    if not _on_card(q, kp, vp, handles, valid, ks, vs):
+        return ref.pool_attention_paged_plain(
+            q, kp, vp, handles, valid, ppc=ppc, scale=scale, kv_len=kv_len,
+            k_scale=ks, v_scale=vs)
+    handles = handles.to(torch.int32).contiguous()
+    _check_dense(q)
+    st = kp.stride()
+    if vp.stride() != st or st[5] != 1:
+        raise ValueError("k/v page stores need equal strides and a contiguous head dim")
+    align = 16 // kp.element_size()
+    if any(x % align for x in st[:5]) or kp.data_ptr() % 16 or vp.data_ptr() % 16:
+        raise ValueError("page rows must be 16-byte aligned")
+    sst = (0, 0, 0, 0)
+    if ks is not None:
+        if vs.stride() != ks.stride():
+            raise ValueError("k/v scales need equal strides")
+        sst = (ks.stride(0), ks.stride(1), ks.stride(2), ks.stride(4))
+    m = torch.empty((gb, h, c), device=q.device)
+    l = torch.empty((gb, h, c), device=q.device)
+    acc = torch.empty((gb, c, h, d), device=q.device)
+    _call("pool_attention_paged_launch", "pool_attention_paged", q.dtype, kp.dtype,
+          _ptr(q), _ptr(kp), _ptr(vp), _ptr(ks), _ptr(vs), _ptr(handles),
+          _ptr(valid), _ptr(m), _ptr(l), _ptr(acc), _Q_CODES[q.dtype],
+          _KV_CODES[kp.dtype], ng, b, c, h, s, ppc, pt, kvh, d, kv_len,
+          st[0], st[1], st[2], st[3], st[4], *sst, float(scale))
+    return m, l, acc

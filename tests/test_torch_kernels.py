@@ -1,0 +1,262 @@
+"""The three chunk-attention kernels' plain versions (``repro_torch.kernels
+.ref``, which the CPU wrappers in ``repro_torch.kernels.ops`` take) against
+the reference Pallas kernels run as the JAX tests run them (interpret mode
+off the TPU), plus the stage-group axis, the invalid-slot identity and the
+three ``pool_scan`` traversal orders.
+
+Tolerances: atol 1e-5 on m, l, acc and out for float pages and 1e-4 for
+int8/fp8 pages (both sides dequantize the same payloads; the gap is fp32
+summation order); the traversal orders agree to 1e-6 (DESIGN.md §3.5)."""
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import chunk_attn as ref_ca
+from repro.kernels import ops as ref_ops
+from repro_torch.core import attention as A
+from repro_torch.kernels import ops
+from repro_torch.kvstore import pages as kvpages
+from repro_torch.kvstore import quant as kvquant
+
+B, C, H, KVH, D = 2, 16, 4, 2, 16          # GQA g = 2
+NEG_INF = -1e30
+
+
+def _randn(*shape, seed=0):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _quant(x: np.ndarray, kind: str, axes):
+    """A payload (numpy for the reference, torch for the port) and fp32
+    scales with amax over ``axes``: the page store's codecs."""
+    target = kvquant.INT8_MAX if kind == "int8" else kvquant.FP8_MAX
+    sc = np.maximum(np.abs(x).max(axis=axes, keepdims=True), 1e-6) / target
+    t = torch.from_numpy(x / sc)
+    if kind == "int8":
+        q = torch.clamp(torch.round(t), -127, 127).to(torch.int8)
+        return q, jnp.asarray(q.numpy()), sc.astype(np.float32)
+    q = t.to(torch.float8_e4m3fn)
+    return q, jnp.asarray(q.view(torch.uint8).numpy().view(jnp.float8_e4m3fn)), \
+        sc.astype(np.float32)
+
+
+def _close(got, want, atol):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32),
+                                   rtol=0, atol=atol)
+
+
+# ------------------------------------------------------------------ K1
+
+@pytest.mark.parametrize("offset,t,kv_len", [(0, C, C), (C, 2 * C, 2 * C),
+                                             (C, 2 * C, 2 * C - 5), (0, C, C - 3)])
+def test_chunk_attention_plain_matches_pallas(offset, t, kv_len):
+    q, k, v = _randn(B, C, H, D), _randn(B, t, KVH, D, seed=1), _randn(B, t, KVH, D, seed=2)
+    want = ref_ca.chunk_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal_offset=offset,
+        kv_len=kv_len, block_q=C, block_k=min(t, 16), interpret=True, return_state=True)
+    got = ops.chunk_attention(*map(torch.from_numpy, (q, k, v)), causal_offset=offset,
+                              kv_len=kv_len, return_state=True)
+    _close(got, want, 1e-5)
+    assert ops.LAUNCHES["chunk_attention"] == 0      # the CPU never launches
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_chunk_attention_quantized_matches_pallas(kind):
+    q = _randn(B, C, H, D)
+    kq, rkq, ks = _quant(_randn(B, C, KVH, D, seed=3), kind, (1, 3))
+    vq, rvq, vs = _quant(_randn(B, C, KVH, D, seed=4), kind, (1, 3))
+    ks = np.broadcast_to(ks, (B, C, KVH, 1))[..., 0].copy()
+    vs = np.broadcast_to(vs, (B, C, KVH, 1))[..., 0].copy()
+    want = ref_ops.chunk_attention(jnp.asarray(q), rkq, rvq, causal_offset=C,
+                                   return_state=True, k_scale=jnp.asarray(ks),
+                                   v_scale=jnp.asarray(vs))
+    got = ops.chunk_attention(torch.from_numpy(q), kq, vq, causal_offset=C,
+                              return_state=True, k_scale=torch.from_numpy(ks),
+                              v_scale=torch.from_numpy(vs))
+    _close(got, want, 1e-4)
+
+
+def test_full_attention_is_offset_past_last_key():
+    q, k, v = _randn(B, C, H, D), _randn(B, 24, KVH, D, seed=1), _randn(B, 24, KVH, D, seed=2)
+    got = ops.full_attention(*map(torch.from_numpy, (q, k, v)))
+    want = ref_ops.full_attention(*map(jnp.asarray, (q, k, v)))
+    _close([got], [want], 1e-5)
+
+
+# ------------------------------------------------------------------ K2
+
+VALIDS = [np.array([1, 0, 1]), np.array([0, 0, 0]), np.array([1, 1, 1])]
+
+
+@pytest.mark.parametrize("valid", VALIDS, ids=["mixed", "none", "all"])
+@pytest.mark.parametrize("kind", ["float32", "int8", "fp8"])
+def test_pool_attention_plain_matches_pallas(valid, kind):
+    s = valid.shape[0]
+    q = _randn(B, C, H, D)
+    k, v = _randn(s, B, C, KVH, D, seed=5), _randn(s, B, C, KVH, D, seed=6)
+    if kind == "float32":
+        args, rargs, kw, rkw, tol = (k, v), (k, v), {}, {}, 1e-5
+        args = tuple(map(torch.from_numpy, args))
+        rargs = tuple(map(jnp.asarray, rargs))
+    else:
+        kq, rkq, ks = _quant(k, kind, (2, 4))
+        vq, rvq, vs = _quant(v, kind, (2, 4))
+        ks = np.broadcast_to(ks, (s, B, C, KVH, 1))[..., 0].copy()
+        vs = np.broadcast_to(vs, (s, B, C, KVH, 1))[..., 0].copy()
+        args, rargs, tol = (kq, vq), (rkq, rvq), 1e-4
+        kw = dict(k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
+        rkw = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    want = ref_ops.pool_attention(jnp.asarray(q), *rargs, jnp.asarray(valid), **rkw)
+    got = ops.pool_attention(torch.from_numpy(q), *args, torch.from_numpy(valid), **kw)
+    _close(got, want, tol)
+    if not valid.any():
+        m, l, acc = got
+        assert bool((m == NEG_INF).all() and (l == 0).all() and (acc == 0).all())
+
+
+def test_pool_attention_group_axis():
+    """valid [G, S] with G = 2 stage groups equals two single-group calls."""
+    s, g = 3, 2
+    q = torch.from_numpy(_randn(g * B, C, H, D))
+    k = torch.from_numpy(_randn(s, g * B, C, KVH, D, seed=7))
+    v = torch.from_numpy(_randn(s, g * B, C, KVH, D, seed=8))
+    valid = torch.tensor([[1, 0, 1], [0, 1, 1]])
+    got = ops.pool_attention(q, k, v, valid, kv_len=C - 4)
+    for gi in range(g):
+        rows = slice(gi * B, (gi + 1) * B)
+        one = ops.pool_attention(q[rows], k[:, rows], v[:, rows], valid[gi], kv_len=C - 4)
+        for a, b in zip(got, one):
+            assert torch.equal(a[rows], b)
+
+
+# ------------------------------------------------------------------ K3
+
+def _page_store(npages, pt, g=None, seed=11):
+    lead = () if g is None else (g,)
+    k = _randn(*lead, npages, 2, B, pt, KVH, D, seed=seed)     # [.., P, lps, B, pt, K, D]
+    v = _randn(*lead, npages, 2, B, pt, KVH, D, seed=seed + 1)
+    return k, v
+
+
+@pytest.mark.parametrize("ppc", [1, 2])
+@pytest.mark.parametrize("kind", ["float32", "int8", "fp8"])
+def test_paged_plain_matches_pallas(ppc, kind):
+    """Shuffled handles, a partial last page (kv_len < ppc*pt), a mixed
+    valid row; the port reads a strided layer view of a 2-layer store."""
+    s, pt = 3, C // ppc
+    npages = (s + 1) * ppc
+    handles = np.random.default_rng(2).permutation(npages)[: s * ppc].astype(np.int32)
+    valid = np.array([1, 0, 1], np.int32)
+    kv_len = C - 5
+    q = _randn(B, C, H, D)
+    k, v = _page_store(npages, pt)
+    kw, rkw, tol = {}, {}, 1e-5
+    if kind == "float32":
+        kt, vt = torch.from_numpy(k), torch.from_numpy(v)
+        rk, rv = jnp.asarray(k[:, 1]), jnp.asarray(v[:, 1])
+    else:
+        kt, rk, ks = _quant(k, kind, (3, 5))
+        vt, rv, vs = _quant(v, kind, (3, 5))
+        rk, rv = rk[:, 1], rv[:, 1]
+        kw = dict(k_scale=torch.from_numpy(ks)[:, 1], v_scale=torch.from_numpy(vs)[:, 1])
+        rkw = dict(k_scale=jnp.asarray(ks[:, 1]), v_scale=jnp.asarray(vs[:, 1]))
+        tol = 1e-4
+    want = ref_ops.pool_attention_paged(
+        jnp.asarray(q), rk, rv, jnp.asarray(handles), jnp.asarray(valid), ppc=ppc,
+        kv_len=kv_len, **rkw)
+    k_l, v_l = kt[:, 1], vt[:, 1]                       # strided views, not copies
+    assert not k_l.is_contiguous()
+    got = ops.pool_attention_paged(torch.from_numpy(q), k_l, v_l,
+                                   torch.from_numpy(handles), torch.from_numpy(valid),
+                                   ppc=ppc, kv_len=kv_len, **kw)
+    _close(got, want, tol)
+
+
+def test_paged_invalid_slots_are_exact_identity():
+    k, v = _page_store(4, C)
+    got = ops.pool_attention_paged(
+        torch.from_numpy(_randn(B, C, H, D)), torch.from_numpy(k)[:, 0],
+        torch.from_numpy(v)[:, 0], torch.tensor([2, 0, 1]), torch.zeros(3), ppc=1)
+    m, l, acc = got
+    assert bool((m == NEG_INF).all() and (l == 0).all() and (acc == 0).all())
+
+
+def test_paged_group_axis_reads_each_stage_pages():
+    """A stage-stacked store [G, P, lps, B, pt, K, D], one layer's strided
+    view, valid [G, S]: equal to G single-stage calls on each stage's own
+    pages (a wrong stride would read another stage's or layer's pages)."""
+    g, s, ppc, pt = 2, 3, 2, 8
+    npages = (s + 1) * ppc
+    k, v = _page_store(npages, pt, g=g)
+    k[1] += 3.0                                          # stages differ visibly
+    kt, vt = torch.from_numpy(k), torch.from_numpy(v)
+    handles = torch.tensor([5, 0, 7, 2, 1, 6], dtype=torch.int32)
+    valid = torch.tensor([[1, 1, 0], [0, 1, 1]])
+    q = torch.from_numpy(_randn(g * B, C, H, D))
+    got = ops.pool_attention_paged(q, kt[:, :, 1], vt[:, :, 1], handles, valid,
+                                   ppc=ppc, kv_len=13)
+    for gi in range(g):
+        rows = slice(gi * B, (gi + 1) * B)
+        one = ops.pool_attention_paged(q[rows], kt[gi, :, 1], vt[gi, :, 1], handles,
+                                       valid[gi], ppc=ppc, kv_len=13)
+        for a, b in zip(got, one):
+            assert torch.equal(a[rows], b)
+
+
+# --------------------------------------------------------- wrapper checks
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    q = torch.zeros(B, C, H, D)
+    k = torch.zeros(B, C, KVH, D)
+    with pytest.raises(TypeError):
+        ops.chunk_attention(q, k.to(torch.bfloat16), k.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        ops.chunk_attention(q, k.to(torch.int8), k.to(torch.int8))   # no scales
+    with pytest.raises(ValueError):
+        ops.chunk_attention(torch.zeros(B, C, H, 24), torch.zeros(B, C, KVH, 24),
+                            torch.zeros(B, C, KVH, 24))             # head dim 24
+    with pytest.raises(ValueError):
+        ops.chunk_attention(q, k, k, kv_len=C + 1)
+    with pytest.raises(ValueError):
+        ops.pool_attention(q, k[None], k[None], torch.ones(2))      # 2 valid, 1 slot
+
+
+# ------------------------------------------------------ traversal orders
+
+@pytest.mark.parametrize("kind,slots", [("float32", None), ("float32", [3, 1]),
+                                        ("int8", None)])
+def test_pool_scan_traversal_orders_agree(kind, slots):
+    """Per-slot ``torch``, batched ``cuda`` (K2's plain version) and
+    ``paged`` (K3's plain version) over a stage-stacked pool with a
+    different phase per stage: 1e-6 on float pages, 2e-5 on int8 pages."""
+    n, nslots, pt = 2, 4, 8
+    geom = kvpages.page_geometry(C, nslots, pt)
+    tbl = kvpages.build_slot_pages(geom)
+    codec = kvquant.get_codec(kind if kind == "int8" else "auto", "float32")
+    pool = kvpages.alloc_pool(geom, codec, 1, B, KVH, D, stages=n, device="cpu")
+    for s in range(nslots):
+        kv = torch.from_numpy(_randn(n, 1, B, C, KVH, D, seed=20 + s))
+        kq, ks = kvquant.encode(codec, kv, pages=geom.pages_per_chunk)
+        vq, vs = kvquant.encode(codec, -0.5 * kv, pages=geom.pages_per_chunk)
+        kvpages.scatter_chunk_raw(pool, np.stack([tbl[s]] * n), kq, vq, ks, vs)
+    pool_l = (pool.k[:, :, 0], pool.v[:, :, 0],
+              None if pool.k_scale is None else pool.k_scale[:, :, 0],
+              None if pool.v_scale is None else pool.v_scale[:, :, 0])
+    slot_chunk = np.array([0, 1, 2, 3, -1])
+    limit = np.array([2, 4])                             # per stage
+    qg = A.group_queries(torch.from_numpy(_randn(n * B, C, H, D, seed=9)), KVH)
+    scale = 1.0 / math.sqrt(D)
+    outs = {}
+    for name in ("torch", "cuda", "paged"):
+        st = A.pool_scan(A.get_backend(name), qg, pool_l, tbl, slot_chunk, limit, scale,
+                         A.attn_init(n * B, C, KVH, H // KVH, D), slots=slots)
+        outs[name] = (A.attn_finish(st, torch.float32), st)
+    tol = 1e-6 if kind == "float32" else 2e-5
+    for name in ("cuda", "paged"):
+        np.testing.assert_allclose(outs[name][0].numpy(), outs["torch"][0].numpy(),
+                                   atol=tol, rtol=tol)
+        np.testing.assert_array_equal(outs[name][1][0].numpy(), outs["torch"][1][0].numpy())
