@@ -3,7 +3,9 @@ arrays, into the port's tensors — a plain key-for-key copy.
 
 The reference's trees arrive through ``np.asarray`` (done by the caller);
 this module never imports jax. ml_dtypes arrays (bfloat16, float8_e4m3fn)
-are reinterpreted bit for bit through an integer view.
+are reinterpreted bit for bit through an integer view. The Mamba2 leaves
+``a_log``, ``dt_bias`` and ``d_skip`` stay fp32 whatever dtype is asked for,
+as the reference keeps them.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from repro_torch.kvstore.pages import PagedPool
 from repro_torch.kvstore.quant import torch_dtype
+from repro_torch.models.ssm import FP32_PARAMS
 
 _BITCAST = {"bfloat16": (np.uint16, torch.bfloat16),
             "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
@@ -36,9 +39,10 @@ def tensor_from_numpy(a, device=None, dtype=None) -> torch.Tensor:
 def params_from_numpy(tree: Dict[str, Any], device=None,
                       dtype=None) -> Dict[str, Any]:
     """Nested dict of numpy arrays -> the same dict of tensors. ``dtype``
-    (optional) recasts the floating leaves."""
+    (optional) recasts the floating leaves, except ``FP32_PARAMS``."""
     return {k: (params_from_numpy(v, device, dtype) if isinstance(v, dict)
-                else tensor_from_numpy(v, device, dtype))
+                else tensor_from_numpy(v, device,
+                                       None if k in FP32_PARAMS else dtype))
             for k, v in tree.items()}
 
 

@@ -1,6 +1,8 @@
 from repro_torch.configs.base import (
+    HybridConfig,
     ModelConfig,
     RunConfig,
+    SSMConfig,
     get_config,
     get_smoke_config,
     list_archs,
@@ -8,5 +10,6 @@ from repro_torch.configs.base import (
     replace,
 )
 
-__all__ = ["ModelConfig", "RunConfig", "get_config", "get_smoke_config",
-           "list_archs", "register", "replace"]
+__all__ = ["HybridConfig", "ModelConfig", "RunConfig", "SSMConfig",
+           "get_config", "get_smoke_config", "list_archs", "register",
+           "replace"]

@@ -1,16 +1,40 @@
 """Model and run configs plus the arch registry (the port's own copy of the
-fields the dense prefill path reads; mirrors ``repro.configs.base``)."""
+fields the prefill paths read; mirrors ``repro.configs.base``)."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    conv_kernel: int = 4
+    n_groups: int = 1
+    chunk_size: int = 256
+    dt_min: float = 0.001
+    dt_max: float = 0.1
+
+
+@dataclass(frozen=True)
+class HybridConfig:
+    """Zamba2-style: groups of SSM layers with a shared attention block."""
+    ssm_per_group: int = 5
+    num_groups: int = 13
+    tail_ssm_layers: int = 3
+
+    @property
+    def total_layers(self) -> int:
+        return self.num_groups * (self.ssm_per_group + 1) + self.tail_ssm_layers
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     arch: str
-    family: str  # dense (the only family of this slice)
+    family: str  # dense | ssm | hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -27,6 +51,8 @@ class ModelConfig:
     logits_scaling: float = 1.0
     residual_multiplier: float = 1.0
     attention_multiplier: float = 0.0  # 0 -> 1/sqrt(head_dim)
+    ssm: Optional[SSMConfig] = None
+    hybrid: Optional[HybridConfig] = None
     dtype: str = "bfloat16"
     source: str = ""
 
@@ -54,12 +80,16 @@ class RunConfig:
     # pool-sourced partials: auto (follows attn_backend) | torch | cuda
     # (slot-stack kernel K2) | paged (in-place page kernel K3)
     pool_backend: str = "auto"
+    # SSD inner loop of the ssm / hybrid stage programs: "torch"
+    # (``models.ssm.ssd_chunked``) | "cuda" (kernel K4)
+    ssm_backend: str = "torch"
     kv_dtype: str = "auto"            # auto | bfloat16 | float32 | int8 | fp8
     kv_page_tokens: int = 0           # 0 = one page per chunk
 
 
 ATTN_BACKENDS = ("torch", "cuda")
 POOL_BACKENDS = ("auto", "torch", "cuda", "paged")
+SSM_BACKENDS = ("torch", "cuda")
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
@@ -72,7 +102,7 @@ def register(name: str, full: Callable[[], ModelConfig],
 
 
 def _ensure_loaded() -> None:
-    from repro_torch.configs import qwen3_8b  # noqa: F401
+    from repro_torch.configs import mamba2_130m, qwen3_8b, zamba2_7b  # noqa: F401
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -1,13 +1,13 @@
 """Chunked-pipeline prefill driver — MOCAP's execution model on one GPU
-(mirrors ``repro.core.pipeline`` for the dense family, modes mocap and
-terapipe).
+(mirrors ``repro.core.pipeline`` for the dense, ssm and hybrid families,
+modes mocap and terapipe).
 
 The reference maps the N pipeline stages onto N devices in SPMD lockstep
 (``shard_map`` + ``ppermute``). Here the stage axis is the leading tensor
 dimension: the stage-stacked params ``[N, lps, ...]``, the stage-stacked
-paged KV pool and the activations ``[N, B, C, d]``. Each tick runs every
-stage as batched ops, the fill/drain bubble included as in the reference,
-and the ring shift is a roll by one on the stage axis.
+paged KV pool, the SSM state and the activations ``[N, B, C, d]``. Each
+tick runs every stage as batched ops, the fill/drain bubble included as in
+the reference, and the ring shift is a roll by one on the stage axis.
 """
 from __future__ import annotations
 
@@ -20,8 +20,10 @@ from repro_torch import device as devices
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import transport as tx
 from repro_torch.core.plan import PipelinePlan, build_plan  # noqa: F401
-from repro_torch.core.stagestep import StageCtx, tfm_stage_step
-from repro_torch.core.staging import Params, alloc_kv_pool, stage_params  # noqa: F401
+from repro_torch.core.stagestep import (StageCtx, hybrid_stage_step,
+                                       ssm_stage_step, tfm_stage_step)
+from repro_torch.core.staging import (Params, alloc_kv_pool,  # noqa: F401
+                                      alloc_ssm_state, stage_params)
 from repro_torch.kvstore.quant import torch_dtype
 from repro_torch.models import layers as L
 
@@ -49,11 +51,16 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
         raise ValueError(f"tokens {tuple(tokens.shape)} vs plan {m} x {c}")
     dt = torch_dtype(cfg.dtype)
     transport = tx.StageAxisTransport()
-    scale = cfg.attention_multiplier or 1.0 / math.sqrt(cfg.resolved_head_dim)
+    scale = cfg.attention_multiplier or 1.0 / math.sqrt(cfg.resolved_head_dim or 1)
     stages = np.arange(n)
     first_half = stages < n // 2
 
-    pool = alloc_kv_pool(cfg, plan, b, device=dev)
+    family = cfg.family
+    if family not in ("dense", "ssm", "hybrid"):
+        raise ValueError(f"family {family!r} is not ported")
+    pool = alloc_kv_pool(cfg, plan, b, device=dev)          # None for ssm
+    state = (alloc_ssm_state(cfg, plan, b, device=dev)
+             if family in ("ssm", "hybrid") else None)
     x = torch.zeros((n, b, c, cfg.d_model), dtype=dt, device=dev)
     x_last = torch.zeros((n, b, cfg.d_model), dtype=torch.float32, device=dev)
     led = tx.ledger_init()
@@ -67,7 +74,15 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
         if cfg.embedding_multiplier != 1.0:
             x_emb = x_emb * cfg.embedding_multiplier
         x[0] = x_emb.to(dt)
-        x_out, pool, led = tfm_stage_step(ctx, staged["stage_layers"], x, pool, led)
+        if family == "ssm":
+            x_out, state, led = ssm_stage_step(ctx, staged["stage_layers"], x,
+                                               state, led)
+        elif family == "hybrid":
+            x_out, state, pool, led = hybrid_stage_step(
+                ctx, staged["stage_layers"], staged["shared"], x, state, pool, led)
+        else:
+            x_out, pool, led = tfm_stage_step(ctx, staged["stage_layers"], x,
+                                              pool, led)
         # the last token's hidden state, at the last stage's last chunk
         for s in np.flatnonzero((stages == n - 1) & (phase == m - 1)):
             x_last[s] = x_out[s, :, -1].float()

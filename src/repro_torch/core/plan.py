@@ -6,7 +6,8 @@ A ``PipelinePlan`` pins the pipeline geometry (N stages x M chunks x C
 tokens), the MBKR slot plan and its static numpy lookup tables, the KV page
 layout, and the policy knobs every lower layer reads: ``remote_attn``
 (fetch | qship), ``attn_backend`` (torch | cuda) and ``pool_backend``
-(torch | cuda | paged).
+(torch | cuda | paged) and ``ssm_backend`` (torch | cuda, the SSD inner
+loop of the ssm / hybrid stage programs).
 """
 from __future__ import annotations
 
@@ -27,12 +28,13 @@ class PipelinePlan:
     num_stages: int           # N
     num_chunks: int           # M
     chunk_len: int            # C
-    layers_per_stage: int     # lps = ceil(L / N)
+    layers_per_stage: int     # lps = ceil(L / N); hybrid: groups per stage
     num_slots: int            # KV pool size (excl. scratch)
     p2: int                   # spill threshold (chunks >= p2 spill); M if no MBKR
     remote_attn: str = "qship"
     attn_backend: str = "torch"
     pool_backend: str = "torch"  # resolved, never "auto"
+    ssm_backend: str = "torch"
     spill_dtype: str = "bfloat16"
     ship_dtype: str = "bfloat16"
     kv_dtype: str = "bfloat16"   # resolved storage knob
@@ -91,6 +93,8 @@ def build_plan(cfg: ModelConfig, num_stages: int, seq_len: int,
                     else run.pool_backend)
     if pool_backend not in ("torch", "cuda", "paged"):
         raise ValueError(f"unknown pool_backend {run.pool_backend!r}")
+    if run.ssm_backend not in ("torch", "cuda"):
+        raise ValueError(f"unknown ssm_backend {run.ssm_backend!r}")
     m = run.num_chunks
     assert seq_len % m == 0, f"seq_len {seq_len} must divide into {m} chunks"
     c = seq_len // m
@@ -102,11 +106,12 @@ def build_plan(cfg: ModelConfig, num_stages: int, seq_len: int,
     kvpages.verify_page_plan(slot_pages, geom)
     return PipelinePlan(
         mode=mode, num_stages=num_stages, num_chunks=m, chunk_len=c,
-        layers_per_stage=-(-cfg.num_layers // num_stages),
+        layers_per_stage=_layers_per_stage(cfg, num_stages),
         num_slots=mp.num_slots, p2=mp.p2,
         remote_attn=run.remote_attn,
         attn_backend=run.attn_backend,
         pool_backend=pool_backend,
+        ssm_backend=run.ssm_backend,
         spill_dtype=run.kv_spill_dtype,
         ship_dtype=cfg.dtype,
         kv_dtype=codec.name, page_tokens=geom.page_tokens,
@@ -120,3 +125,11 @@ def build_plan(cfg: ModelConfig, num_stages: int, seq_len: int,
             [mp.host_slot_a[mp.p2:], mp.host_slot_b[mp.p2:]])).astype(np.int32)
         if mp.p2 < m else np.zeros((0,), np.int32),
     )
+
+
+def _layers_per_stage(cfg: ModelConfig, n: int) -> int:
+    if cfg.family == "hybrid":
+        nl = cfg.hybrid.num_groups + 1  # +1 pseudo-group for the SSM tail
+    else:
+        nl = cfg.num_layers
+    return -(-nl // n)

@@ -1,5 +1,8 @@
-"""The stage program: what every stage computes in one pipeline tick
-(mirrors the dense path of ``repro.core.stagestep``).
+"""The stage programs: what every stage computes in one pipeline tick
+(mirrors ``repro.core.stagestep``): ``tfm_stage_step`` for the dense
+transformer, ``ssm_stage_step`` for Mamba2 (conv/SSD state carried tick to
+tick) and ``hybrid_stage_step`` for Zamba2 (SSM groups plus a shared
+attention block whose KV takes part in MBKR, one pool "layer" per group).
 
 The reference runs one stage per chip; here all N stages run in lockstep as
 a leading tensor axis. Activations are [N, B, C, d]; projections are
@@ -23,7 +26,10 @@ from repro_torch.core.attention import (attn_finish, attn_init, get_backend,
                                         group_queries, pool_scan)
 from repro_torch.core.plan import PipelinePlan
 from repro_torch.core.transport import Ledger, StageAxisTransport
+from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
+from repro_torch.models import transformer as T
 
 Params = Dict[str, Any]
 
@@ -81,6 +87,24 @@ def _stage_w(w: torch.Tensor, ndim: int) -> torch.Tensor:
     return w.reshape(w.shape[0], *([1] * (ndim - 2)), w.shape[-1])
 
 
+def _rope(ctx: StageCtx, x: torch.Tensor):
+    """cos, sin [N*B, C, half] at every stage's positions this tick."""
+    n, b, c, _ = x.shape
+    plan = ctx.plan
+    positions = (np.clip(ctx.phase, 0, plan.num_chunks - 1)[:, None]
+                 * plan.chunk_len + np.arange(c)[None, :])       # [N, C]
+    cos, sin = L.rope_angles(torch.as_tensor(positions, device=x.device),
+                             ctx.cfg.resolved_head_dim, ctx.cfg.rope_theta)
+    return cos.repeat_interleave(b, dim=0), sin.repeat_interleave(b, dim=0)
+
+
+def _stack_kv(ks, vs, n: int, b: int):
+    """Per-layer [N*B, C, K, D] lists -> [N, lps, B, C, K, D] each."""
+    def one(xs):
+        return torch.stack(xs, dim=1).reshape(n, b, len(xs), *xs[0].shape[1:]).transpose(1, 2)
+    return one(ks), one(vs)
+
+
 def tfm_stage_step(ctx: StageCtx, layers: Params, x: torch.Tensor, pool,
                    led: Ledger = None):
     """Apply every stage's lps layers to its chunk ``ctx.phase``.
@@ -90,12 +114,7 @@ def tfm_stage_step(ctx: StageCtx, layers: Params, x: torch.Tensor, pool,
     n, b, c, dm = x.shape
     hd = cfg.resolved_head_dim
     rm = cfg.residual_multiplier
-    positions = (np.clip(ctx.phase, 0, plan.num_chunks - 1)[:, None]
-                 * plan.chunk_len + np.arange(c)[None, :])       # [N, C]
-    cos, sin = L.rope_angles(torch.as_tensor(positions, device=x.device), hd,
-                             cfg.rope_theta)
-    cos = cos.repeat_interleave(b, dim=0)                       # [N*B, C, half]
-    sin = sin.repeat_interleave(b, dim=0)
+    cos, sin = _rope(ctx, x)
     ks, vs = [], []
     for li in range(plan.layers_per_stage):
         lp = {k: w[:, li] for k, w in layers.items()}
@@ -117,9 +136,75 @@ def tfm_stage_step(ctx: StageCtx, layers: Params, x: torch.Tensor, pool,
         x = x + rm * ffn.reshape(n, b, c, dm)
         ks.append(k)
         vs.append(v)
-    stage_k = torch.stack(ks, dim=1).reshape(n, b, plan.layers_per_stage,
-                                             *ks[0].shape[1:]).transpose(1, 2)
-    stage_v = torch.stack(vs, dim=1).reshape(n, b, plan.layers_per_stage,
-                                             *vs[0].shape[1:]).transpose(1, 2)
-    pool, led = remote.write_pools(ctx, pool, stage_k, stage_v, led)
+    pool, led = remote.write_pools(ctx, pool, *_stack_kv(ks, vs, n, b), led)
     return x, pool, led
+
+
+def _mamba(ctx: StageCtx, lp: Params, x: torch.Tensor, conv: torch.Tensor,
+           ssd: torch.Tensor) -> torch.Tensor:
+    """One Mamba2 layer of every stage. ``conv`` / ``ssd`` are this layer's
+    [N, B, ...] state views, updated in place; a stage at phase <= 0 (the
+    start of its request, or a bubble tick before it) starts from zeros."""
+    fresh = np.flatnonzero(ctx.phase <= 0)
+    if fresh.size:
+        idx = torch.as_tensor(fresh, device=x.device)
+        conv[idx] = 0
+        ssd[idx] = 0
+    x, st = S.block_apply(ctx.cfg, lp, x, state={"conv": conv, "ssd": ssd},
+                          ssd_impl=ctx.plan.ssm_backend)
+    conv.copy_(st["conv"])
+    ssd.copy_(st["ssd"])
+    return x
+
+
+def ssm_stage_step(ctx: StageCtx, layers: Params, x: torch.Tensor, state,
+                   led: Ledger = None):
+    """Mamba2 stage: every stage's lps blocks over its chunk, the (conv,
+    ssd) state [N, lps, B, ...] carried tick to tick (updated in place).
+    The SSD inner loop routes through ``plan.ssm_backend``. No pool and no
+    transfer: the ledger passes through. Returns (x_out, state, ledger)."""
+    conv, ssd = state
+    for li in range(ctx.plan.layers_per_stage):
+        x = _mamba(ctx, {k: w[:, li] for k, w in layers.items()}, x,
+                   conv[:, li], ssd[:, li])
+    return x, state, led
+
+
+def hybrid_stage_step(ctx: StageCtx, groups: Params, shared: Params,
+                      x: torch.Tensor, state, pool, led: Ledger = None):
+    """Zamba2 stage = lps groups of (pg Mamba2 + the shared attention
+    block). ``groups`` leaves are [N, lps, pg, ...]; ``shared`` is one
+    unstacked transformer layer; state [N, lps, pg, B, ...]. The shared
+    block's update and FFN apply only where the group is real (global group
+    id stage * lps + gi < num_groups); its K/V are written for every group,
+    the tail pseudo-group and the padding included, as in the reference.
+    Returns (x_out, state, pool, ledger); state and pool update in place."""
+    cfg, plan = ctx.cfg, ctx.plan
+    scfg = HY.T_single_cfg(cfg)
+    n, b, c, dm = x.shape
+    hd = cfg.resolved_head_dim
+    cos, sin = _rope(ctx, x)
+    conv, ssd = state
+    ks, vs = [], []
+    for gi in range(plan.layers_per_stage):
+        for li in range(cfg.hybrid.ssm_per_group):
+            x = _mamba(ctx, {k: w[:, gi, li] for k, w in groups.items()}, x,
+                       conv[:, gi, li], ssd[:, gi, li])
+        has_attn = torch.as_tensor(ctx.stage * plan.layers_per_stage + gi
+                                   < cfg.hybrid.num_groups,
+                                   device=x.device).reshape(n, 1, 1, 1)
+        hn = L.rms_norm(x, shared["ln1"], cfg.norm_eps).reshape(n, b * c, dm)
+        q = torch.matmul(hn, shared["wq"]).reshape(n * b, c, -1, hd)
+        k = torch.matmul(hn, shared["wk"]).reshape(n * b, c, -1, hd)
+        v = torch.matmul(hn, shared["wv"]).reshape(n * b, c, -1, hd)
+        q = L.apply_rope(q, cos, sin)
+        k = L.apply_rope(k, cos, sin)
+        att, led = attend_chunk(ctx, gi, q, k, v, pool, led)
+        upd = torch.matmul(att.reshape(n, b * c, -1), shared["wo"])
+        x = x + torch.where(has_attn, upd.reshape(n, b, c, dm), 0.0)
+        ffn = T.ffn_block(scfg, shared, x) - x            # isolate the update
+        x = x + torch.where(has_attn, ffn, 0.0)
+        ks.append(k)
+        vs.append(v)
+    pool, led = remote.write_pools(ctx, pool, *_stack_kv(ks, vs, n, b), led)
+    return x, state, pool, led

@@ -20,6 +20,8 @@
 //       stage-stacked page store [G,P,B,pt,KVH,D] through page handles
 //       [S*ppc] (no gathered stack exists anywhere); pages past kv_len are
 //       never visited and a partial last page is masked.
+// Head dims D = 16 (smoke), 112 (zamba2-7b's shared block) and 128
+// (qwen3-8b); D % 8 == 0 is what the float4 halves of a row need.
 // GQA maps query head h to kv head h / (H / KVH). int8 / fp8 K/V are
 // dequantized right after the load: per-token fp32 scales [.., T, KVH] for
 // K1/K2, per-page scales for K3, applied on the landing buffer.
@@ -447,6 +449,7 @@ int launch_paged(const void* q, const void* k, const void* v, const float* ks,
 #define DISPATCH_D(FN, TQ, TKV, ...)                                   \
   switch (D) {                                                         \
     case 16: return FN<TQ, TKV, 16>(__VA_ARGS__);                      \
+    case 112: return FN<TQ, TKV, 112>(__VA_ARGS__);                    \
     case 128: return FN<TQ, TKV, 128>(__VA_ARGS__);                    \
     default: return (int)cudaErrorInvalidValue;                        \
   }

@@ -1,5 +1,6 @@
-"""Public wrappers of the three CUDA attention kernels
-(``csrc/chunk_attn.cu``), the counterparts of ``repro.kernels.ops``.
+"""Public wrappers of the CUDA kernels, the counterparts of
+``repro.kernels.ops``: the three attention kernels K1-K3
+(``csrc/chunk_attn.cu``) and the Mamba2 SSD scan K4 (``csrc/ssd.cu``).
 
 Each wrapper checks device, dtype, shape and layout and raises on what the
 kernel does not take, allocates its outputs with ``torch.empty`` and
@@ -19,7 +20,7 @@ import torch
 from repro_torch.kernels import ref
 
 LAUNCHES = {"chunk_attention": 0, "pool_attention": 0,
-            "pool_attention_paged": 0}
+            "pool_attention_paged": 0, "ssd": 0}
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -30,7 +31,7 @@ _COMBOS = {(torch.float32, torch.float32): 0, (torch.float32, torch.int8): 1,
            (torch.float32, torch.float8_e4m3fn): 2,
            (torch.bfloat16, torch.bfloat16): 3, (torch.bfloat16, torch.int8): 4,
            (torch.bfloat16, torch.float8_e4m3fn): 5}
-_HEAD_DIMS = (16, 128)   # the smoke and the full-width head dims
+_HEAD_DIMS = (16, 112, 128)   # smoke; zamba2-7b's shared block; qwen3-8b
 _MAX_SLOTS = 1024
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -38,7 +39,12 @@ _SIGNATURES = {
     "chunk_attention_launch": [_P] * 9 + [_I] * 10 + [_F, _P],
     "pool_attention_launch": [_P] * 9 + [_I] * 11 + [_F, _P],
     "pool_attention_paged_launch": [_P] * 10 + [_I] * 12 + [_LL] * 9 + [_F, _P],
+    "ssd_launch": [_P] * 9 + [_I] * 9 + [_P],
 }
+_SSD_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# (P, N) = (head dim, state size): smoke; zamba2-7b; mamba2-130m
+_SSD_SHAPES = ((16, 16), (64, 64), (64, 128))
+_SSD_MAX_CHUNK = 256
 
 
 def reset_launches() -> None:
@@ -46,22 +52,24 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _fn(name: str, q_dtype: torch.dtype, kv_dtype: torch.dtype):
+def _fn(lib_name: str, name: str):
     from repro_torch.kernels import build
-    lib = build.lib(f"chunk_attn.{_COMBOS[(q_dtype, kv_dtype)]}")
-    fn = getattr(lib, name)
+    fn = getattr(build.lib(lib_name), name)
     if fn.argtypes is None:
         fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _call(name: str, tag: str, q_dtype, kv_dtype, *args) -> None:
-    err = _fn(name, q_dtype, kv_dtype)(
-        *args, torch.cuda.current_stream().cuda_stream)
+def _call(lib_name: str, name: str, tag: str, *args) -> None:
+    err = _fn(lib_name, name)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} failed: CUDA error {err}")
     LAUNCHES[tag] += 1
+
+
+def _attn_lib(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
+    return f"chunk_attn.{_COMBOS[(q_dtype, kv_dtype)]}"
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -148,7 +156,7 @@ def chunk_attention(q, k, v, *, causal_offset: int = 0,
         m = torch.empty((b, h, c), device=q.device)
         l = torch.empty((b, h, c), device=q.device)
         acc = torch.empty((b, c, h, d), device=q.device)
-    _call("chunk_attention_launch", "chunk_attention", q.dtype, k.dtype,
+    _call(_attn_lib(q.dtype, k.dtype), "chunk_attention_launch", "chunk_attention",
           _ptr(q), _ptr(k), _ptr(v), _ptr(k_scale), _ptr(v_scale), _ptr(out),
           _ptr(m), _ptr(l), _ptr(acc), _Q_CODES[q.dtype], _KV_CODES[k.dtype],
           b, c, h, t, kvh, d, int(causal_offset), kv_len, float(scale))
@@ -189,7 +197,7 @@ def pool_attention(q, k, v, valid, *, scale: Optional[float] = None,
     l = torch.empty((gb, h, c), device=q.device)
     acc = torch.empty((gb, c, h, d), device=q.device)
     ng = valid.shape[0]
-    _call("pool_attention_launch", "pool_attention", q.dtype, k.dtype,
+    _call(_attn_lib(q.dtype, k.dtype), "pool_attention_launch", "pool_attention",
           _ptr(q), _ptr(k), _ptr(v), _ptr(k_scale), _ptr(v_scale), _ptr(valid),
           _ptr(m), _ptr(l), _ptr(acc), _Q_CODES[q.dtype], _KV_CODES[k.dtype],
           ng, gb // ng, c, h, s, t, kvh, d, kv_len, float(scale))
@@ -253,9 +261,64 @@ def pool_attention_paged(q, k_pages, v_pages, handles, valid, *, ppc: int,
     m = torch.empty((gb, h, c), device=q.device)
     l = torch.empty((gb, h, c), device=q.device)
     acc = torch.empty((gb, c, h, d), device=q.device)
-    _call("pool_attention_paged_launch", "pool_attention_paged", q.dtype, kp.dtype,
+    _call(_attn_lib(q.dtype, kp.dtype), "pool_attention_paged_launch",
+          "pool_attention_paged",
           _ptr(q), _ptr(kp), _ptr(vp), _ptr(ks), _ptr(vs), _ptr(handles),
           _ptr(valid), _ptr(m), _ptr(l), _ptr(acc), _Q_CODES[q.dtype],
           _KV_CODES[kp.dtype], ng, b, c, h, s, ppc, pt, kvh, d, kv_len,
           st[0], st[1], st[2], st[3], st[4], *sst, float(scale))
     return m, l, acc
+
+
+# -------------------------------------------------------------------- K4
+
+def ssd_chunk(t: int, chunk: int) -> int:
+    """The chunk the scan runs at (the reference's rule): min(chunk, T),
+    halved until it divides T."""
+    ck = min(chunk, t)
+    while t % ck:
+        ck //= 2
+    return ck
+
+
+def ssd(x, dt, a_log, b, c, d_skip, *, chunk: int = 128, init_state=None):
+    """Mamba2 chunked SSD scan (K4). x [R,T,H,P] and b, c [R,T,G,N] in
+    bf16 or fp32 (G divides H); dt [R,T,H] fp32 (after softplus); a_log
+    and d_skip [H], or [Gs,H] for Gs equal stage groups of rows (one layer
+    per pipeline stage); init_state [R,H,P,N] fp32 or None. Runs at
+    ``ssd_chunk(T, chunk)``. Returns (y [R,T,H,P] in x's dtype, final state
+    [R,H,P,N] fp32)."""
+    r, t, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    a2 = a_log if a_log.ndim == 2 else a_log[None]
+    d2 = d_skip if d_skip.ndim == 2 else d_skip[None]
+    gs = a2.shape[0]
+    if (dt.shape != (r, t, h) or b.shape != (r, t, g, n) or c.shape != b.shape
+            or h % g or a2.shape != (gs, h) or d2.shape != a2.shape or r % gs
+            or (init_state is not None and init_state.shape != (r, h, p, n))):
+        raise ValueError(f"shapes x {tuple(x.shape)} dt {tuple(dt.shape)} "
+                         f"b {tuple(b.shape)} c {tuple(c.shape)} a_log "
+                         f"{tuple(a_log.shape)} d_skip {tuple(d_skip.shape)}")
+    ck = ssd_chunk(t, chunk)
+    if not _on_card(x, dt, a_log, b, c, d_skip, init_state):
+        return ref.ssd_plain(x, dt, a_log, b, c, d_skip, chunk=ck,
+                             init_state=init_state)
+    if x.dtype not in _SSD_CODES or b.dtype != x.dtype or c.dtype != x.dtype:
+        raise TypeError(f"x/b/c dtypes {x.dtype}/{b.dtype}/{c.dtype}: one of "
+                        f"{list(_SSD_CODES)} for all three")
+    for name, w in (("dt", dt), ("a_log", a2), ("d_skip", d2),
+                    ("init_state", init_state)):
+        if w is not None and w.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {w.dtype}")
+    if (p, n) not in _SSD_SHAPES:
+        raise ValueError(f"(head dim, state) ({p}, {n}) not in {_SSD_SHAPES}")
+    if ck > _SSD_MAX_CHUNK:
+        raise ValueError(f"chunk {ck} > {_SSD_MAX_CHUNK}")
+    a2, d2 = a2.contiguous(), d2.contiguous()
+    _check_dense(x, dt, a2, b, c, d2, init_state)
+    y = torch.empty_like(x)
+    final = torch.empty((r, h, p, n), device=x.device)
+    _call("ssd", "ssd_launch", "ssd", _ptr(x), _ptr(dt), _ptr(a2), _ptr(b),
+          _ptr(c), _ptr(d2), _ptr(init_state), _ptr(y), _ptr(final),
+          _SSD_CODES[x.dtype], r, t, h, p, g, n, ck, gs)
+    return y, final

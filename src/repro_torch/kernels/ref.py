@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the three attention kernels: the same
-signatures and outputs as the wrappers in ``kernels.ops``, with the math of
-the reference's ``_block_update`` in fp32 over all visible keys at once.
+"""Plain PyTorch versions of the kernels: the same signatures and outputs as
+the wrappers in ``kernels.ops``. The three attention kernels take the math
+of the reference's ``_block_update`` in fp32 over all visible keys at once;
+the SSD scan (K4) takes the reference's per-chunk ``_ssd_kernel`` algorithm.
 
 The wrappers use them for tensors on the CPU; ``chip_smoke.py`` holds each
 CUDA kernel against them on the card.
@@ -117,3 +118,56 @@ def pool_attention_paged_plain(q, k_pages, v_pages, handles, valid, *,
     return pool_attention_plain(q, stack(k_pages), stack(v_pages), valid,
                                 scale=scale, kv_len=kv_len, k_scale=ksc,
                                 v_scale=vsc)
+
+
+# ------------------------------------------------------------------ SSD (K4)
+
+def per_row(w: torch.Tensor, rows: int) -> torch.Tensor:
+    """A per-head vector [H] (one layer) or [Gs, H] (one layer per stage
+    group of ``rows // Gs`` rows) -> fp32 [rows, H]."""
+    w = w.float()
+    w = w[None] if w.ndim == 1 else w
+    if rows % w.shape[0]:
+        raise ValueError(f"{w.shape[0]} stage groups do not divide {rows} rows")
+    return w.repeat_interleave(rows // w.shape[0], dim=0)
+
+
+def ssd_plain(x, dt, a_log, b, c, d_skip, *, chunk: int, init_state=None):
+    """K4: Mamba2's chunked SSD scan, one chunk of ``chunk`` positions at a
+    time with the state carried between chunks in fp32 (the algorithm of
+    the reference's ``_ssd_kernel``). x [R,T,H,P]; dt [R,T,H] (after
+    softplus); b, c [R,T,G,N] (head h reads group h // (H/G)); a_log and
+    d_skip [H] or [Gs,H] for Gs equal stage groups of rows; init_state
+    [R,H,P,N] or None. ``chunk`` must divide T. Returns (y [R,T,H,P] in
+    x's dtype, final state [R,H,P,N] fp32)."""
+    r, t, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    if t % chunk:
+        raise ValueError(f"chunk {chunk} does not divide T = {t}")
+    a = -torch.exp(per_row(a_log, r))[:, None, :]             # [R,1,H]
+    dsk = per_row(d_skip, r)[:, None, :, None]                # [R,1,H,1]
+    state = (torch.zeros((r, h, p, n), device=x.device) if init_state is None
+             else init_state.float().clone())
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    ys = []
+    for c0 in range(0, t, chunk):
+        sl = slice(c0, c0 + chunk)
+        xc = x[:, sl].float()                                 # [R,Q,H,P]
+        dtc = dt[:, sl].float()                               # [R,Q,H]
+        bh = b[:, sl].float().repeat_interleave(h // g, dim=2)  # [R,Q,H,N]
+        ch = c[:, sl].float().repeat_interleave(h // g, dim=2)
+        cs = torch.cumsum(dtc * a, dim=1)                     # [R,Q,H]
+        xdt = xc * dtc[..., None]
+        # intra-chunk: L[i,j] = exp(cs_i - cs_j) for j <= i, masked BEFORE
+        # the exponential (above the diagonal the difference is positive)
+        seg = cs[:, :, None, :] - cs[:, None, :, :]           # [R,Qi,Qj,H]
+        lmat = torch.exp(seg.masked_fill(~tri[None, :, :, None], float("-inf")))
+        cb = torch.einsum("rihn,rjhn->rijh", ch, bh)
+        y = torch.einsum("rijh,rjhp->rihp", cb * lmat, xdt)
+        # off-diagonal: the state carried in from the earlier chunks
+        y = y + torch.einsum("rihn,rhpn->rihp", ch, state) * torch.exp(cs)[..., None]
+        ys.append(y + xc * dsk)
+        decay_out = torch.exp(cs[:, -1:] - cs)                # [R,Q,H]
+        state = (state * torch.exp(cs[:, -1])[..., None, None]
+                 + torch.einsum("rqhp,rqhn->rhpn", xdt * decay_out[..., None], bh))
+    return torch.cat(ys, dim=1).to(x.dtype), state

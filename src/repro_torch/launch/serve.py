@@ -4,6 +4,8 @@ of ``repro.launch.serve``).
     python -m repro_torch.launch.serve --arch qwen3-8b --requests 4 \\
         --seq 4096 --num-chunks 8 --num-stages 8 --remote-attn qship \\
         --attn-backend cuda --pool-backend paged --kv-dtype auto
+    python -m repro_torch.launch.serve --arch zamba2-7b --ssm-backend cuda
+    python -m repro_torch.launch.serve --arch mamba2-130m   # attention-free
 
 runs on the card (``--device cpu`` for the CPU; ``--smoke`` for the small
 config). Weights are random, drawn from ``--seed`` straight into the
@@ -20,8 +22,9 @@ import numpy as np
 import torch
 
 from repro_torch import device as devices
-from repro_torch.configs.base import (ATTN_BACKENDS, POOL_BACKENDS, RunConfig,
-                                      get_config, get_smoke_config, list_archs)
+from repro_torch.configs.base import (ATTN_BACKENDS, POOL_BACKENDS,
+                                      SSM_BACKENDS, RunConfig, get_config,
+                                      get_smoke_config, list_archs)
 from repro_torch.core import pipeline as pp
 from repro_torch.core.staging import init_staged
 from repro_torch.runtime.engine import (EngineConfig, PrefillEngine, Request,
@@ -38,6 +41,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--remote-attn", choices=("qship", "fetch"), default="qship")
     ap.add_argument("--attn-backend", choices=ATTN_BACKENDS, default="cuda")
     ap.add_argument("--pool-backend", choices=POOL_BACKENDS, default="auto")
+    ap.add_argument("--ssm-backend", choices=SSM_BACKENDS, default="cuda",
+                    help="SSD inner loop of mamba2 / zamba2 layers")
     ap.add_argument("--kv-dtype", choices=("auto", "int8", "fp8"), default="auto")
     ap.add_argument("--smoke", action="store_true", help="the small config")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -52,7 +57,8 @@ def build(args: argparse.Namespace):
     run = RunConfig(num_chunks=args.num_chunks, num_stages=args.num_stages,
                     remote_attn=args.remote_attn,
                     attn_backend=args.attn_backend,
-                    pool_backend=args.pool_backend, kv_dtype=args.kv_dtype)
+                    pool_backend=args.pool_backend,
+                    ssm_backend=args.ssm_backend, kv_dtype=args.kv_dtype)
     plan = pp.build_plan(cfg, args.num_stages, args.seq, run)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     staged = init_staged(cfg, plan, gen, device=dev)
@@ -79,7 +85,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"request {r.rid}: argmax {int(np.argmax(r.result))}")
     print("wave wall s: " + " ".join(f"{w['dur']:.4f}" for w in ex.waves))
     print(f"[serve] {args.arch} device={ex.device} remote={args.remote_attn} "
-          f"attn={args.attn_backend} pool={args.pool_backend} "
+          f"attn={args.attn_backend} pool={args.pool_backend} ssm={args.ssm_backend} "
           f"kv={args.kv_dtype} metrics={eng.metrics()}")
     return 0
 

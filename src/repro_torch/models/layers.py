@@ -75,6 +75,13 @@ def pad_vocab(v: int, multiple: int = 128) -> int:
     return -(-v // multiple) * multiple
 
 
+def init_embed(vocab_size: int, d_model: int, generator: torch.Generator,
+               device=None, dtype=None) -> torch.Tensor:
+    """A random embedding table [Vpad, d] with the reference's std 0.02."""
+    return torch.randn((pad_vocab(vocab_size), d_model), generator=generator,
+                       device=device, dtype=dtype).mul_(0.02)
+
+
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """table [Vpad, d], tokens [B, S] -> [B, S, d]."""
     return table[tokens.long()]

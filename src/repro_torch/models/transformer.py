@@ -16,52 +16,64 @@ from repro_torch.models import layers as L
 Params = Dict[str, Any]
 
 
-def init(cfg: ModelConfig, generator: torch.Generator, device=None,
-         dtype=None, *, layer_lead: Optional[Sequence[int]] = None) -> Params:
-    """Random weights with the reference's shapes and stds
-    (``repro.models.transformer.init``), drawn from ``generator`` on
-    ``device``. ``layer_lead`` replaces the leading ``[L]`` layer axis
-    (e.g. ``(N, lps)`` for the stage-stacked layout); layers past L are
-    zero, which makes them exact identities through the residual."""
+def init_layers(cfg: ModelConfig, generator: torch.Generator, device=None,
+                dtype=None, *, lead: Sequence[int] = ()) -> Params:
+    """Random layer weights with the reference's shapes and stds
+    (``repro.models.transformer.init``'s ``layers``), drawn from
+    ``generator`` on ``device`` under leading axes ``lead`` (``(L,)``, or
+    ``(N, lps)`` for the stage-stacked layout; ``()`` for one unstacked
+    layer). Layers past ``cfg.num_layers`` are zero, which makes them exact
+    identities through the residual."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
     nl = cfg.num_layers
-    vpad = L.pad_vocab(cfg.vocab_size)
     dt = torch_dtype(dtype or cfg.dtype)
-    lead = tuple(layer_lead) if layer_lead is not None else (nl,)
-    assert math.prod(lead) >= nl, (lead, nl)
+    lead = tuple(lead)
+    assert math.prod(lead) >= nl or not lead, (lead, nl)
     out_std = 0.02 / math.sqrt(2 * nl)
 
     def nrm(*shape, std=0.02):
-        x = torch.randn(shape, generator=generator, device=device, dtype=dt)
+        x = torch.randn(lead + shape, generator=generator, device=device, dtype=dt)
         return x.mul_(std)
 
     def ones(*shape):
-        return torch.ones(shape, device=device, dtype=dt)
+        return torch.ones(lead + shape, device=device, dtype=dt)
 
     lp: Params = {
-        "ln1": ones(*lead, d),
-        "ln2": ones(*lead, d),
-        "wq": nrm(*lead, d, h * hd),
-        "wk": nrm(*lead, d, kv * hd),
-        "wv": nrm(*lead, d, kv * hd),
-        "wo": nrm(*lead, h * hd, d, std=out_std),
+        "ln1": ones(d),
+        "ln2": ones(d),
+        "wq": nrm(d, h * hd),
+        "wk": nrm(d, kv * hd),
+        "wv": nrm(d, kv * hd),
+        "wo": nrm(h * hd, d, std=out_std),
     }
     if cfg.qk_norm:
-        lp["q_norm"] = ones(*lead, hd)
-        lp["k_norm"] = ones(*lead, hd)
-    lp["wg"] = nrm(*lead, d, cfg.d_ff)
-    lp["wu"] = nrm(*lead, d, cfg.d_ff)
-    lp["wd"] = nrm(*lead, cfg.d_ff, d, std=out_std)
-    for w in lp.values():
-        w.view(-1, *w.shape[len(lead):])[nl:] = 0
+        lp["q_norm"] = ones(hd)
+        lp["k_norm"] = ones(hd)
+    lp["wg"] = nrm(d, cfg.d_ff)
+    lp["wu"] = nrm(d, cfg.d_ff)
+    lp["wd"] = nrm(cfg.d_ff, d, std=out_std)
+    if lead:
+        for w in lp.values():
+            w.view(-1, *w.shape[len(lead):])[nl:] = 0
+    return lp
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, device=None,
+         dtype=None, *, layer_lead: Optional[Sequence[int]] = None) -> Params:
+    """Random weights (``init_layers`` under ``layer_lead``, default
+    ``(L,)``) plus the embedding, final norm and, untied, the head."""
+    dt = torch_dtype(dtype or cfg.dtype)
+    lead = tuple(layer_lead) if layer_lead is not None else (cfg.num_layers,)
     params: Params = {
-        "embed": nrm(vpad, d),
-        "final_norm": ones(d),
-        "layers": lp,
+        "layers": init_layers(cfg, generator, device, dtype, lead=lead),
+        "embed": L.init_embed(cfg.vocab_size, cfg.d_model, generator, device, dt),
+        "final_norm": torch.ones((cfg.d_model,), device=device, dtype=dt),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = nrm(d, vpad)
+        params["lm_head"] = torch.randn((cfg.d_model, L.pad_vocab(cfg.vocab_size)),
+                                        generator=generator, device=device,
+                                        dtype=dt).mul_(0.02)
     return params
 
 

@@ -58,7 +58,9 @@ def test_kernel_modules_import_without_nvcc():
     builds nothing: the build happens at the first launch."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), PATH="/nonexistent")
     code = ("import repro_torch.kernels.ops as ops, repro_torch.core.pipeline, "
-            "repro_torch.launch.serve, repro_torch.kernels.build as b; "
+            "repro_torch.launch.serve, repro_torch.kernels.build as b, "
+            "repro_torch.models.ssm, repro_torch.models.hybrid; "
+            "assert callable(ops.ssd) and 'ssd' in ops.LAUNCHES; "
             "assert not b._LIBS and all(v == 0 for v in ops.LAUNCHES.values()); "
             "print('OK')")
     r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
@@ -84,3 +86,29 @@ def test_chip_smoke_refuses_without_card(tmp_path):
                            text=True, timeout=120, cwd=script.parent)
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Each ``extern "C"`` entry point in ``csrc/*.cu`` takes as many
+    arguments, of the same kinds, as the wrapper's ctypes signature
+    declares (ctypes cannot check this; a wrong count fails only on the
+    card)."""
+    import ctypes
+    import re
+    from repro_torch.kernels import ops
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "long long": ctypes.c_longlong, "float": ctypes.c_float}
+    found = {}
+    for src in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu"):
+        text = src.read_text()
+        c_part = text[text.index('extern "C" {'):]
+        for name, params in re.findall(r"int (\w+_launch)\(([^)]*)\)", c_part):
+            args = []
+            for p in params.split(","):
+                p = " ".join(p.replace("const", "").split())
+                base = p.rsplit(" ", 1)[0].replace(" *", "*")
+                args.append(kinds["void*" if "*" in p else base])
+            found[name] = args
+    assert set(found) == set(ops._SIGNATURES)
+    for name, args in found.items():
+        assert ops._SIGNATURES[name] == args, name
