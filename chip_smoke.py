@@ -21,6 +21,10 @@ prints no result line):
    - K4 the Mamba2 SSD scan at zamba2-7b's and mamba2-130m's shapes in
      bf16 and fp32, with a non-zero init_state, one a_log / d_skip row per
      stage (Gs = 8) and a case with G < H SSM groups;
+   - K5 flash-decode at qwen3-8b's (GQA, head dim 128) and zamba2-7b's (MHA,
+     head dim 112) decode shapes, 8 rows over a 32768-token cache, bf16 and
+     fp32, timed with every row at full length and held at ragged lengths
+     (0, 1, ..., S) with the tail past each length poisoned;
 4. smoke parity: the small qwen3-8b, zamba2-7b and mamba2-130m configs in
    fp32 through the kernel backends on the card against the same pipeline
    on the CPU (plain versions);
@@ -36,7 +40,19 @@ prints no result line):
    fp32 as the kernels do (and the ``torch`` SSD), at a limit that two
    planted kernel faults must break (K2 faults for qwen3-8b, K4 faults for
    the others); in fp32 every request's argmax must equal the ``torch``
-   backends' (see ``serve_phase``).
+   backends' (see ``serve_phase``);
+6. decode: each model at full width and depth through ``Model.forward(
+   return_cache=True)`` on a 512-token prompt, the KV axis padded by 8, and
+   8 ``Model.decode_step``s (the decode path's K5 launches counted, exactly
+   36 a step for qwen3-8b, 13 for zamba2-7b, 0 for mamba2-130m): fp32 logits
+   against ``forward`` on the longer sequence, bf16 logits against bf16
+   ``forward`` and against the same decode with K5's plain version; two
+   planted K5 faults must break the fp32 limit and a per-launch check of K5
+   against its plain version. Then
+   long-context decode in bf16 (qwen3-8b, zamba2-7b): 4 rows at ragged
+   positions in a 32768-token cache, 16 steps with K5, with its plain
+   version, and with every K5 launch held against the plain version, which
+   both planted faults must break by 10x (see ``decode_phase``).
 
 Then one JSON line of per-kernel numbers and, last, the result line.
 """
@@ -50,6 +66,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -62,6 +79,8 @@ KERNELS = {   # tag: (CUDA source, the TPU kernel it replaces)
     "pool_attention_paged": ("src/repro_torch/csrc/chunk_attn.cu",
                              "src/repro/kernels/chunk_attn.py:345"),
     "ssd": ("src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd.py:77"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attn.cu",
+                         "src/repro/kernels/decode_attn.py:65"),
 }
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -414,10 +433,112 @@ def ssd_phase(results: dict) -> None:
     results["ssd"]["max_abs_err"] = err
 
 
+# (heads H, kv heads, head dim) of each decode shape; the main one first
+DECODE_SHAPES = {"qwen3-8b": (32, 8, 128), "zamba2-7b": (32, 32, 112)}
+DECODE_KERNEL_BATCH, DECODE_KERNEL_S = 8, 32768   # decode_32k, batch 128 cut to 8
+
+
+def sdpa_decode(q, k, v, kv_len):
+    """The library call computing K5's function, timed as ``library_ms``
+    and never used by the port: ``scaled_dot_product_attention`` with GQA
+    and a boolean length mask, pinned to the backend that the default
+    dispatch takes (the first of torch's priority order that accepts these
+    inputs), so that the backend recorded is the one timed. Returns (call,
+    backend name)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt = q[:, :, None, :]                                   # [B, H, 1, D]
+    kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))   # [B, KVH, S, D]
+    mask = (torch.arange(k.shape[1], device=q.device)[None, :]
+            < kv_len[:, None])[:, None, None, :]           # [B, 1, 1, S]
+
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    backend = None
+    for b in map(SDPBackend, torch._C._get_sdp_priority_order()):
+        try:
+            with sdpa_kernel([b]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # each refusal warns why
+                call()
+            backend = b
+            break
+        except RuntimeError:
+            continue
+    check(backend is not None, "no SDPA backend takes the decode inputs")
+
+    def pinned():
+        with sdpa_kernel([backend]):
+            return call()
+    return pinned, backend.name
+
+
+def decode_kernel_phase(results: dict) -> None:
+    """K5 against ``decode_attention_plain`` at each decode shape, 8 rows
+    over a 32768-token cache, bf16 and fp32. Timed (bf16, median of 12
+    CUDA-event windows) with every row at full length, so that the bound
+    counts every byte K5 must read; held at ragged lengths 0, 1, 77, 4099,
+    12345, 20001, 32767 and S with keys and values past each length
+    poisoned (+-1e4), each output at its own max|ref| (``compare``), the
+    empty row exactly zero."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, s = DECODE_KERNEL_BATCH, DECODE_KERNEL_S
+    ragged = torch.tensor([0, 1, 77, 4099, 12345, 20001, s - 1, s], dtype=torch.int32,
+                          device=dev)
+    err = 0.0
+    for arch, (h, kvh, d) in DECODE_SHAPES.items():
+        for name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            log(f"[kernels] K5 decode_attention {arch} {name}  q [{b},{h},{d}], "
+                f"k/v [{b},{s},{kvh},{d}]")
+            q = torch.randn((b, h, d), generator=gen, device=dev).to(dt)
+            k = torch.randn((b, s, kvh, d), generator=gen, device=dev).to(dt)
+            v = torch.randn((b, s, kvh, d), generator=gen, device=dev).to(dt)
+            full = torch.full((b,), s, dtype=torch.int32, device=dev)
+            got = ops.decode_attention(q, k, v, full)
+            want = ref.decode_attention_plain(q, k, v, full)
+            err = max(err, compare(f"decode {arch} {name} full length", (got,), (want,),
+                                   name, ("out",)))
+            if name == "bfloat16":
+                ms = time_ms(lambda: ops.decode_attention(q, k, v, full))
+                plain = time_ms(lambda: ref.decode_attention_plain(q, k, v, full))
+                lib_call, backend = sdpa_decode(q, k, v, full)
+                check((lib_call().squeeze(2).float() - want.float()).abs().max().item()
+                      <= 2e-2 * want.float().abs().max().item(),
+                      "the SDPA yardstick does not compute K5's function")
+                lib = time_ms(lib_call)
+                b_ms, by = bound_ms(nbytes(q, k, v, full, got), 4.0 * d * s * h * b, name)
+                times = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                             bound_by=by, library=f"scaled_dot_product_attention "
+                             f"(enable_gqa, bool mask; backend {backend})")
+                if arch == "qwen3-8b":
+                    results.setdefault("decode_attention", {}).update(times)
+                else:
+                    results.setdefault("decode_attention", {})[f"d{d}"] = times
+                log(f"  time: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms "
+                    f"({backend}), bound {b_ms:.4f} ms ({by}), "
+                    f"{nbytes(k, v) / 1e9:.3f} GB of K/V")
+            for i, n in enumerate(ragged.tolist()):   # poison past each length
+                k[i, n:], v[i, n:] = 1e4, -1e4
+            got = ops.decode_attention(q, k, v, ragged)
+            want = ref.decode_attention_plain(q, k, v, ragged)
+            check(bool((got[0] == 0).all()), f"K5 {arch} {name}: the kv_len = 0 row is not zero")
+            err = max(err, compare(f"decode {arch} {name} ragged, tail poisoned",
+                                   (got,), (want,), name, ("out",)))
+            del q, k, v, got, want
+            torch.cuda.empty_cache()
+    results["decode_attention"]["max_abs_err"] = err
+
+
 def kernel_phase(results: dict) -> None:
     attention_phase(results, h=32, kvh=8, d=128, full=True)     # qwen3-8b
     attention_phase(results, h=32, kvh=32, d=112, full=False)   # zamba2-7b
     ssd_phase(results)
+    decode_kernel_phase(results)
 
 
 # ------------------------------------------------------------ smoke parity
@@ -583,22 +704,33 @@ def planted_faults(kind: str, real):
             "K4 ignores init_state": init_ignored}
 
 
-def shadowed(fn, worst: list):
-    """``fn`` (the K4 wrapper or a planted fault) in its place on the serve
-    path, every call also held against ``ssd_plain`` on the same inputs:
-    ``worst[0]`` keeps the largest error of y or the state as a multiple of
-    its tolerance (``tolerance``: 2e-2 of max|ref| for bf16 y, 1e-3 for the
-    fp32 state of bf16 inputs)."""
-    import torch
+def plain_of(kind: str):
+    """The plain version of the wrapper ``ops.<kind>``, with its signature."""
     from repro_torch.kernels import ops, ref
+    if kind == "decode_attention":
+        return ref.decode_attention_plain
 
-    def call(x, dt, a_log, b, c, d_skip, *, chunk, init_state=None):
-        got = fn(x, dt, a_log, b, c, d_skip, chunk=chunk, init_state=init_state)
-        want = ref.ssd_plain(x, dt, a_log, b, c, d_skip,
-                             chunk=ops.ssd_chunk(x.shape[1], chunk),
-                             init_state=init_state)
-        in_dtype = "float32" if x.dtype == torch.float32 else "bfloat16"
-        for g, r in zip(got, want):
+    def ssd(x, dt, a_log, b, c, d_skip, *, chunk, init_state=None):
+        return ref.ssd_plain(x, dt, a_log, b, c, d_skip,
+                             chunk=ops.ssd_chunk(x.shape[1], chunk), init_state=init_state)
+    return ssd
+
+
+def shadowed(fn, kind: str, worst: list):
+    """``fn`` (the wrapper ``ops.<kind>``, K4 or K5, or a planted fault) in
+    its place on a model path, every call also held against the plain
+    version on the same inputs: ``worst[0]`` keeps the largest error of any
+    output as a multiple of its tolerance (``tolerance``: 2e-2 of max|ref|
+    for a bf16 output, 1e-3 for an fp32 one of bf16 inputs, 1e-4 for fp32
+    inputs)."""
+    import torch
+    plain = plain_of(kind)
+
+    def call(*args, **kw):
+        got = fn(*args, **kw)
+        want = plain(*args, **kw)
+        in_dtype = "float32" if args[0].dtype == torch.float32 else "bfloat16"
+        for g, r in zip(*((got, want) if isinstance(got, tuple) else ((got,), (want,)))):
             err = (g.float() - r.float()).abs().max().item()
             scale = max(r.float().abs().max().item(), 1e-30)
             worst[0] = max(worst[0], err / (tolerance(r.dtype, in_dtype) * scale))
@@ -730,7 +862,7 @@ def serve_model(arch: str, results: dict) -> None:
             runs.insert(0, ("none (the kernel itself)", real, False))
         for fault, fn, is_fault in runs:
             worst = [0.0]
-            with swapped(ops, kind, shadowed(fn, worst) if per_launch else fn):
+            with swapped(ops, kind, shadowed(fn, kind, worst) if per_launch else fn):
                 logits, _ = serve(model_cfg, staged, *combo)
             log(f"  planted fault: {fault}")
             _, err, same = against(logits, want, what)
@@ -798,8 +930,267 @@ def serve_phase(results: dict) -> None:
         t0 = time.perf_counter()
         serve_model(arch, results)
         log(f"[serve] {arch} {time.perf_counter() - t0:.1f} s")
-    for r in results.values():
-        r["launches"] = sum(r.get("launches_by_path", {}).values())
+
+
+# ------------------------------------------------------------------ decode
+
+# K5 launches a decode step: one per attention layer (qwen3-8b 36 layers,
+# zamba2-7b 13 applications of the shared block, mamba2-130m none)
+DECODE_MODELS = {"qwen3-8b": 36, "zamba2-7b": 13, "mamba2-130m": 0}
+DEC_BATCH, DEC_PROMPT, DEC_PAD, DEC_STEPS = 2, 512, 8, 8
+# fractions of max|logit|: fp32 decode against forward on the longer
+# sequence (the fp32 serve limit); bf16 decode against bf16 forward on the
+# longer sequence and against the same decode with K5's plain version (the
+# bf16 serve limit)
+DEC_FP32_TOL, DEC_BF16_TOL = 1e-3, 0.1
+# long-context decode: 4 rows at ragged positions between 8k and 32k - 16 in
+# a 32768-token cache, 16 steps
+LONG_CAP, LONG_STEPS = 32768, 16
+LONG_POS = (8192, 15001, 24577, LONG_CAP - LONG_STEPS)
+
+
+def decode_faults(real):
+    """Wrong versions of the K5 wrapper ``real``, for showing that the
+    decode checks fail a wrong kernel."""
+    def last_key_dropped(q, k, v, kv_len, **kw):
+        # the token just written at pos is never read
+        return real(q, k, v, kv_len - 1, **kw)
+
+    def kv_head0_only(q, k, v, kv_len, **kw):
+        # every query head reads kv head 0
+        return real(q, k[:, :, :1].expand_as(k).contiguous(),
+                    v[:, :, :1].expand_as(v).contiguous(), kv_len, **kw)
+
+    return {"K5 drops the key just written (kv_len - 1)": last_key_dropped,
+            "K5 reads kv head 0 for every query head": kv_head0_only}
+
+
+def decode_run(model, params, cache, toks):
+    """``toks.shape[1]`` decode steps from ``cache`` (updated in place).
+    Returns (logits [steps, B, Vpad] fp32, each step's wall seconds: host
+    clock around the step, ending in a synchronize)."""
+    import torch
+    out, walls = [], []
+    for t in range(toks.shape[1]):
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, toks[:, t])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        out.append(logits)
+    return torch.stack(out), walls
+
+
+def frac(got, want) -> float:
+    """max abs err of ``got`` as a fraction of max|want|."""
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def decode_bridge(arch: str, dtype: str, results: dict) -> list:
+    """The prefill->decode bridge of one model at full width and depth
+    (``tests/test_models.py::test_decode_continues_prefill`` at the card's
+    size): B = 2 rows, a 512-token prompt through ``Model.forward(
+    return_cache=True)``, the KV axis padded by 8, 8 ``Model.decode_step``s
+    fed with seeded tokens.
+    bf16, the decode main path: the launch counts are set to 0 just before
+    the K5 run and read just after (exactly 8 x 36 / 13 / 0); the logits are
+    held within DEC_BF16_TOL of max|logit| against bf16 ``forward`` on the
+    prompt and the fed tokens (this holds the bf16 Mamba2 decode) and, where
+    the model has attention, against the same decode with
+    ``ref.decode_attention_plain`` in K5's place.
+    fp32: every step's logits against ``forward`` on the prompt and the fed
+    tokens at that position, within DEC_FP32_TOL of max|logit|; then each
+    planted K5 fault (``decode_faults``) must break that limit and, with
+    every K5 launch held against its plain version on its own inputs
+    (``shadowed``), the per-launch check by 10x or more, where the real
+    kernel stays within it. Returns the failures."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config, replace
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.api import build_model
+
+    cfg = replace(get_config(arch), dtype=dtype)
+    model = build_model(cfg)
+    per_step = DECODE_MODELS[arch]
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (DEC_BATCH, DEC_PROMPT + DEC_STEPS),
+                         generator=gen, device="cuda")
+    _, prefill = model.forward(params, toks[:, :DEC_PROMPT], return_cache=True)
+    if "k" in prefill:
+        pad = (0, 0, 0, 0, 0, DEC_PAD)
+        prefill = {**prefill, "k": F.pad(prefill["k"], pad), "v": F.pad(prefill["v"], pad)}
+    torch.cuda.synchronize()
+    log(f"[decode] {arch} {dtype}: weights + {DEC_PROMPT}-token prefill "
+        f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    def fresh():
+        return {k: v.clone() for k, v in prefill.items()}
+
+    def run(cache):
+        return decode_run(model, params, cache, toks[:, DEC_PROMPT:])
+
+    failures = []
+    name = f"{arch} {dtype} bridge"
+    want = model.forward(params, toks)[:, DEC_PROMPT:].transpose(0, 1)
+    if dtype == "bfloat16":
+        ops.reset_launches()
+        got, walls = run(fresh())
+        launches = dict(ops.LAUNCHES)
+        n = launches["decode_attention"]
+        log(f"  {name}: K5 launches {n} ({per_step} a step expected), launches "
+            f"{launches}, step wall s {[round(w, 4) for w in walls]}")
+        check(n == per_step * DEC_STEPS, f"{name}: {n} K5 launches, expected "
+              f"{per_step * DEC_STEPS}")
+        check(all(v == 0 for k, v in launches.items() if k != "decode_attention"),
+              f"{name}: a prefill kernel launched during decode: {launches}")
+        results.setdefault("decode_attention", {}).setdefault(
+            "launches_by_path", {})[f"{arch} decode"] = n
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite logits")
+        refs = {f"bf16 forward on {DEC_PROMPT + DEC_STEPS} tokens": want}
+        if per_step:
+            with swapped(ops, "decode_attention", ref.decode_attention_plain):
+                refs["the plain-K5 witness"], _ = run(fresh())
+        for what, ref_logits in refs.items():
+            err = frac(got, ref_logits)
+            log(f"  {name}: logits vs {what} {err:.3e} of max|logit| "
+                f"(limit {DEC_BF16_TOL}), argmax equal "
+                f"{int((got.argmax(-1) == ref_logits.argmax(-1)).sum())}/{got[..., 0].numel()}")
+            if not err <= DEC_BF16_TOL:
+                failures.append(f"{name}: {err} of max|logit| against {what}")
+        return failures
+
+    got, walls = run(fresh())
+    err = frac(got, want)
+    log(f"  {name}: logits vs forward on {DEC_PROMPT + DEC_STEPS} tokens {err:.3e} of "
+        f"max|logit| (limit {DEC_FP32_TOL}), per step "
+        f"{[f'{frac(g, w):.2e}' for g, w in zip(got, want)]}, argmax equal "
+        f"{int((got.argmax(-1) == want.argmax(-1)).sum())}/{got[..., 0].numel()}")
+    if not err < DEC_FP32_TOL:
+        failures.append(f"{name}: {err} of max|logit| against forward")
+    if per_step == 0:
+        return failures
+    runs = [("none (the kernel itself)", ops.decode_attention, False)] + \
+        [(f, fn, True) for f, fn in decode_faults(ops.decode_attention).items()]
+    for fault, fn, is_fault in runs:
+        worst = [0.0]
+        with swapped(ops, "decode_attention", shadowed(fn, "decode_attention", worst)):
+            got, _ = run(fresh())
+        err = frac(got, want)
+        log(f"  planted fault: {fault}: logits {err:.3e} of max|logit|; every K5 launch "
+            f"vs its plain version: worst {worst[0]:.3e} of its tolerance")
+        results.setdefault("decode_attention", {}).setdefault("planted", {})[
+            f"{arch} fp32 bridge: {fault}"] = dict(logits=err, per_launch=worst[0])
+        if is_fault and (err < DEC_FP32_TOL or worst[0] < 10.0):
+            failures.append(f"{name}: planted fault '{fault}' not caught "
+                            f"(logits {err}, per launch {worst[0]})")
+        if not is_fault and worst[0] > 1.0:
+            failures.append(f"{name}: K5 off its plain version by {worst[0]} of the tolerance")
+    return failures
+
+
+def decode_long(arch: str, results: dict) -> list:
+    """Long-context decode in bf16 at full width and depth: 4 rows at the
+    ragged positions LONG_POS of a 32768-token cache whose K/V come from a
+    seeded generator (SSM state zero), 16 steps. Every run starts from the
+    same state: the k/v at and past each row's start position are rewritten
+    before they are read, so rewinding ``pos`` (and zeroing the SSM state)
+    restores it without a second copy of the cache. Runs: K5 (step times,
+    launches exactly 16 x per step), its plain version in its place (step
+    times; logits within DEC_BF16_TOL of K5's), K5 with every launch held
+    against the plain version on its own inputs (within its tolerance),
+    and the planted faults under the same per-launch check, which each must
+    break by 10x or more (on an H100, "kv_len - 1" read 15.76x and 44.04x
+    of the tolerance for qwen3-8b and zamba2-7b). Returns the failures."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.api import build_model
+
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    per_step = DECODE_MODELS[arch]
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cache = model.init_cache(len(LONG_POS), LONG_CAP, device="cuda")
+    for key in ("k", "v"):
+        for layer in cache[key]:
+            layer.normal_(generator=gen)
+    pos0 = torch.tensor(LONG_POS, dtype=torch.int32, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (len(LONG_POS), LONG_STEPS), generator=gen,
+                         device="cuda")
+    torch.cuda.synchronize()
+    log(f"[decode] {arch} long context: {len(LONG_POS)} rows at {list(LONG_POS)} of "
+        f"{LONG_CAP}, {LONG_STEPS} steps; set-up {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    def rewound():
+        for key, t in cache.items():
+            if key not in ("k", "v", "pos"):
+                t.zero_()
+        return {**cache, "pos": pos0.clone()}
+
+    failures = []
+    name = f"{arch} bf16 long context"
+    ops.reset_launches()
+    got, walls = decode_run(model, params, rewound(), toks)
+    n = ops.LAUNCHES["decode_attention"]
+    check(n == per_step * LONG_STEPS, f"{name}: {n} K5 launches")
+    with swapped(ops, "decode_attention", ref.decode_attention_plain):
+        plain, plain_walls = decode_run(model, params, rewound(), toks)
+    err = frac(got, plain)
+    # K5 alone on one layer's inputs of this state (kv_len = pos + 1)
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = torch.randn((len(LONG_POS), h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    kv_len = pos0 + 1
+    k5_ms = time_ms(lambda: ops.decode_attention(q, cache["k"][0], cache["v"][0], kv_len))
+    k5_plain_ms = time_ms(lambda: ref.decode_attention_plain(q, cache["k"][0], cache["v"][0],
+                                                             kv_len))
+    step_ms = 1e3 * statistics.median(walls)
+    plain_step_ms = 1e3 * statistics.median(plain_walls)
+    log(f"  {name}: step median {step_ms:.3f} ms with K5, {plain_step_ms:.3f} ms with its "
+        f"plain version; K5 {k5_ms:.4f} ms a launch (plain {k5_plain_ms:.4f}) x "
+        f"{per_step} = {per_step * k5_ms:.3f} ms a step; logits K5 vs plain {err:.3e} "
+        f"of max|logit| (limit {DEC_BF16_TOL})")
+    results.setdefault("decode_attention", {}).setdefault("long_context", {})[arch] = dict(
+        step_ms=step_ms, plain_step_ms=plain_step_ms, k5_ms=k5_ms, k5_plain_ms=k5_plain_ms,
+        k5_ms_per_step=per_step * k5_ms, logits_vs_plain=err)
+    if not err <= DEC_BF16_TOL:
+        failures.append(f"{name}: logits {err} of max|logit| against the plain version")
+    runs = [("none (the kernel itself)", ops.decode_attention, False)] + \
+        [(f, fn, True) for f, fn in decode_faults(ops.decode_attention).items()]
+    for fault, fn, is_fault in runs:
+        worst = [0.0]
+        with swapped(ops, "decode_attention", shadowed(fn, "decode_attention", worst)):
+            decode_run(model, params, rewound(), toks)
+        log(f"  {name}, planted fault: {fault}: every K5 launch vs its plain version: "
+            f"worst {worst[0]:.3e} of its tolerance")
+        results["decode_attention"]["long_context"][arch][fault] = worst[0]
+        if is_fault and worst[0] < 10.0:
+            failures.append(f"{name}: planted fault '{fault}' not caught "
+                            f"(per launch {worst[0]})")
+        if not is_fault and worst[0] > 1.0:
+            failures.append(f"{name}: K5 off its plain version by {worst[0]} of the tolerance")
+    return failures
+
+
+def decode_phase(results: dict) -> None:
+    import torch
+    failures = []
+    for arch in DECODE_MODELS:
+        for dtype in ("bfloat16", "float32"):
+            t0 = time.perf_counter()
+            failures += decode_bridge(arch, dtype, results)
+            torch.cuda.empty_cache()
+            log(f"[decode] {arch} {dtype} bridge {time.perf_counter() - t0:.1f} s")
+    for arch in ("qwen3-8b", "zamba2-7b"):
+        t0 = time.perf_counter()
+        failures += decode_long(arch, results)
+        torch.cuda.empty_cache()
+        log(f"[decode] {arch} long context {time.perf_counter() - t0:.1f} s")
+    check(not failures, "; ".join(failures))
 
 
 # -------------------------------------------------------------------- main
@@ -850,23 +1241,28 @@ def main() -> int:
         t0 = time.perf_counter()
         serve_phase(results)
         log(f"[serve] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        decode_phase(results)
+        log(f"[decode] {time.perf_counter() - t0:.1f} s")
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     kernels = []
+    base = ("launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     for name, r in results.items():
         source, tpu = KERNELS[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": tpu, "tpu_kernel": tpu,
-            "launches": r["launches"], "launches_by_path": r["launches_by_path"],
+            "launches": sum(r["launches_by_path"].values()),
+            "launches_by_path": r["launches_by_path"],
             "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: v for k, v in r.items() if isinstance(v, dict)
-               and k != "launches_by_path"}})
+            **{k: v for k, v in r.items() if k not in base}})
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,14 @@ def staged_from_numpy(tree: Dict[str, Any], device=None,
     return params_from_numpy(tree, device, dtype)
 
 
+def cache_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """A reference KV cache or decode state (numpy leaves: int32 ``pos``,
+    fp32 SSM state, k/v in the model's dtype) -> the same dict of tensors
+    on ``device``, every dtype kept. The leaves are copied, never shared
+    with ``tree``: the port's ``decode_step`` writes into them in place."""
+    return {k: tensor_from_numpy(np.array(v, copy=True), device) for k, v in tree.items()}
+
+
 def pool_from_numpy(pool: Any, device=None) -> PagedPool:
     """A reference ``PagedPool`` (or a dict with k, v, k_scale, v_scale) of
     numpy arrays -> the port's ``PagedPool`` with the storage dtypes kept."""

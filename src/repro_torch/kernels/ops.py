@@ -1,6 +1,7 @@
 """Public wrappers of the CUDA kernels, the counterparts of
 ``repro.kernels.ops``: the three attention kernels K1-K3
-(``csrc/chunk_attn.cu``) and the Mamba2 SSD scan K4 (``csrc/ssd.cu``).
+(``csrc/chunk_attn.cu``), the Mamba2 SSD scan K4 (``csrc/ssd.cu``) and the
+flash-decode attention K5 (``csrc/decode_attn.cu``).
 
 Each wrapper checks device, dtype, shape and layout and raises on what the
 kernel does not take, allocates its outputs with ``torch.empty`` and
@@ -13,14 +14,14 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import ref
 
 LAUNCHES = {"chunk_attention": 0, "pool_attention": 0,
-            "pool_attention_paged": 0, "ssd": 0}
+            "pool_attention_paged": 0, "ssd": 0, "decode_attention": 0}
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -40,6 +41,7 @@ _SIGNATURES = {
     "pool_attention_launch": [_P] * 9 + [_I] * 11 + [_F, _P],
     "pool_attention_paged_launch": [_P] * 10 + [_I] * 12 + [_LL] * 9 + [_F, _P],
     "ssd_launch": [_P] * 9 + [_I] * 9 + [_P],
+    "decode_attention_launch": [_P] * 8 + [_I] * 8 + [_F, _P],
 }
 _SSD_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (P, N) = (head dim, state size): smoke; zamba2-7b; mamba2-130m
@@ -322,3 +324,64 @@ def ssd(x, dt, a_log, b, c, d_skip, *, chunk: int = 128, init_state=None):
           _ptr(c), _ptr(d2), _ptr(init_state), _ptr(y), _ptr(final),
           _SSD_CODES[x.dtype], r, t, h, p, g, n, ck, gs)
     return y, final
+
+
+# -------------------------------------------------------------------- K5
+
+_DECODE_GROUPS = (1, 2, 4, 8)     # G = H / KVH the kernel is built for
+_DECODE_BLOCKS = 4 * 132          # partial blocks aimed at: 4 per H100 SM
+_DECODE_MIN_SPLIT = 256           # keys a split takes before S is cut again
+
+
+def decode_splits(s: int, pairs: int) -> Tuple[int, int]:
+    """(nsplit, split_len) of K5's flash-decoding split of a cache of S
+    positions over ``pairs`` (batch row, kv head) pairs: about
+    ``_DECODE_BLOCKS`` blocks in all, and no more splits than
+    ``_DECODE_MIN_SPLIT`` keys each would give."""
+    want = max(1, min(-(-_DECODE_BLOCKS // pairs), -(-s // _DECODE_MIN_SPLIT)))
+    split_len = -(-s // want)
+    return -(-s // split_len), split_len
+
+
+def decode_attention(q, k, v, kv_len, *, scale: Optional[float] = None):
+    """Flash-decode attention (K5): one query token per batch row against a
+    KV cache. q [B,H,D]; k/v [B,S,KVH,D] in q's dtype (fp32 or bf16), with
+    H / KVH in (1, 2, 4, 8); kv_len [B] int32 valid lengths, clamped to
+    [0, S] and read on the device (no host sync). Returns out [B,H,D] in
+    q's dtype: the softmax over the first kv_len[b] keys, p in fp32, one
+    normalisation by max(l, 1e-30), so a row with kv_len = 0 gives zeros.
+    Unlike the reference wrapper there is no lane padding and no block
+    halving: the kernel masks the ragged tail of any S."""
+    b, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    if (k.shape != (b, s, kvh, d) or v.shape != k.shape or tuple(kv_len.shape) != (b,)
+            or s == 0 or h % kvh):
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} kv_len {tuple(kv_len.shape)}")
+    if q.dtype not in _Q_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: one of "
+                        f"{list(_Q_CODES)} for all three")
+    if kv_len.dtype != torch.int32:
+        raise TypeError(f"kv_len must be int32, got {kv_len.dtype}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
+    if h // kvh not in _DECODE_GROUPS:
+        raise ValueError(f"{h} query heads over {kvh} kv heads: group "
+                         f"{h // kvh} not in {_DECODE_GROUPS}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if not _on_card(q, k, v, kv_len):
+        return ref.decode_attention_plain(q, k, v, kv_len, scale=scale)
+    _check_dense(q, k, v)
+    if not kv_len.is_contiguous():
+        raise ValueError("kv_len must be contiguous")
+    nsplit, split_len = decode_splits(s, b * kvh)
+    g = h // kvh
+    part_m = torch.empty((b, kvh, nsplit, g), device=q.device)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((b, kvh, nsplit, g, d), device=q.device)
+    out = torch.empty_like(q)
+    _call("decode_attn", "decode_attention_launch", "decode_attention",
+          _ptr(q), _ptr(k), _ptr(v), _ptr(kv_len), _ptr(part_m), _ptr(part_l),
+          _ptr(part_acc), _ptr(out), _Q_CODES[q.dtype], b, h, kvh, d, s, nsplit,
+          split_len, float(scale))
+    return out

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the kernels: the same signatures and outputs as
 the wrappers in ``kernels.ops``. The three attention kernels take the math
 of the reference's ``_block_update`` in fp32 over all visible keys at once;
-the SSD scan (K4) takes the reference's per-chunk ``_ssd_kernel`` algorithm.
+the SSD scan (K4) takes the reference's per-chunk ``_ssd_kernel`` algorithm;
+the flash-decode (K5) the materialized softmax with K5's semantics.
 
 The wrappers use them for tensors on the CPU; ``chip_smoke.py`` holds each
 CUDA kernel against them on the card.
@@ -171,3 +172,29 @@ def ssd_plain(x, dt, a_log, b, c, d_skip, *, chunk: int, init_state=None):
         state = (state * torch.exp(cs[:, -1])[..., None, None]
                  + torch.einsum("rqhp,rqhn->rhpn", xdt * decay_out[..., None], bh))
     return torch.cat(ys, dim=1).to(x.dtype), state
+
+
+# --------------------------------------------------------- flash-decode (K5)
+
+def decode_attention_plain(q, k, v, kv_len, *, scale: Optional[float] = None):
+    """K5: one query token per batch row against a KV cache. q [B,H,D];
+    k/v [B,S,KVH,D] (head h reads kv head h // (H/KVH)); kv_len [B] valid
+    lengths. The softmax over the first kv_len[b] keys with p kept in fp32
+    before PV (``_decode_kernel``'s order) and one normalisation by
+    max(l, 1e-30): a row with kv_len = 0 gives zeros, as the kernel does,
+    where the reference oracle's softmax over an all -inf row gives NaN.
+    Returns [B,H,D] in q's dtype."""
+    b, h, d = q.shape
+    s_len, kvh = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.float().reshape(b, kvh, h // kvh, d)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * scale
+    valid = torch.arange(s_len, device=q.device)[None, :] < \
+        torch.as_tensor(kv_len, device=q.device)[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, h, d).to(q.dtype)

@@ -64,6 +64,13 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
+def zeros(shapes, device=None):
+    """{leaf: (shape, dtype)} -> {leaf: zeros} on ``device`` (a cache or a
+    decode state from its ``init_*_shape``)."""
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in shapes.items()}
+
+
 def swiglu(params, x: torch.Tensor) -> torch.Tensor:
     """x [..., d] with wg/wu [..., d, f], wd [..., f, d]."""
     g = torch.matmul(x, params["wg"])

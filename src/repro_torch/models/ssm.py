@@ -7,6 +7,9 @@ both fp32. ``block_apply`` also takes stage-stacked weights (leaves
 SSD scan (N*B rows), whose ``a_log`` / ``d_skip`` then hold one row per
 stage. The depthwise conv, softplus and SiLU stay plain torch, as the
 reference computes them outside any Pallas kernel.
+
+Decode (``block_decode``, ``decode_step``) advances one token with the
+single-token SSD update, two small einsums as in the reference (no kernel).
 """
 from __future__ import annotations
 
@@ -128,6 +131,30 @@ def causal_conv(x, w, bias, *, init_state=None):
     return y + (bias if bias.ndim == 1 else bias[:, None, :]), tail
 
 
+def causal_conv_step(x, w, bias, conv_state):
+    """One decode step of the conv. x [B,C]; w [K,C]; conv_state [B,K-1,C]
+    (fp32), rounded to x's dtype before the taps as in the reference.
+    Returns (y [B,C], the new state [B,K-1,C] in x's dtype)."""
+    full = torch.cat([conv_state.to(x.dtype), x[:, None, :]], dim=1)   # [B,K,C]
+    return torch.einsum("bkc,kc->bc", full, w) + bias, full[:, 1:]
+
+
+def ssd_decode_step(x, dt, a_log, b, c, d_skip, state):
+    """Single-token SSD update. x [B,H,P]; dt [B,H] (after softplus); b, c
+    [B,G,N]; a_log, d_skip [H]; state [B,H,P,N] fp32. Returns (y [B,H,P] in
+    x's dtype, the new state fp32)."""
+    h, g = x.shape[1], b.shape[1]
+    dtf = dt.float()
+    dec = torch.exp(dtf * -torch.exp(a_log.float()))                  # [B,H]
+    bh = b.float().repeat_interleave(h // g, dim=1)                   # [B,H,N]
+    ch = c.float().repeat_interleave(h // g, dim=1)
+    xdt = x.float() * dtf[..., None]                                  # [B,H,P]
+    new_state = state * dec[:, :, None, None] + torch.einsum("bhp,bhn->bhpn", xdt, bh)
+    y = torch.einsum("bhn,bhpn->bhp", ch, new_state)
+    y = y + x.float() * d_skip.float()[None, :, None]
+    return y.to(x.dtype), new_state
+
+
 # ------------------------------------------------------------------- block
 
 def init_block(cfg: ModelConfig, generator: torch.Generator,
@@ -213,6 +240,40 @@ def block_apply(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
     return x + out, new_state
 
 
+def block_decode(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                 state: Dict[str, torch.Tensor]):
+    """One layer, one token: x [B,1,d]; state {"conv": [B,K-1,C], "ssd":
+    [B,H,P,N]} fp32. Returns (y [B,1,d], the new state, fp32)."""
+    b = x.shape[0]
+    s = cfg.ssm
+    d_in, nheads, conv_ch = dims(cfg)
+    gn = s.n_groups * s.d_state
+    hn = L.rms_norm(x[:, 0], lp["ln"], cfg.norm_eps)
+    z, xbc, dtv = torch.split(torch.matmul(hn, lp["in_proj"]), [d_in, conv_ch, nheads],
+                              dim=-1)
+    xbc, conv_state = causal_conv_step(xbc, lp["conv_w"], lp["conv_b"], state["conv"])
+    xs, bmat, cmat = torch.split(F.silu(xbc), [d_in, gn, gn], dim=-1)
+    dtv = F.softplus(dtv.float() + lp["dt_bias"].float())
+    y, new_ssd = ssd_decode_step(xs.reshape(b, nheads, s.head_dim), dtv, lp["a_log"],
+                                 bmat.reshape(b, s.n_groups, s.d_state),
+                                 cmat.reshape(b, s.n_groups, s.d_state), lp["d_skip"],
+                                 state["ssd"])
+    y = y.reshape(b, d_in)
+    y = L.rms_norm(y * F.silu(z.float()).to(y.dtype), lp["gate_norm"], cfg.norm_eps)
+    out = torch.matmul(y, lp["out_proj"])
+    return x + out[:, None], {"conv": conv_state.float(), "ssd": new_ssd}
+
+
+def decode_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                 conv: torch.Tensor, ssd: torch.Tensor) -> torch.Tensor:
+    """``block_decode`` whose new state is written IN PLACE into the layer's
+    state tensors ``conv`` [B,K-1,C] and ``ssd`` [B,H,P,N]."""
+    x, st = block_decode(cfg, lp, x, {"conv": conv, "ssd": ssd})
+    conv.copy_(st["conv"])
+    ssd.copy_(st["ssd"])
+    return x
+
+
 # ---------------------------------------------------------------- LM wiring
 
 def init(cfg: ModelConfig, generator: torch.Generator, device=None,
@@ -227,12 +288,54 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None,
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            *, ssd_impl: str = "torch") -> torch.Tensor:
-    """Full-sequence forward; returns fp32 logits [B, S, Vpad]."""
+            *, ssd_impl: str = "torch", return_cache: bool = False):
+    """Full-sequence forward; returns fp32 logits [B, S, Vpad] and, with
+    ``return_cache``, also the state {"conv": [L,B,K-1,C], "ssd":
+    [L,B,H,P,N] fp32, "pos": [B] int32 = S}."""
     x = L.embed_lookup(params["embed"], tokens)
     layers = params["layers"]
+    sts = []
     for i in range(cfg.num_layers):
-        x, _ = block_apply(cfg, {k: w[i] for k, w in layers.items()}, x,
-                           ssd_impl=ssd_impl)
+        x, st = block_apply(cfg, {k: w[i] for k, w in layers.items()}, x,
+                            ssd_impl=ssd_impl)
+        sts.append(st)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return L.unembed_logits(x, params["embed"].T)
+    logits = L.unembed_logits(x, params["embed"].T)
+    if not return_cache:
+        return logits
+    pos = torch.full((tokens.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)
+    return logits, {"conv": torch.stack([st["conv"] for st in sts]),
+                    "ssd": torch.stack([st["ssd"] for st in sts]), "pos": pos}
+
+
+def state_shapes(cfg: ModelConfig, lead: Sequence[int], batch: int):
+    """{"conv", "ssd": (shape, fp32)} of Mamba2 states under leading axes
+    ``lead``."""
+    s = cfg.ssm
+    _, nheads, conv_ch = dims(cfg)
+    lead = tuple(lead)
+    return {"conv": (lead + (batch, s.conv_kernel - 1, conv_ch), torch.float32),
+            "ssd": (lead + (batch, nheads, s.head_dim, s.d_state), torch.float32)}
+
+
+def init_cache_shape(cfg: ModelConfig, batch: int, max_len: int):
+    """{leaf: (shape, dtype)} of the decode state (the reference's
+    ``init_state_shape``); it has no length, so ``max_len`` is unused."""
+    return {**state_shapes(cfg, (cfg.num_layers,), batch),
+            "pos": ((batch,), torch.int32)}
+
+
+def decode_step(cfg: ModelConfig, params: Params, state: Params,
+                tokens: torch.Tensor):
+    """One-token decode. tokens [B] int. Returns (logits [B, Vpad] fp32,
+    state). The conv and SSD states are updated IN PLACE (the reference
+    returns new ones); the returned dict holds them and ``pos + 1`` as a new
+    tensor."""
+    x = L.embed_lookup(params["embed"], tokens[:, None])
+    layers = params["layers"]
+    for i in range(cfg.num_layers):
+        x = decode_layer(cfg, {k: w[i] for k, w in layers.items()}, x,
+                         state["conv"][i], state["ssd"][i])
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = L.unembed_logits(x, params["embed"].T)
+    return logits[:, 0], {**state, "pos": state["pos"] + 1}

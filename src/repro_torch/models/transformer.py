@@ -1,6 +1,11 @@
 """Dense decoder-only transformer (GQA, qk_norm, granite scalars), mirroring
 the dense subset of ``repro.models.transformer``. Params are a dict with the
 reference's key names; layer params are stacked on a leading layer axis.
+
+Decode (``decode_step``) runs the reference's local path: one token per
+batch row against a KV cache, through the flash-decode kernel K5
+(``kernels.ops.decode_attention``). The seq-sharded decode of the reference
+(``decode_attn_update``) spans several devices and is not ported.
 """
 from __future__ import annotations
 
@@ -10,6 +15,7 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.kvstore.quant import torch_dtype
 from repro_torch.models import layers as L
 
@@ -133,10 +139,87 @@ def logits_head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tens
     return L.unembed_logits(x, w, scale=cfg.logits_scaling)
 
 
-def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward; returns fp32 logits [B, S, Vpad]."""
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+            return_cache: bool = False):
+    """Full-sequence forward; returns fp32 logits [B, S, Vpad] and, with
+    ``return_cache``, also the cache {"k", "v": [L,B,S,KVH,D], "pos": [B]
+    int32 = S}."""
     x = embed_tokens(cfg, params, tokens)
     layers = params["layers"]
+    ks, vs = [], []
     for i in range(cfg.num_layers):
-        x, _, _ = layer_apply(cfg, {k: w[i] for k, w in layers.items()}, x)
-    return logits_head(cfg, params, x)
+        x, k, v = layer_apply(cfg, {n: w[i] for n, w in layers.items()}, x)
+        if return_cache:
+            ks.append(k)
+            vs.append(v)
+    logits = logits_head(cfg, params, x)
+    if not return_cache:
+        return logits
+    pos = torch.full((tokens.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs), "pos": pos}
+
+
+# ------------------------------------------------------------------ decode
+
+def init_cache_shape(cfg: ModelConfig, batch: int, max_len: int):
+    """{leaf: (shape, dtype)} of the KV cache."""
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    dt = torch_dtype(cfg.dtype)
+    return {"k": (shape, dt), "v": (shape, dt), "pos": ((batch,), torch.int32)}
+
+
+def check_pos(pos: torch.Tensor, max_len: int) -> None:
+    """Asserts that every row's write position lies in [0, max_len) (the
+    reference's update silently clamps to the last slot), without a host
+    sync: on the CPU it raises at once, on the card the device-side assert
+    fails the next call that synchronises."""
+    torch._assert_async(((pos >= 0) & (pos < max_len)).all(),
+                        f"a decode position lies outside a cache of {max_len}")
+
+
+def attn_decode(cfg: ModelConfig, lp: Params, x: torch.Tensor, ck: torch.Tensor,
+                cv: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Pre-norm attention of one token per row x [B,1,d] against the layer
+    cache ck/cv [B,S,KVH,D]: writes this token's k/v at ``pos`` [B] of each
+    row IN PLACE, then runs K5 over the first pos + 1 keys. Returns the
+    residual output."""
+    b = x.shape[0]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    hn = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q = torch.matmul(hn, lp["wq"]).reshape(b, 1, h, hd)
+    k = torch.matmul(hn, lp["wk"]).reshape(b, 1, kv, hd)
+    v = torch.matmul(hn, lp["wv"]).reshape(b, 1, kv, hd)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, lp["q_norm"], cfg.norm_eps)
+        k = L.rms_norm(k, lp["k_norm"], cfg.norm_eps)
+    cos, sin = L.rope_angles(pos[:, None], hd, cfg.rope_theta)
+    q = L.apply_rope(q, cos, sin)
+    k = L.apply_rope(k, cos, sin)
+    rows = torch.arange(b, device=x.device)
+    idx = pos.long()
+    ck[rows, idx] = k[:, 0]
+    cv[rows, idx] = v[:, 0]
+    att = ops.decode_attention(q[:, 0].contiguous(), ck, cv, pos + 1,
+                               scale=cfg.attention_multiplier or None)
+    out = torch.matmul(att.reshape(b, 1, h * hd), lp["wo"])
+    return x + cfg.residual_multiplier * out
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Params,
+                tokens: torch.Tensor):
+    """One-token decode. tokens [B] int. Returns (logits [B, Vpad] fp32,
+    cache). Unlike the reference, which returns a new cache, each layer's
+    k/v is written at ``pos`` into ``cache["k"]`` / ``cache["v"]`` IN PLACE
+    (a functional copy of a long cache every step does not fit on the card);
+    the returned dict holds the same k/v tensors and ``pos + 1`` as a new
+    tensor. Raises if a row's ``pos`` is outside the cache."""
+    pos = cache["pos"]
+    check_pos(pos, cache["k"].shape[2])
+    x = embed_tokens(cfg, params, tokens[:, None])
+    layers = params["layers"]
+    for i in range(cfg.num_layers):
+        lp = {n: w[i] for n, w in layers.items()}
+        x = attn_decode(cfg, lp, x, cache["k"][i], cache["v"][i], pos)
+        x = ffn_block(cfg, lp, x)
+    logits = logits_head(cfg, params, x)
+    return logits[:, 0], {**cache, "pos": pos + 1}

@@ -59,8 +59,10 @@ def test_kernel_modules_import_without_nvcc():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), PATH="/nonexistent")
     code = ("import repro_torch.kernels.ops as ops, repro_torch.core.pipeline, "
             "repro_torch.launch.serve, repro_torch.kernels.build as b, "
-            "repro_torch.models.ssm, repro_torch.models.hybrid; "
+            "repro_torch.models.ssm, repro_torch.models.hybrid, "
+            "repro_torch.models.api, repro_torch.bridge; "
             "assert callable(ops.ssd) and 'ssd' in ops.LAUNCHES; "
+            "assert callable(ops.decode_attention) and 'decode_attention' in ops.LAUNCHES; "
             "assert not b._LIBS and all(v == 0 for v in ops.LAUNCHES.values()); "
             "print('OK')")
     r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
