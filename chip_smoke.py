@@ -9,7 +9,8 @@ prints no result line):
 
 1. card: prints the card's name and power limit (nvidia-smi), turns TF32 off;
 2. build: compiles every ``src/repro_torch/csrc/*.cu`` with nvcc (one
-   process per library, all at once), timed;
+   process per library, all at once), timed, with each library's and each
+   tensor-core K1 instance's registers and spills;
 3. kernels: holds each CUDA kernel against its plain PyTorch version on the
    card, each output tensor at its own scale (see ``compare``), and times
    kernel, plain version and, where one exists, a PyTorch call computing
@@ -17,7 +18,12 @@ prints no result line):
    - K1 chunk attention, K2 pool attention, K3 paged pool attention at
      qwen3-8b's shapes (head dim 128, GQA) in bf16 and fp32 with bf16/fp32,
      int8 and fp8 pages, and at zamba2-7b's shared-block shape (head dim
-     112, MHA) in bf16 with bf16 and int8 pages;
+     112, MHA) in bf16 with bf16 and int8 pages (K1 also fp8); at both head
+     dims K1's tensor-core body (bf16) is also held with a prefix offset and
+     kv_len < T (T no multiple of the 64-key tile, bf16 and quantized
+     pages) and on a ragged chunk of 500 queries whose first rows see no
+     key; K1's bf16 time is also read from a torch.profiler trace and from
+     windows of back-to-back calls;
    - K4 the Mamba2 SSD scan at zamba2-7b's and mamba2-130m's shapes in
      bf16 and fp32, with a non-zero init_state, one a_log / d_skip row per
      stage (Gs = 8) and a case with G < H SSM groups;
@@ -87,6 +93,8 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # serve-phase geometry; the kernel phases use the same shapes
 N_STAGES, N_CHUNKS, CHUNK, BATCH, REQUESTS = 8, 8, 512, 2, 4
+RAGGED_CHUNK = 500                 # K1's ragged query edge (not a multiple of 64)
+K1_KINDS = ("int8", "fp8")         # K1's quantized pages, at every head dim
 
 
 class SmokeFailure(RuntimeError):
@@ -120,6 +128,57 @@ def time_ms(fn, iters: int = 12, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def windowed_ms(fn, iters: int = 12, warmup: int = 2, window_ms: float = 1.0) -> float:
+    """Median device time of one call, CUDA events around each of ``iters``
+    windows of back-to-back calls (as many as make a window last
+    ``window_ms``, at most 20), each window entered with one call already in
+    flight, so that the host's time to issue a call hides under the device's
+    work. ``time_ms`` times one call from an idle card, which also counts
+    that issue time; this reading is kept beside it, never in its place."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    calls = max(1, min(20, int(window_ms / max(a.elapsed_time(b), 1e-3))))
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        fn()
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def profiled_ms(fn, kernel: str, calls: int = 20):
+    """The device time of one launch of the CUDA kernel whose name holds
+    ``kernel``, from a ``torch.profiler`` trace of ``calls`` calls of
+    ``fn``: (ms, launches seen); (None, 0) if the trace holds no device
+    time for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    us = sum(getattr(e, "device_time_total", 0.0) for e in events)
+    n = sum(e.count for e in events)
+    return (us / 1e3 / n, n) if n and us else (None, 0)
 
 
 def bound_ms(nbytes: float, ops: float, dtype: str):
@@ -190,8 +249,10 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, full: bool) -> None
     batch 2 folded into the rows), k/v with kvh heads. ``full`` (qwen3-8b,
     d 128) runs bf16 and fp32 with bf16/fp32, int8 and fp8 pages, the
     kv_len and shuffled-page cases, and records the kernels' times;
-    otherwise (zamba2-7b, d 112) bf16 with bf16 and int8 pages, times
-    recorded under ``results[kernel]["d<d>"]``."""
+    otherwise (zamba2-7b, d 112) bf16 with bf16 and int8 pages (K1: and
+    fp8), times recorded under ``results[kernel]["d<d>"]``. At both, K1 in
+    bf16 (its tensor-core body) also runs a prefix with kv_len < T and a
+    ragged chunk with empty rows."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -223,20 +284,25 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, full: bool) -> None
         torch.cuda.synchronize()
         k1_err = max(k1_err, compare(f"self block {name}", got, want, name))
         if name == "bfloat16":
-            ms = time_ms(lambda: ops.chunk_attention(q, k, v, return_state=True))
+            call = lambda: ops.chunk_attention(q, k, v, return_state=True)
+            ms, win_ms = time_ms(call), windowed_ms(call)
+            prof_ms, seen = profiled_ms(call, "chunk_attn_tc_kernel")
+            log(f"  torch.profiler: chunk_attn_tc_kernel {seen} launches, "
+                + (f"{prof_ms:.4f} ms device time each" if seen else "no device time seen"))
             plain = time_ms(lambda: ref.chunk_attention_plain(q, k, v))
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             lib = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True))
             pairs = gb * h * c * (c + 1) / 2
             b_ms, by = bound_ms(nbytes(q, k, v, *got), 4.0 * d * pairs, name)
-            record("chunk_attention", ms=ms, plain_ms=plain, library_ms=lib,
-                   bound_ms=b_ms, bound_by=by)
-            log(f"  time: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            record("chunk_attention", ms=ms, windowed_ms=win_ms, profiler_ms=prof_ms,
+                   plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=by)
+            log(f"  time: kernel {ms:.4f} ms ({win_ms:.4f} ms a call in windows of "
+                f"back-to-back calls), plain {plain:.4f} ms, "
                 f"sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({by})")
     # stored-chunk blocks with quantized pages (full visibility: offset T)
     q = randn(gb, c, h, d, dtype=torch.bfloat16)
-    for kind in kinds:
+    for kind in K1_KINDS:
         kq, ks = quantize(randn(gb, c, kvh, d), kind, (1, 3))
         vq, vs = quantize(randn(gb, c, kvh, d), kind, (1, 3))
         ks = ks.expand(gb, c, kvh, 1)[..., 0].contiguous()
@@ -255,6 +321,38 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, full: bool) -> None
         want = ref.chunk_attention_plain(q, k, v, causal_offset=c, kv_len=kv_len)
         k1_err = max(k1_err, compare(f"offset {c}, kv_len {kv_len} < T fp32", got,
                                      want, "float32"))
+    # the tensor-core body (bf16 q) where it can go wrong: a prefix offset
+    # with kv_len < T and T not a multiple of the 64-key tile; a ragged chunk
+    # of 500 queries whose first rows see no key (offset -5: the sentinel)
+    bf16 = torch.bfloat16
+    t_pre = 2 * c - 37
+    kv_len = t_pre - c // 3
+    q, k, v = randn(gb, c, h, d, dtype=bf16), randn(gb, t_pre, kvh, d, dtype=bf16), \
+        randn(gb, t_pre, kvh, d, dtype=bf16)
+    got = ops.chunk_attention(q, k, v, causal_offset=c, kv_len=kv_len, return_state=True)
+    want = ref.chunk_attention_plain(q, k, v, causal_offset=c, kv_len=kv_len)
+    k1_err = max(k1_err, compare(f"offset {c}, kv_len {kv_len} < T {t_pre} bfloat16",
+                                 got, want, "bfloat16"))
+    c_r = RAGGED_CHUNK
+    q, k, v = randn(gb, c_r, h, d, dtype=bf16), randn(gb, c_r, kvh, d, dtype=bf16), \
+        randn(gb, c_r, kvh, d, dtype=bf16)
+    got = ops.chunk_attention(q, k, v, causal_offset=-5, return_state=True)
+    want = ref.chunk_attention_plain(q, k, v, causal_offset=-5)
+    check(bool((want[1][:, :, :5] == -1e30).all()), "the ragged case has no empty rows")
+    k1_err = max(k1_err, compare(f"ragged chunk C {c_r}, offset -5 bfloat16", got, want,
+                                 "bfloat16"))
+    # quantized pages at every head dim, and a prefix of them with kv_len < T
+    q = randn(gb, c, h, d, dtype=bf16)
+    for kind in K1_KINDS:
+        kq, ks = quantize(randn(gb, t_pre, kvh, d), kind, (1, 3))
+        vq, vs = quantize(randn(gb, t_pre, kvh, d), kind, (1, 3))
+        ks = ks.expand(gb, t_pre, kvh, 1)[..., 0].contiguous()
+        vs = vs.expand(gb, t_pre, kvh, 1)[..., 0].contiguous()
+        kw = dict(causal_offset=c, kv_len=kv_len, k_scale=ks, v_scale=vs)
+        got = ops.chunk_attention(q, kq, vq, return_state=True, **kw)
+        want = ref.chunk_attention_plain(q, kq, vq, **kw)
+        k1_err = max(k1_err, compare(f"{kind} pages, kv_len {kv_len} < T {t_pre}", got,
+                                     want, kind))
     k1 = results["chunk_attention"]
     k1["max_abs_err"] = max(k1.get("max_abs_err", 0.0), k1_err)
 
@@ -1193,6 +1291,42 @@ def decode_phase(results: dict) -> None:
     check(not failures, "; ".join(failures))
 
 
+# ------------------------------------------------------------------- build
+
+# K1's tensor-core body: (mangled template argument, name) of its K/V types
+TC_KV_TYPES = (("13__nv_bfloat16", "bf16"), ("a", "int8"), ("13__nv_fp8_e4m3", "fp8"))
+
+
+def build_phase() -> None:
+    """Compiles every library (``-Xptxas -v``) and prints, per library, the
+    largest register count and spill of its kernels and, for each instance
+    of K1's tensor-core body, its own registers and spills."""
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    build.build_all(verbose=True)
+    log(f"[build] nvcc {time.perf_counter() - t0:.1f} s -> {build.build_dir()}")
+    for name, text in sorted(build.LOGS.items()):
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
+        log(f"  lib{name}.so: {len(regs)} kernels, registers max {max(regs, default=0)}, "
+            f"spill stores max {max(spills, default=0)} bytes")
+        for line in text.splitlines():   # ptxas warnings and advice
+            if "ptxas" in line and ("warning" in line.lower() or "Performance" in line):
+                log(f"    {line.strip()}")
+        for part in text.split("Compiling entry function '")[1:]:
+            fn = part.split("'", 1)[0]
+            if "chunk_attn_tc_kernel" not in fn:
+                continue
+            args = fn.split("chunk_attn_tc_kernelI", 1)[1]
+            kv = next((n for m, n in TC_KV_TYPES if args.startswith(m)), args[:24])
+            d = re.search(r"Li(\d+)E", args).group(1)
+            reg = re.search(r"Used (\d+) registers", part)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+            log(f"    K1 tensor-core body, bf16 q, {kv} K/V, D {d}: registers "
+                f"{reg.group(1) if reg else '?'}, spill stores / loads "
+                f"{spill.group(1) + ' / ' + spill.group(2) if spill else '?'} bytes")
+
+
 # -------------------------------------------------------------------- main
 
 def card_line() -> str:
@@ -1221,15 +1355,7 @@ def main() -> int:
         log(f"torch {torch.__version__} cuda {torch.version.cuda} "
             f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-        from repro_torch.kernels import build
-        t0 = time.perf_counter()
-        build.build_all(verbose=True)
-        log(f"[build] nvcc {time.perf_counter() - t0:.1f} s -> {build.build_dir()}")
-        for name, text in sorted(build.LOGS.items()):
-            regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
-            spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
-            log(f"  lib{name}.so: {len(regs)} kernels, registers max {max(regs, default=0)}, "
-                f"spill stores max {max(spills, default=0)} bytes")
+        build_phase()
 
         results: dict = {}
         t0 = time.perf_counter()

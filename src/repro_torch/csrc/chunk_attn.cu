@@ -5,7 +5,9 @@
 //   chunk_attention_launch       <- chunk_attention_pallas       (K1, _attn_kernel)
 //   pool_attention_launch        <- pool_attention_pallas        (K2, _pool_kernel)
 //   pool_attention_paged_launch  <- pool_attention_paged_pallas  (K3, _paged_kernel)
-// and block_update() below replaces _block_update.
+// and block_update() below (CUDA cores) and tc::issue_scores() +
+// softmax_max() + softmax_p() + issue_pv() in chunk_attn_tc.cuh (tensor
+// cores) replace _block_update.
 //
 // What each computes (fp32 state throughout, as the TPU kernels):
 //   K1  q [B,C,H,D] against k/v [B,T,KVH,D]; key j visible to query i iff
@@ -23,32 +25,55 @@
 // Head dims D = 16 (smoke), 112 (zamba2-7b's shared block) and 128
 // (qwen3-8b); D % 8 == 0 is what the float4 halves of a row need.
 // GQA maps query head h to kv head h / (H / KVH). int8 / fp8 K/V are
-// dequantized right after the load: per-token fp32 scales [.., T, KVH] for
-// K1/K2, per-page scales for K3, applied on the landing buffer.
+// dequantized inside the kernels: per-token fp32 scales [.., T, KVH] for
+// K1/K2, per-page scales for K3.
 //
-// Design (first, simple version): one thread block per (group*batch, head,
-// 64-row query block); 128 threads, two per query row, each owning half of
-// the head dim in registers (q, acc). A loop inside the block walks the K/V
-// tiles (32 rows) of every visited chunk — the Hopper form of the TPU's
-// sequential inner grid axes (nk for K1, (slot, nk) for K2, (slot, page)
-// for K3). Tiles land in shared memory in their storage dtype by cp.async,
-// double-buffered: the next tile (possibly the next valid slot's or page's)
-// is in flight while the current one computes — the counterpart of K3's
-// make_async_copy double buffer. Each landed tile is dequantized once into
-// fp32 shared tiles that every query row of the block reuses.
+// Two bodies, chosen statically by q's dtype and the head dim (launch_chunk;
+// no runtime fallback: a body that fails to build or launch raises):
 //
-// What bounds it on an H100: at the main path's shapes (C = 512, D = 128,
-// bf16) the least time of K1's causal self block is set by bytes — the
-// fp32 acc state the combine chain needs is the largest array moved —
-// while K2/K3 over a stack of slots are set by the bf16 tensor-core rate.
-// This version does its products on the CUDA cores in fp32 (no wgmma, no
-// TMA), so in practice the fp32 FMA issue rate bounds all three; moving
-// QK^T and PV onto wgmma with TMA-fed tiles is the next step, and PERF.md
-// keeps the measured distance to the bound.
+// * K1 with bf16 q and bf16 / int8 / fp8 K/V at D = 112 or 128 — every K1
+//   launch of the bf16 main paths — runs the tensor-core body
+//   (chunk_attn_tc.cuh): a persistent grid, one block an SM, with two
+//   consumer warpgroups, each walking its own units (a 64-row query block
+//   of one head) longest first, and a producer warpgroup that loads their
+//   Q and 64-key K/V tiles by TMA ahead across units, into mbarrier rings
+//   (1-byte tiles are widened to bf16 in shared memory once, exact), and
+//   lends its registers to the consumers (setmaxnreg). S = Q·K^T and P·V
+//   are wgmma products with fp32 accumulators; the next tile's S runs
+//   under this tile's exponentials; P is fed from registers and split
+//   hi + lo so that P·V keeps p to ~16 bits as the reference's fp32 p·V
+//   does; out leaves by TMA stores, acc by stores that fill whole 32-byte
+//   sectors. What bounds it: at qwen3-8b's shape (C = 512, D = 128) the
+//   least time is set by bytes, two thirds of them the outputs (out bf16
+//   and the fp32 acc the combine chain needs); the products, with P·V
+//   doubled, need about half of that time at the bf16 tensor-core rate.
+//   It runs at about 1.9x that time (PERF.md).
+//
+// * Everything else — fp32 q (the 1e-4 parity mode, which TF32 products
+//   could not meet), D = 16, and K2 / K3 — runs the first, simple body:
+//   one thread block per (group*batch, head, 64-row query block); 128
+//   threads, two per query row, each owning half of the head dim in
+//   registers (q, acc). A loop inside the block walks the K/V tiles (32
+//   rows) of every visited chunk — the Hopper form of the TPU's sequential
+//   inner grid axes (nk for K1, (slot, nk) for K2, (slot, page) for K3).
+//   Tiles land in shared memory in their storage dtype by cp.async,
+//   double-buffered: the next tile (possibly the next valid slot's or
+//   page's) is in flight while the current one computes — the counterpart
+//   of K3's make_async_copy double buffer. Each landed tile is dequantized
+//   once into fp32 shared tiles that every query row of the block reuses.
+//   Its products run on the CUDA cores in fp32, so the fp32 FMA issue rate
+//   and shared-memory reads bound it, far from the bytes (K1) or the bf16
+//   tensor-core rate (K2 / K3 over a stack of slots); moving K2 / K3 onto
+//   chunk_attn_tc.cuh's ring, tile sources and tile update is the next
+//   step, and PERF.md keeps the measured distance to the bound.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "chunk_attn_tc.cuh"
 
 namespace {
 
@@ -397,16 +422,21 @@ template <typename TQ, typename TKV, int D>
 int launch_chunk(const void* q, const void* k, const void* v, const float* ks, const float* vs,
                  void* out, float* m, float* l, float* acc, int B, int C, int H, int T, int KVH,
                  int causal_offset, int kv_len, float scale, cudaStream_t stream) {
-  auto kern = chunk_attn_kernel<TQ, TKV, D>;
-  const size_t smem = smem_bytes<TKV, D>();
-  static bool ready = false;
-  cudaError_t err = prepare(kern, smem, ready);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((C + BQ - 1) / BQ, H, B);
-  kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v), ks,
-      vs, static_cast<TQ*>(out), m, l, acc, C, H, T, KVH, causal_offset, kv_len, scale);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<TQ, __nv_bfloat16>::value && (D == 112 || D == 128)) {
+    return tc::launch_chunk_tc<TKV, D>(q, k, v, ks, vs, out, m, l, acc, B, C, H, T, KVH,
+                                       causal_offset, kv_len, scale, stream);
+  } else {
+    auto kern = chunk_attn_kernel<TQ, TKV, D>;
+    const size_t smem = smem_bytes<TKV, D>();
+    static bool ready = false;
+    cudaError_t err = prepare(kern, smem, ready);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((C + BQ - 1) / BQ, H, B);
+    kern<<<grid, NTHREADS, smem, stream>>>(
+        static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v), ks,
+        vs, static_cast<TQ*>(out), m, l, acc, C, H, T, KVH, causal_offset, kv_len, scale);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename TQ, typename TKV, int D>

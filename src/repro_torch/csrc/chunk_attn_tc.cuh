@@ -1,0 +1,846 @@
+// Tensor-core machinery of the chunk-attention kernels for Hopper (sm_90a):
+// TMA tile loads under mbarriers, wgmma products, and the online-softmax
+// tile update on wgmma fragments. chunk_attn.cu includes it; K1's bf16 body
+// (chunk_attn_tc_kernel below) is built from it.
+//
+// The pieces, meant to be shared by every kernel of chunk_attn.cu that
+// moves onto the tensor cores:
+//   Ring          STAGES stages of K and V tiles in shared memory; K and V
+//                 each have a "full" mbarrier (TMA bytes landed) and an
+//                 "empty" one (the consumer warpgroup is done with it).
+//   DenseTiles    a producer source: tile t of one (batch row, kv head) of
+//                 k/v [B,T,KVH,D], loaded by TMA (K1). Another source only
+//                 has to say how tile t lands (a slot stack for K2, page
+//                 handles for K3).
+//   produce()     the producer's loop (one thread) over a source's tiles.
+//   TileState, issue_scores(), softmax_max(), softmax_p(), issue_pv()
+//                 the consumer: one warpgroup's 64 query rows, their fp32
+//                 (m, l, acc) in wgmma fragments, and the update by one
+//                 64-key tile: S = Q·K^T (wgmma, bf16 in, fp32 out), the
+//                 mask on diagonal and tail tiles before the exponential,
+//                 the online softmax in fp32, then acc += P·V as two
+//                 register-A wgmmas, P = hi + lo (hi = bf16(p), lo =
+//                 bf16(p - hi)), so that P·V keeps p to ~16 bits where one
+//                 bf16 rounding of p would move acc by ~2e-3 of max|acc|.
+//                 In parts, so that the next tile's S can run under this
+//                 tile's exponentials.
+//   widen_tile()  an int8 / fp8-e4m3 tile (exact in bf16) widened once into
+//                 the swizzled bf16 layout the wgmma reads.
+//
+// Shared-memory layout of a bf16 operand tile: 64 rows x 128 bytes per box
+// (8 KB, the 128-byte swizzle of TMA and of the wgmma descriptors), two
+// boxes for the head dim (columns 0-63 and 64-127). At D = 112 the second
+// box's columns 112-127 lie past the tensor's inner dimension, so TMA fills
+// them with zeros: Q·K^T stays exact (the zero columns of Q meet K's), and
+// columns 112-127 of acc come out zero and are never stored (out's TMA
+// store clips them; acc is stored up to D). A 32-byte swizzle in 16-column
+// slabs would avoid the padding but needs 7 descriptors and boxes per tile
+// instead of 2; the padding costs only shared memory, never device-memory
+// bytes.
+#pragma once
+
+#include <cuda.h>            // CUtensorMap and its enums (header only)
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cuda_fp8.h>
+#include <stdint.h>
+
+// Internal linkage (an unnamed namespace around tc): the libraries built
+// from chunk_attn.cu share no symbol, so no static of one is another's.
+namespace {
+namespace tc {
+
+constexpr int BQ = 64;               // query rows of one unit: one consumer warpgroup
+constexpr int BK = 64;               // keys per tile
+constexpr int STAGES = 2;            // K/V ring depth (per consumer warpgroup)
+constexpr int QBUFS = 3;             // Q tiles in flight (per consumer warpgroup)
+constexpr int WG = 128;              // threads of a warpgroup
+constexpr int NCONSUMER = 2 * WG;    // two consumer warpgroups
+constexpr int NTHREADS = NCONSUMER + WG;   // + a producer warpgroup
+// setmaxnreg: the producer warpgroup's registers go to the consumers
+// (128 x 40 + 256 x 232 <= 65536, one block an SM)
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int BOX = 8192;            // one 64 x 128-byte swizzled box
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// ------------------------------------------------------------------ PTX
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// waits until the committed stores' shared-memory sources have been read
+// (the block may then exit; the writes complete on their own)
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// generic-proxy writes to shared memory -> visible to wgmma / TMA reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// consumer warpgroup wg's own barrier (barrier 0 is __syncthreads')
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(WG) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Registers an in-flight wgmma reads or writes: no use is moved across this
+// point. Placed right after a wait, and right before the wgmma_fence of a
+// batch for every register its wgmmas read, so that no instruction that
+// defines one lands between the batch's wgmmas (ptxas would serialize).
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint64_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+l"(r[i])::"memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (in 16-byte units), layout type 1 in bits 62-63.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+// S (+)= A·B, A and B K-major bf16 tiles in shared memory (128-byte swizzle)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O += A·B, A (64 x 16 bf16) from registers (a0-a3: the fragment), B an MN-major bf16 tile in shared
+// memory (128-byte swizzle, transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// O += A·B, A (64 x 16 bf16) from registers (a0-a3: the fragment), B an MN-major bf16 tile in shared
+// memory (128-byte swizzle, transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+
+// 2^x by the SFU (relative error ~2^-22; 2^(-1.4e30) is 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(a)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(b)) << 16);
+}
+
+// ---------------------------------------------------------- tile layouts
+
+// How one 64-key tile of K (or V) of storage type TKV lands: 16-bit tiles
+// as two swizzled boxes that the wgmma reads in place; 1-byte tiles as one
+// dense [64][D] box, widened to bf16 before use.
+template <typename TKV, int D>
+struct KVBox {
+  static constexpr bool WIDE = sizeof(TKV) == 2;
+  static constexpr int BOXES = WIDE ? 2 : 1;
+  static constexpr int COLS = WIDE ? 64 : D;           // box width (elements)
+  static constexpr uint32_t BYTES = BK * COLS * sizeof(TKV);
+  static constexpr int TILE = WIDE ? 2 * BOX : BOX;    // bytes a K (or V) tile takes
+};
+
+// K and V tiles have barriers of their own, so that a K tile's stage is
+// refilled as soon as its scores are done, while its V tile is still read.
+template <typename TKV, int D>
+struct Ring {
+  unsigned char* tiles;          // [STAGES][K | V][KVBox::TILE]
+  uint64_t* bars;                // kfull, kempty, vfull, vempty: [STAGES] each
+  __device__ unsigned char* k(int s) const { return tiles + s * 2 * KVBox<TKV, D>::TILE; }
+  __device__ unsigned char* v(int s) const { return k(s) + KVBox<TKV, D>::TILE; }
+  __device__ uint64_t* kfull(int s) const { return bars + s; }
+  __device__ uint64_t* kempty(int s) const { return bars + STAGES + s; }
+  __device__ uint64_t* vfull(int s) const { return bars + 2 * STAGES + s; }
+  __device__ uint64_t* vempty(int s) const { return bars + 3 * STAGES + s; }
+};
+
+// K1's source: the tiles of k/v [B,T,KVH,D] of one (batch row b, kv head
+// hk), 64 keys each; rows past T land as zeros (TMA's out-of-bounds fill).
+template <typename TKV, int D>
+struct DenseTiles {
+  const CUtensorMap* k;
+  const CUtensorMap* v;
+  int hk, b, ntiles;
+  static constexpr uint32_t TILE_TX = KVBox<TKV, D>::BOXES * KVBox<TKV, D>::BYTES;
+  // tile t of k (or v) into dst, completing on bar
+  __device__ void load(const CUtensorMap* map, int t, unsigned char* dst, uint64_t* bar) const {
+#pragma unroll
+    for (int c = 0; c < KVBox<TKV, D>::BOXES; ++c)
+      tma_load_4d(dst + c * BOX, map, bar, c * 64, hk, t * BK, b);
+  }
+};
+
+// The producer's loop (one thread) over a source's tiles, keeping STAGES
+// in flight; `done` tiles went through the ring before. Returns the count
+// after these.
+template <typename TKV, int D, class Tiles>
+__device__ int produce(const Tiles& src, const Ring<TKV, D>& ring, int done) {
+  for (int t = 0; t < src.ntiles; ++t) {
+    const int u = done + t, s = u % STAGES;
+    const uint32_t parity = ((u / STAGES) + 1) & 1;
+    if (u >= STAGES) mbar_wait(ring.kempty(s), parity);
+    mbar_expect_tx(ring.kfull(s), Tiles::TILE_TX);
+    src.load(src.k, t, ring.k(s), ring.kfull(s));
+    if (u >= STAGES) mbar_wait(ring.vempty(s), parity);
+    mbar_expect_tx(ring.vfull(s), Tiles::TILE_TX);
+    src.load(src.v, t, ring.v(s), ring.vfull(s));
+  }
+  return done + src.ntiles;
+}
+
+// ------------------------------------------------------ 1-byte K/V tiles
+
+template <typename TKV>
+__device__ __forceinline__ float byte_to_f32(uint32_t x);
+template <>
+__device__ __forceinline__ float byte_to_f32<int8_t>(uint32_t x) {
+  return static_cast<float>(static_cast<int8_t>(x & 0xff));
+}
+template <>
+__device__ __forceinline__ float byte_to_f32<__nv_fp8_e4m3>(uint32_t x) {
+  __nv_fp8_e4m3 f;
+  f.__x = static_cast<__nv_fp8_storage_t>(x & 0xff);
+  return static_cast<float>(f);
+}
+
+// A landed [64][D] byte tile -> two swizzled bf16 boxes (exact: int8 and
+// e4m3 values are bf16 values); columns D..127 become zeros. tid: the
+// thread's index in its warpgroup.
+template <typename TKV, int D>
+__device__ __forceinline__ void widen_tile(const unsigned char* raw, unsigned char* dst,
+                                           int tid) {
+#pragma unroll 2
+  for (int i = tid; i < BK * 16; i += WG) {
+    const int r = i >> 4, u = i & 15;                  // row, 16-byte unit of the bf16 row
+    uint4 w = make_uint4(0, 0, 0, 0);
+    if (u * 8 < D) {
+      const uint2 x = *reinterpret_cast<const uint2*>(raw + r * D + u * 8);
+      const uint32_t lo = x.x, hi = x.y;
+      w.x = pack_bf16(__float2bfloat16_rn(byte_to_f32<TKV>(lo)),
+                      __float2bfloat16_rn(byte_to_f32<TKV>(lo >> 8)));
+      w.y = pack_bf16(__float2bfloat16_rn(byte_to_f32<TKV>(lo >> 16)),
+                      __float2bfloat16_rn(byte_to_f32<TKV>(lo >> 24)));
+      w.z = pack_bf16(__float2bfloat16_rn(byte_to_f32<TKV>(hi)),
+                      __float2bfloat16_rn(byte_to_f32<TKV>(hi >> 8)));
+      w.w = pack_bf16(__float2bfloat16_rn(byte_to_f32<TKV>(hi >> 16)),
+                      __float2bfloat16_rn(byte_to_f32<TKV>(hi >> 24)));
+    }
+    *reinterpret_cast<uint4*>(dst + (u >> 3) * BOX + r * 128 + (((u & 7) ^ (r & 7)) << 4)) = w;
+  }
+}
+
+// ------------------------------------------------------------- consumer
+
+// One thread's share of a warpgroup's 64 query rows: rows g and g + 8 of
+// its warp's 16 (g = lane / 4), in the wgmma accumulator layout:
+// o[4j + 2r + e] is row (g + 8r), column 8j + 2(lane % 4) + e. m is the row
+// max of the scaled scores (natural-log units, as the reference), l this
+// thread's part of the row sum (summed over the row's 4 lanes at the end).
+template <int D>
+struct TileState {
+  float m[2], l[2];
+  float o[D / 2];
+  __device__ void init() {
+    m[0] = m[1] = NEG_INF;
+    l[0] = l[1] = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  }
+};
+
+// S = Q·K^T of one 64-key tile, issued into s as one wgmma commit group:
+// D/16 k-steps over the two boxes of q [64][D] and k [64 keys][D] (s
+// needs no zeros: the first k-step's scale-d = 0 writes over it). The
+// caller waits for it.
+template <int D>
+__device__ __forceinline__ void issue_scores(float (&s)[32], const unsigned char* q,
+                                             const unsigned char* k) {
+  // every descriptor before the first wgmma: an instruction that defines a
+  // wgmma's input between two of them makes ptxas serialize the group
+  uint64_t dq[D / 16], dk[D / 16];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = (kk >> 2) * BOX + (kk & 3) * 32;
+    dq[kk] = sw128_desc(q + off, 16, 1024);
+    dk[kk] = sw128_desc(k + off, 16, 1024);
+  }
+  keep(dq);
+  keep(dk);
+  keep(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(s, dq[kk], dk[kk], kk > 0);
+  wgmma_commit();
+  keep(s);
+}
+
+// The rest of the update of `st` by one 64-key tile whose scores s have
+// landed (with issue_scores, the counterpart of the reference's
+// _block_update), in three parts, so that a caller can have the next
+// tile's scores on the tensor cores from the second on: no part writes s,
+// and only the first writes acc (ptxas serializes wgmma groups around an
+// instruction that defines a wgmma's accumulator while one is in flight).
+// QUANT: ksc / vsc are the tile's per-key fp32 scales; the k scale
+// multiplies the score columns after Q·K^T, the v scale is folded into p
+// (after l takes p unscaled) before the hi / lo split. `masked` tiles (the
+// causal diagonal, the kv_len tail) drop every key past lim[r], the last
+// key row r may see, before the exponential, so no 0·inf is ever formed;
+// a row that sees no key keeps (-1e30, 0, 0) exactly.
+struct TileScores {
+  const float* ksc;
+  const float* vsc;
+  float scale;
+  bool masked;
+  int key0;
+  int lim[2];
+  int tig;
+  // score (j, r, e) of the tile: row g + 8r, column 8j + 2 tig + e
+  template <bool QUANT>
+  __device__ __forceinline__ float at(const float (&s)[32], int j, int r, int e) const {
+    const int col = 8 * j + 2 * tig + e;
+    float x = s[4 * j + 2 * r + e] * scale;
+    if (QUANT) x *= ksc[col];
+    return masked && key0 + col > lim[r] ? NEG_INF : x;
+  }
+};
+
+// 1. the new row max: m, and acc rescaled by corr; returns msafe (the max
+// the exponentials are taken against) and corr.
+template <int D, bool QUANT>
+__device__ __forceinline__ void softmax_max(TileState<D>& st, const float (&s)[32],
+                                            const TileScores& sc, float (&msafe)[2],
+                                            float (&corr)[2]) {
+  float mx[2] = {st.m[0], st.m[1]};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) mx[r] = fmaxf(mx[r], sc.at<QUANT>(s, j, r, e));
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    // a row with nothing visible yet: exp against 0, so p == 0, not exp(0)
+    msafe[r] = mx[r] < NEG_INF / 2 ? 0.f : mx[r];
+    corr[r] = exp2_approx((st.m[r] - msafe[r]) * LOG2E);
+    st.m[r] = mx[r];
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      st.o[4 * j + 2 * r] *= corr[r];
+      st.o[4 * j + 2 * r + 1] *= corr[r];
+    }
+}
+
+// 2. p, l, and P = hi + lo as register A fragments (k-step ks: keys
+// 16ks..16ks+15 are accumulator columns j = 2ks, 2ks + 1).
+template <int D, bool QUANT>
+__device__ __forceinline__ void softmax_p(TileState<D>& st, const float (&s)[32],
+                                          const TileScores& sc, const float (&msafe)[2],
+                                          const float (&corr)[2], uint32_t (&hi)[16],
+                                          uint32_t (&lo)[16]) {
+  float psum[2] = {0.f, 0.f};
+  const float ml[2] = {msafe[0] * LOG2E, msafe[1] * LOG2E};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float p[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        p[e] = exp2_approx(fmaf(sc.at<QUANT>(s, j, r, e), LOG2E, -ml[r]));
+        psum[r] += p[e];
+        if (QUANT) p[e] *= sc.vsc[8 * j + 2 * sc.tig + e];
+      }
+      const __nv_bfloat16 h0 = __float2bfloat16_rn(p[0]), h1 = __float2bfloat16_rn(p[1]);
+      const int a = 4 * (j >> 1) + 2 * (j & 1) + r;    // a0: (g, lo keys), a1: (g+8, lo),
+      hi[a] = pack_bf16(h0, h1);                       // a2: (g, hi keys), a3: (g+8, hi)
+      lo[a] = pack_bf16(__float2bfloat16_rn(p[0] - __bfloat162float(h0)),
+                        __float2bfloat16_rn(p[1] - __bfloat162float(h1)));
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) st.l[r] = st.l[r] * corr[r] + psum[r];
+}
+
+// 3. acc += hi·V + lo·V, issued as one wgmma commit group: four k-steps of
+// 16 keys, V [64 keys][D] bf16 read MN-major (LBO: the next 64 head-dim
+// columns, one box on; SBO: the next 8 keys). The caller waits for it.
+template <int D>
+__device__ __forceinline__ void issue_pv(TileState<D>& st, uint32_t (&hi)[16],
+                                         uint32_t (&lo)[16], const unsigned char* v) {
+  uint64_t dv[4];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) dv[ks] = sw128_desc(v + ks * 2048, BOX, 1024);
+  keep(dv);
+  keep(hi);
+  keep(lo);
+  keep(st.o);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const int a = 4 * ks;
+    if constexpr (D == 128) {
+      wgmma_rs_n128(st.o, hi[a], hi[a + 1], hi[a + 2], hi[a + 3], dv[ks]);
+      wgmma_rs_n128(st.o, lo[a], lo[a + 1], lo[a + 2], lo[a + 3], dv[ks]);
+    } else {
+      wgmma_rs_n112(st.o, hi[a], hi[a + 1], hi[a + 2], hi[a + 3], dv[ks]);
+      wgmma_rs_n112(st.o, lo[a], lo[a + 1], lo[a + 2], lo[a + 3], dv[ks]);
+    }
+  }
+  wgmma_commit();
+  keep(st.o);
+}
+
+// ------------------------------------------------------------ K1's body
+
+// A unit of work: one 64-row query block of one (batch row, query head).
+// Units are numbered longest causal first: u = (z * B + b) * H + h for
+// query block nqb - 1 - z.
+struct Units {
+  int C, H, B, nqb, causal_offset, kv_len;
+  __device__ int count() const { return nqb * B * H; }
+  __device__ void at(int u, int& h, int& b, int& q0, int& ntiles) const {
+    h = u % H;
+    b = (u / H) % B;
+    q0 = (nqb - 1 - u / (H * B)) * BQ;
+    const int last_q = min(q0 + BQ, C) - 1;
+    const int rows = max(0, min(kv_len, last_q + causal_offset + 1));
+    ntiles = (rows + BK - 1) / BK;
+  }
+};
+
+template <typename TKV, int D>
+struct K1Smem {   // byte offsets from a 1024-aligned base
+  static constexpr bool QUANT = !KVBox<TKV, D>::WIDE;
+  // one consumer warpgroup's part (two parts, then both warpgroups' scales
+  // and barriers)
+  static constexpr int Q = 0;                     // QBUFS Q tiles, then their out staging
+  static constexpr int RING = Q + QBUFS * 2 * BOX;
+  static constexpr int WIDE = RING + STAGES * 2 * KVBox<TKV, D>::TILE;   // widened K | V
+  static constexpr int PART = WIDE + (QUANT ? 4 * BOX : 0);
+  static constexpr int SCALES = 2 * PART;         // per warpgroup: k | v scales
+  static constexpr int BARS = SCALES + (QUANT ? 2 * 2 * BK * 4 : 0);
+  static constexpr int NBARS = 4 * STAGES + 2 * QBUFS;   // the ring's, qfull, qempty
+  static constexpr int BYTES = BARS + 2 * NBARS * 8;
+  static constexpr size_t DYNAMIC = BYTES + 1024;                        // + alignment slack
+};
+
+// K1 for bf16 q and bf16 / int8 / fp8 K/V at D = 112 or 128: a persistent
+// grid of one block an SM. Each block has two consumer warpgroups that
+// walk their own units, round robin over the grid's 2 x gridDim.x
+// warpgroups in longest-first order, and a producer warpgroup whose
+// registers go to the consumers (setmaxnreg); one of its threads per
+// consumer warpgroup loads that warpgroup's Q tiles (QBUFS in flight) and
+// K/V tiles (a STAGES ring) by TMA, ahead across units, so that a unit's
+// loads and its predecessor's stores run under products. In a unit, the
+// scores of tile t + 1 run on the tensor cores during the exponentials of
+// tile t (bf16 tiles; 1-byte tiles are widened first, one at a time), and
+// a K tile's stage is refilled once its scores are done. Tiles above
+// the causal diagonal and at or past kv_len are never loaded. out (bf16)
+// leaves by TMA stores from the unit's own Q tile, swizzled; acc (fp32) by
+// 8-byte stores that fill whole 32-byte sectors; m and l [B,H,C] by plain
+// stores. Rows past C and columns past D are never stored.
+template <typename TKV, int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+chunk_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap omap, const float* ks,
+                     const float* vs, float* m_out, float* l_out, float* acc_out, int B, int C,
+                     int H, int T, int KVH, int causal_offset, int kv_len, float scale) {
+  using L = K1Smem<TKV, D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int tid = threadIdx.x;
+  // whose unit stream: a consumer warpgroup's index, or a producer warp's;
+  // read from lane 0 so that the compiler sees it warp-uniform (wgmma in a
+  // branch it cannot prove uniform is serialized)
+  const int wg = __shfl_sync(0xffffffffu, tid < NCONSUMER ? tid / WG : (tid - NCONSUMER) / 32, 0);
+  unsigned char* smem = base + wg * L::PART;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::BARS) + wg * L::NBARS;
+  const Ring<TKV, D> ring{smem + L::RING, bars};
+  uint64_t* qfull = bars + 4 * STAGES;                    // [QBUFS]
+  uint64_t* qempty = qfull + QBUFS;                       // [QBUFS]
+  const Units units{C, H, B, (C + BQ - 1) / BQ, causal_offset, kv_len};
+  const int first = 2 * blockIdx.x + (wg & 1), stride = 2 * gridDim.x;
+
+  if (tid < 2) {
+    uint64_t* b0 = reinterpret_cast<uint64_t*>(base + L::BARS) + tid * L::NBARS;
+    for (int i = 0; i < 4 * STAGES; ++i)                 // full: TMA, empty: consumers
+      mbar_init(&b0[i], (i / STAGES) % 2 == 0 ? 1 : WG);
+    for (int i = 0; i < 2 * QBUFS; ++i) mbar_init(&b0[4 * STAGES + i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= NCONSUMER) {                                 // ---- producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == NCONSUMER || tid == NCONSUMER + 32) {      // one thread per consumer stream
+      int done = 0, n = 0;
+      for (int u = first; u < units.count(); u += stride, ++n) {
+        int h, b, q0, ntiles;
+        units.at(u, h, b, q0, ntiles);
+        const int qb = n % QBUFS;
+        if (n >= QBUFS) mbar_wait(&qempty[qb], ((n / QBUFS) + 1) & 1);
+        unsigned char* qt = smem + L::Q + qb * 2 * BOX;
+        mbar_expect_tx(&qfull[qb], 2 * BOX);
+        tma_load_4d(qt, &qmap, &qfull[qb], 0, h, q0, b);
+        tma_load_4d(qt + BOX, &qmap, &qfull[qb], 64, h, q0, b);
+        done = produce(DenseTiles<TKV, D>{&kmap, &vmap, h / (H / KVH), b, ntiles}, ring, done);
+      }
+    }
+    return;
+  }
+
+  // --------------------------------------------------- consumer warpgroups
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int wtid = tid & (WG - 1);
+  const int warp = wtid >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const int row[2] = {16 * warp + g, 16 * warp + g + 8};
+  float* ksc = reinterpret_cast<float*>(base + L::SCALES) + wg * 2 * BK;
+  float* vsc = ksc + BK;
+  float sa[32], sb[32];                                   // scores (two tiles)
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sa[i] = sb[i] = 0.f;
+  int done = 0, n = 0;                                    // tiles through the ring, units
+  for (int u = first; u < units.count(); u += stride, ++n) {
+    int h, b, q0, ntiles;
+    units.at(u, h, b, q0, ntiles);
+    const int hk = h / (H / KVH);
+    const int qb = n % QBUFS;
+    unsigned char* qt = smem + L::Q + qb * 2 * BOX;
+    const int lim[2] = {min(q0 + row[0] + causal_offset, kv_len - 1),
+                        min(q0 + row[1] + causal_offset, kv_len - 1)};
+    TileState<D> st;
+    st.init();
+    mbar_wait(&qfull[qb], (n / QBUFS) & 1);
+    if constexpr (L::QUANT) {
+      for (int t = 0; t < ntiles; ++t) {
+        const int w = done + t, stage = w % STAGES, key0 = t * BK;
+        const bool masked = key0 + BK - 1 > q0 + causal_offset || key0 + BK > kv_len;
+        mbar_wait(ring.kfull(stage), (w / STAGES) & 1);
+        mbar_wait(ring.vfull(stage), (w / STAGES) & 1);
+        wg_sync(wg);                     // the previous tile's wgmmas are done
+        widen_tile<TKV, D>(ring.k(stage), smem + L::WIDE, wtid);
+        widen_tile<TKV, D>(ring.v(stage), smem + L::WIDE + 2 * BOX, wtid);
+        {
+          const int key = key0 + (wtid & (BK - 1));
+          const float* src = wtid < BK ? ks : vs;
+          ksc[wtid] = key < kv_len ? src[((size_t)b * T + key) * KVH + hk] : 0.f;
+        }
+        fence_async_smem();
+        wg_sync(wg);
+        mbar_arrive(ring.kempty(stage));
+        mbar_arrive(ring.vempty(stage));
+        issue_scores<D>(sa, qt, smem + L::WIDE);
+        wgmma_wait0();
+        keep(sa);
+        const TileScores sc{ksc, vsc, scale, masked, key0, {lim[0], lim[1]}, tig};
+        float msafe[2], corr[2];
+        uint32_t hi[16], lo[16];
+        softmax_max<D, true>(st, sa, sc, msafe, corr);
+        softmax_p<D, true>(st, sa, sc, msafe, corr, hi, lo);
+        issue_pv<D>(st, hi, lo, smem + L::WIDE + 2 * BOX);
+        wgmma_wait0();
+        keep(st.o);
+        keep(hi);
+        keep(lo);
+      }
+    } else {
+      // the scores of tile t + 1 go to the tensor cores after tile t's row
+      // max (which rescales acc) and run under its exponentials; the two
+      // score sets swap roles from tile to tile
+      auto step = [&](int t, float (&cur)[32], float (&nxt)[32]) {
+        const int w = done + t, stage = w % STAGES, key0 = t * BK;
+        const bool masked = key0 + BK - 1 > q0 + causal_offset || key0 + BK > kv_len;
+        wgmma_wait0();                   // the scores of tile t: its K is free
+        keep(cur);
+        mbar_arrive(ring.kempty(stage));
+        const TileScores sc{nullptr, nullptr, scale, masked, key0, {lim[0], lim[1]}, tig};
+        float msafe[2], corr[2];
+        softmax_max<D, false>(st, cur, sc, msafe, corr);
+        if (t + 1 < ntiles) {
+          mbar_wait(ring.kfull((w + 1) % STAGES), ((w + 1) / STAGES) & 1);
+          issue_scores<D>(nxt, qt, ring.k((w + 1) % STAGES));
+        }
+        uint32_t hi[16], lo[16];
+        softmax_p<D, false>(st, cur, sc, msafe, corr, hi, lo);
+        mbar_wait(ring.vfull(stage), (w / STAGES) & 1);
+        issue_pv<D>(st, hi, lo, ring.v(stage));
+        wgmma_wait0();                   // this P·V and the next tile's scores
+        keep(st.o);
+        keep(hi);
+        keep(lo);
+        keep(nxt);
+        mbar_arrive(ring.vempty(stage));
+      };
+      if (ntiles > 0) {
+        mbar_wait(ring.kfull(done % STAGES), (done / STAGES) & 1);
+        issue_scores<D>(sa, qt, ring.k(done % STAGES));
+      }
+      for (int t = 0; t < ntiles; t += 2) {
+        step(t, sa, sb);
+        if (t + 1 < ntiles) step(t + 1, sb, sa);
+      }
+    }
+    done += ntiles;
+
+    // ---- this unit's outputs
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      st.l[r] += __shfl_xor_sync(0xffffffffu, st.l[r], 1);
+      st.l[r] += __shfl_xor_sync(0xffffffffu, st.l[r], 2);
+    }
+    wg_sync(wg);                         // every warp is done reading this Q tile
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = row[r], sw = rr & 7, qi = q0 + rr;
+      const float den = fmaxf(st.l[r], 1e-30f);
+      float* arow = acc_out + (((size_t)b * C + qi) * H + h) * D + 2 * tig;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const float a0 = st.o[4 * j + 2 * r], a1 = st.o[4 * j + 2 * r + 1];
+        *reinterpret_cast<uint32_t*>(qt + (j >> 3) * BOX + rr * 128 + (((j & 7) ^ sw) << 4) +
+                                     4 * tig) =
+            pack_bf16(__float2bfloat16_rn(a0 / den), __float2bfloat16_rn(a1 / den));
+        if (acc_out != nullptr && qi < C)
+          *reinterpret_cast<float2*>(arow + 8 * j) = make_float2(a0, a1);
+      }
+      if (m_out != nullptr && tig == 0 && qi < C) {
+        const size_t ml = ((size_t)b * H + h) * C + qi;
+        m_out[ml] = st.m[r];
+        l_out[ml] = st.l[r];
+      }
+    }
+    fence_async_smem();
+    wg_sync(wg);
+    if (wtid == 0) {
+      tma_store_4d(&omap, qt, 0, h, q0, b);
+      tma_store_4d(&omap, qt + BOX, 64, h, q0, b);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      // the previous unit's stores have read their Q tile: it may be reloaded
+      asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+      if (n > 0) mbar_arrive(&qempty[(n - 1) % QBUFS]);
+    }
+  }
+  if (wtid == 0) tma_store_wait();
+}
+
+// ------------------------------------------------------------- host side
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, fetched through the runtime so
+// that the library links no -lcuda; null if the driver has none.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A contiguous [B, rows, heads, D] tensor as a 4-d map {D, heads, rows, B}
+// with boxes of {cols, 1, 64, 1}; out-of-bounds elements load as zeros and
+// are not stored.
+inline bool rows_map(CUtensorMap* map, CUtensorMapDataType dt, int esize, const void* base,
+                     int B, int rows, int heads, int D, int cols, CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t e = static_cast<cuuint64_t>(esize);
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {D * e, (cuuint64_t)heads * D * e,
+                                 (cuuint64_t)rows * heads * D * e};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)BK, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  return fn(map, dt, 4, const_cast<void*>(base), dims, strides, box, one,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename TKV>
+constexpr CUtensorMapDataType kv_map_type() {
+  return sizeof(TKV) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+}
+
+template <typename TKV, int D>
+int launch_chunk_tc(const void* q, const void* k, const void* v, const float* ks,
+                    const float* vs, void* out, float* m, float* l, float* acc, int B, int C,
+                    int H, int T, int KVH, int causal_offset, int kv_len, float scale,
+                    cudaStream_t stream) {
+  using L = K1Smem<TKV, D>;
+  using KB = KVBox<TKV, D>;
+  if (B == 0 || C == 0 || H == 0) return (int)cudaSuccess;
+  auto kern = chunk_attn_tc_kernel<TKV, D>;
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)L::DYNAMIC);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  CUtensorMap qm, km, vm, om;
+  const CUtensorMapSwizzle kv_sw = KB::WIDE ? CU_TENSOR_MAP_SWIZZLE_128B
+                                            : CU_TENSOR_MAP_SWIZZLE_NONE;
+  bool ok = rows_map(&qm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, q, B, C, H, D, 64,
+                     CU_TENSOR_MAP_SWIZZLE_128B) &&
+            rows_map(&om, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, out, B, C, H, D, 64,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  km = vm = om;                          // never read when there are no keys
+  if (T == 0)
+    kv_len = 0;                          // no tile is loaded
+  else
+    ok = ok &&
+         rows_map(&km, kv_map_type<TKV>(), sizeof(TKV), k, B, T, KVH, D, KB::COLS, kv_sw) &&
+         rows_map(&vm, kv_map_type<TKV>(), sizeof(TKV), v, B, T, KVH, D, KB::COLS, kv_sw);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int units = B * H * ((C + BQ - 1) / BQ);
+  const int grid = min(sms, (units + 1) / 2);           // persistent: one block an SM
+  kern<<<grid, NTHREADS, L::DYNAMIC, stream>>>(qm, km, vm, om, ks, vs, m, l, acc, B, C, H, T,
+                                               KVH, causal_offset, kv_len, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+}  // namespace

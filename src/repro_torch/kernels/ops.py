@@ -135,7 +135,13 @@ def chunk_attention(q, k, v, *, causal_offset: int = 0,
     in q's dtype, or int8/fp8 payloads with per-token fp32 scales
     [B,T,KVH]. Key j is visible to query i iff j <= i + causal_offset and
     j < kv_len (default T). Returns out [B,C,H,D] (q's dtype) and, with
-    ``return_state``, also (m, l) [B,H,C] and acc [B,C,H,D] fp32."""
+    ``return_state``, also (m, l) [B,H,C] and acc [B,C,H,D] fp32.
+
+    On the card the route is static: bf16 q with bf16, int8 or fp8 K/V at
+    head dim 112 or 128 runs the tensor-core body (``csrc/
+    chunk_attn_tc.cuh``: wgmma on TMA-fed tiles, P·V split hi + lo); fp32
+    q and head dim 16 run the CUDA-core body (``flash_block``). Neither
+    falls back on the other."""
     b, c, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)

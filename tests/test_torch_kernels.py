@@ -17,7 +17,7 @@ import torch
 from repro.kernels import chunk_attn as ref_ca
 from repro.kernels import ops as ref_ops
 from repro_torch.core import attention as A
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kvstore import pages as kvpages
 from repro_torch.kvstore import quant as kvquant
 
@@ -85,6 +85,111 @@ def test_full_attention_is_offset_past_last_key():
     got = ops.full_attention(*map(torch.from_numpy, (q, k, v)))
     want = ref_ops.full_attention(*map(jnp.asarray, (q, k, v)))
     _close([got], [want], 1e-5)
+
+
+# ------------------------------------------ K1's tensor-core tile algorithm
+
+def _tile_emulation(q, k, v, k_scale=None, v_scale=None, *, causal_offset, kv_len,
+                    split=True):
+    """The arithmetic of K1's tensor-core body (``csrc/chunk_attn_tc.cuh``),
+    in torch on the CPU: 64-key tiles with a running max; q and k/v values
+    exact in bf16 (bf16, or int8 / fp8 payloads); S in fp32, the k scale on
+    the score columns and the mask before the exponential; l of the
+    unscaled p; the v scale folded into p, then P·V as hi·V + lo·V with
+    hi = bf16(p), lo = bf16(p - hi) (``split``), or P rounded once to bf16.
+    Returns (m, l) [B,H,C] and acc [B,C,H,D] fp32, as the kernel does."""
+    b, c, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float().reshape(b, c, kvh, g, d)
+    m = torch.full((b, kvh, g, c), NEG_INF)
+    l = torch.zeros((b, kvh, g, c))
+    acc = torch.zeros((b, kvh, g, c, d))
+    qpos = torch.arange(c)[:, None] + causal_offset
+    rows = max(0, min(kv_len, c + causal_offset))
+    for k0 in range(0, rows, 64):
+        keys = slice(k0, min(k0 + 64, t))
+        kt, vt = k[:, keys].float(), v[:, keys].float()
+        s = torch.einsum("bckgd,btkd->bkgct", qf, kt) * scale
+        if k_scale is not None:
+            s = s * k_scale[:, keys].transpose(1, 2)[:, :, None, None, :]
+        kpos = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        s = torch.where((kpos <= qpos) & (kpos < kv_len), s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        m_safe = torch.where(m_new < NEG_INF / 2, torch.zeros_like(m_new), m_new)
+        corr = torch.exp(m - m_safe)
+        p = torch.exp(s - m_safe[..., None])
+        l = l * corr + p.sum(-1)
+        if v_scale is not None:
+            p = p * v_scale[:, keys].transpose(1, 2)[:, :, None, None, :]
+        hi = p.bfloat16().float()
+        pv = torch.einsum("bkgct,btkd->bkgcd", hi, vt)
+        if split:
+            pv = pv + torch.einsum("bkgct,btkd->bkgcd", (p - hi).bfloat16().float(), vt)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    return (m.reshape(b, h, c), l.reshape(b, h, c),
+            acc.permute(0, 3, 1, 2, 4).reshape(b, c, h, d))
+
+
+def _k1_inputs(kind, b, c, h, kvh, d, t):
+    """bf16 q and k/v (bf16, or int8 / fp8 payloads with per-token scales
+    [B,T,KVH] from the page codecs' rule), made with numpy from a seed."""
+    q = torch.from_numpy(_randn(b, c, h, d, seed=31)).bfloat16()
+    k, v = _randn(b, t, kvh, d, seed=32), _randn(b, t, kvh, d, seed=33)
+    if kind == "bf16":
+        return q, torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16(), None, None
+    kq, _, ks = _quant(k, kind, (3,))
+    vq, _, vs = _quant(v, kind, (3,))
+    return q, kq, vq, torch.from_numpy(ks[..., 0]), torch.from_numpy(vs[..., 0])
+
+
+# (causal_offset, T, kv_len) in units of C: a causal self block, a fully
+# visible stored chunk, and a prefix with kv_len < T, T no multiple of 64
+K1_MASKS = {"causal": lambda c: (0, c, c), "full": lambda c: (c, c, c),
+            "prefix": lambda c: (c, 2 * c - 37, 2 * c - 77)}
+
+
+# every mask x K/V kind with the hi/lo split; and P rounded once to bf16 (a
+# plain tensor-core P·V), which must miss the card's 1e-3 check
+K1_CASES = [(mask, kind, True) for mask in K1_MASKS for kind in ("bf16", "int8", "fp8")] \
+    + [("causal", "bf16", False)]
+
+
+@pytest.mark.parametrize("mask,kind,split", K1_CASES)
+def test_k1_tile_algorithm_matches_plain(mask, kind, split):
+    """K1's tensor-core tile algorithm (hi/lo P·V, k scale on the scores, v
+    scale in p) against ``chunk_attention_plain`` at qwen3-8b's head shape
+    (H 32, KVH 8, D 128; B and C cut to 1 and 128): acc, m and l within
+    1e-5 of their max|ref| — 100x inside the card's 1e-3 check. Without the
+    split (``split=False``) acc is off by more than that 1e-3 of max|acc|:
+    the split is what keeps K1 inside the check."""
+    c = 128
+    off, t, kv_len = K1_MASKS[mask](c)
+    q, k, v, ks, vs = _k1_inputs(kind, 1, c, 32, 8, 128, t)
+    got = _tile_emulation(q, k, v, ks, vs, causal_offset=off, kv_len=kv_len, split=split)
+    _, *want = ref.chunk_attention_plain(q, k, v, causal_offset=off, kv_len=kv_len,
+                                         k_scale=ks, v_scale=vs)
+    if not split:
+        assert (got[2] - want[2]).abs().max().item() > 1e-3 * want[2].abs().max().item()
+        return
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 1e-5 * w.abs().max().item()
+
+
+def test_k1_tile_algorithm_matches_pallas():
+    """The same emulation against the reference Pallas kernel (interpret
+    mode) at a small size: two 64-key tiles, a prefix offset, kv_len < T."""
+    b, c, h, kvh, d, t, off, kv_len = 1, 64, 4, 2, 32, 128, 64, 120
+    q, k, v, _, _ = _k1_inputs("bf16", b, c, h, kvh, d, t)
+    want = ref_ca.chunk_attention_pallas(
+        *(jnp.asarray(x.float().numpy()) for x in (q, k, v)), causal_offset=off,
+        kv_len=kv_len, block_q=c, block_k=16, interpret=True, return_state=True)
+    got = _tile_emulation(q, k, v, causal_offset=off, kv_len=kv_len)
+    for g, w in zip(got, want[1:]):
+        w = np.asarray(w, np.float32)
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max()
 
 
 # ------------------------------------------------------------------ K2
