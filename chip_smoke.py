@@ -9,8 +9,9 @@ prints no result line):
 
 1. card: prints the card's name and power limit (nvidia-smi), turns TF32 off;
 2. build: compiles every ``src/repro_torch/csrc/*.cu`` with nvcc (one
-   process per library, all at once), timed, with each library's and each
-   tensor-core K1 instance's registers and spills;
+   process per library, all at once), timed, with each library's
+   registers and spills, and each instance's of the tensor-core body
+   (K1-K3) and of K5;
 3. kernels: holds each CUDA kernel against its plain PyTorch version on the
    card, each output tensor at its own scale (see ``compare``), and times
    kernel, plain version and, where one exists, a PyTorch call computing
@@ -18,19 +19,27 @@ prints no result line):
    - K1 chunk attention, K2 pool attention, K3 paged pool attention at
      qwen3-8b's shapes (head dim 128, GQA) in bf16 and fp32 with bf16/fp32,
      int8 and fp8 pages, and at zamba2-7b's shared-block shape (head dim
-     112, MHA) in bf16 with bf16 and int8 pages (K1 also fp8); at both head
-     dims K1's tensor-core body (bf16) is also held with a prefix offset and
-     kv_len < T (T no multiple of the 64-key tile, bf16 and quantized
-     pages) and on a ragged chunk of 500 queries whose first rows see no
-     key; K1's bf16 time is also read from a torch.profiler trace and from
-     windows of back-to-back calls;
+     112, MHA) in bf16 with bf16, int8 and fp8 pages; at both head dims
+     the tensor-core body (bf16 q) is also held, for K1,
+     with a prefix offset and kv_len < T (T no multiple of the 64-key tile,
+     bf16 and quantized pages) and on a ragged chunk of 500 queries whose
+     first rows see no key, and, for K2, with kv_len < T (T no multiple of
+     64, the keys and values past kv_len poisoned; bf16, int8, fp8) and on
+     a stack of 32 slots with one group at every slot valid, and, for K3,
+     with int8 and fp8 pages and with shuffled handles to pages of 128 and
+     of 16 tokens (a tile within a page; four pages a tile) and a partial
+     last page (bf16, int8; fp32 through the CUDA-core body); every K2 and
+     K3 case has an all-invalid group, which must come out exactly (-1e30,
+     0, 0); K1's, K2's and K3's bf16 times are also read from a
+     torch.profiler trace and from windows of back-to-back calls;
    - K4 the Mamba2 SSD scan at zamba2-7b's and mamba2-130m's shapes in
      bf16 and fp32, with a non-zero init_state, one a_log / d_skip row per
      stage (Gs = 8) and a case with G < H SSM groups;
    - K5 flash-decode at qwen3-8b's (GQA, head dim 128) and zamba2-7b's (MHA,
      head dim 112) decode shapes, 8 rows over a 32768-token cache, bf16 and
-     fp32, timed with every row at full length and held at ragged lengths
-     (0, 1, ..., S) with the tail past each length poisoned;
+     fp32, timed with every row at full length (also in windows and from a
+     torch.profiler trace) and held at ragged lengths (0, 1, ..., S) and at
+     lengths 100x apart, with the tail past each length poisoned;
 4. smoke parity: the small qwen3-8b, zamba2-7b and mamba2-130m configs in
    fp32 through the kernel backends on the card against the same pipeline
    on the CPU (plain versions);
@@ -42,7 +51,10 @@ prints no result line):
    run; mamba2-130m (24 layers) under terapipe. Each model's bf16 runs are
    its main path: the kernels' launch counters are set to 0 just before
    them and read just after, and every kernel of the path must have
-   launched. In bf16 the logits are held against a witness that keeps p in
+   launched. After qwen3-8b's, one more bf16 qship/cuda wave runs under
+   torch.profiler: its device time by kernel (K1, K2, matmuls, page
+   gathers and scatters, the rest) and the device's idle share
+   (``wave_split``). In bf16 the logits are held against a witness that keeps p in
    fp32 as the kernels do (and the ``torch`` SSD), at a limit that two
    planted kernel faults must break (K2 faults for qwen3-8b, K4 faults for
    the others); in fp32 every request's argmax must equal the ``torch``
@@ -244,15 +256,44 @@ def quantize(x, kind: str, dims):
     return q, sc
 
 
+def poison(x, start: int, sign: int) -> None:
+    """Sets the positions at and past ``start`` of axis 2 of ``x`` (bf16,
+    or int8 / fp8 payloads) to the largest value of that sign: 1e4, or the
+    payload's largest code."""
+    import torch
+    if x.dtype == torch.float8_e4m3fn:           # 0x7e / 0xfe: +-448
+        x.view(torch.uint8)[:, :, start:] = 0x7E if sign > 0 else 0xFE
+    elif x.dtype == torch.int8:
+        x[:, :, start:] = 127 * sign
+    else:
+        x[:, :, start:] = 1e4 * sign
+
+
+def pool_case(label: str, kind: str, kernel, plain, *args, **kw):
+    """A pool kernel (K2 or K3) against its plain version on the same
+    inputs (``compare``), whose ``valid`` (the last positional argument)
+    leaves group 0 without a valid slot: its rows must come out exactly
+    (-1e30, 0, 0). Returns (the kernel's state, its largest error)."""
+    got = kernel(*args, **kw)
+    err = compare(label, got, plain(*args, **kw), kind)
+    m, l, acc = got
+    check(not bool(args[-1][0].any()), f"{label}: group 0 has a valid slot")
+    check(bool((m[:BATCH] == -1e30).all() and (l[:BATCH] == 0).all()
+               and (acc[:BATCH] == 0).all()),
+          f"{label}: an all-invalid group is not exactly (-1e30, 0, 0)")
+    return got, err
+
+
 def attention_phase(results: dict, h: int, kvh: int, d: int, full: bool) -> None:
     """K1-K3 at one model's attention shape: q [16, 512, h, d] (8 stages x
     batch 2 folded into the rows), k/v with kvh heads. ``full`` (qwen3-8b,
-    d 128) runs bf16 and fp32 with bf16/fp32, int8 and fp8 pages, the
-    kv_len and shuffled-page cases, and records the kernels' times;
-    otherwise (zamba2-7b, d 112) bf16 with bf16 and int8 pages (K1: and
-    fp8), times recorded under ``results[kernel]["d<d>"]``. At both, K1 in
-    bf16 (its tensor-core body) also runs a prefix with kv_len < T and a
-    ragged chunk with empty rows."""
+    d 128) runs bf16 and fp32 with bf16/fp32 pages, and records the
+    kernels' times; otherwise (zamba2-7b, d 112) bf16, times recorded under
+    ``results[kernel]["d<d>"]``. At both, int8 and fp8 pages, and the
+    tensor-core body (bf16 q) where it can go wrong: K1 with a prefix and
+    kv_len < T and a ragged chunk with empty rows; K2 with kv_len < T and a
+    poisoned tail and a 32-slot stack; K3 with shuffled handles to pages of
+    128 and 16 tokens and a partial last page."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -262,7 +303,6 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, full: bool) -> None
     gb, c = N_STAGES * BATCH, CHUNK
     floats = (("bfloat16", torch.bfloat16), ("float32", torch.float32)) if full \
         else (("bfloat16", torch.bfloat16),)
-    kinds = ("int8", "fp8") if full else ("int8",)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -286,8 +326,8 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, full: bool) -> None
         if name == "bfloat16":
             call = lambda: ops.chunk_attention(q, k, v, return_state=True)
             ms, win_ms = time_ms(call), windowed_ms(call)
-            prof_ms, seen = profiled_ms(call, "chunk_attn_tc_kernel")
-            log(f"  torch.profiler: chunk_attn_tc_kernel {seen} launches, "
+            prof_ms, seen = profiled_ms(call, "ChunkWalk")
+            log(f"  torch.profiler: attn_tc_kernel<ChunkWalk> {seen} launches, "
                 + (f"{prof_ms:.4f} ms device time each" if seen else "no device time seen"))
             plain = time_ms(lambda: ref.chunk_attention_plain(q, k, v))
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -364,36 +404,70 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, full: bool) -> None
         valid[s, :min(s, slots)] = True
     n_valid = int(valid.sum().item())
     k2_err = 0.0
+    k2_fns = (ops.pool_attention, ref.pool_attention_plain)
+
     for name, dt in floats:
         q = randn(gb, c, h, d, dtype=dt)
         k, v = randn(slots, gb, c, kvh, d, dtype=dt), randn(slots, gb, c, kvh, d, dtype=dt)
-        got = ops.pool_attention(q, k, v, valid)
-        want = ref.pool_attention_plain(q, k, v, valid)
-        k2_err = max(k2_err, compare(f"pool {name}", got, want, name))
-        m, l, acc = got
-        check(bool((m[:BATCH] == -1e30).all() and (l[:BATCH] == 0).all()
-                   and (acc[:BATCH] == 0).all()),
-              "K2: an all-invalid group is not exactly (-1e30, 0, 0)")
+        got, err = pool_case(f"pool {name}", name, *k2_fns, q, k, v, valid)
+        k2_err = max(k2_err, err)
         if name == "bfloat16":
-            ms = time_ms(lambda: ops.pool_attention(q, k, v, valid))
+            call = lambda: ops.pool_attention(q, k, v, valid)
+            ms, win_ms = time_ms(call), windowed_ms(call)
+            prof_ms, seen = profiled_ms(call, "StackWalk")
+            log(f"  torch.profiler: attn_tc_kernel<StackWalk> {seen} launches, "
+                + (f"{prof_ms:.4f} ms device time each" if seen else "no device time seen"))
             plain = time_ms(lambda: ref.pool_attention_plain(q, k, v, valid))
             kv_read = 2.0 * n_valid * BATCH * c * kvh * d * k.element_size()
             ops_n = 4.0 * d * n_valid * BATCH * h * c * c
             b_ms, by = bound_ms(nbytes(q, valid, *got) + kv_read, ops_n, name)
-            record("pool_attention", ms=ms, plain_ms=plain, library_ms=None,
-                   bound_ms=b_ms, bound_by=by)
-            log(f"  time: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                f"bound {b_ms:.4f} ms ({by}), {n_valid} valid (stage, slot)")
+            record("pool_attention", ms=ms, windowed_ms=win_ms, profiler_ms=prof_ms,
+                   plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=by)
+            log(f"  time: kernel {ms:.4f} ms ({win_ms:.4f} ms a call in windows of "
+                f"back-to-back calls), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({by}), "
+                f"{n_valid} valid (stage, slot), {ops_n / 1e9:.1f} GFLOP")
         del k, v
-    q = randn(gb, c, h, d, dtype=torch.bfloat16)
-    for kind in kinds:
-        kq, ks = quantize(randn(slots, gb, c, kvh, d), kind, (2, 4))
-        vq, vs = quantize(randn(slots, gb, c, kvh, d), kind, (2, 4))
-        ks = ks.expand(slots, gb, c, kvh, 1)[..., 0].contiguous()
-        vs = vs.expand(slots, gb, c, kvh, 1)[..., 0].contiguous()
-        got = ops.pool_attention(q, kq, vq, valid, k_scale=ks, v_scale=vs)
-        want = ref.pool_attention_plain(q, kq, vq, valid, k_scale=ks, v_scale=vs)
-        k2_err = max(k2_err, compare(f"pool {kind} pages", got, want, kind))
+    # the tensor-core body (bf16 q): int8 and fp8 pages; kv_len < T with T
+    # no multiple of the 64-key tile and the keys and values past kv_len
+    # poisoned (+-1e4); a long stack of 32 slots, one group with all valid
+    bf16 = torch.bfloat16
+    q = randn(gb, c, h, d, dtype=bf16)
+    t_k2 = c - 37
+    kv_k2 = t_k2 - 50
+    for kind in ("bf16",) + K1_KINDS:
+        if kind != "bf16":
+            kq, ks = quantize(randn(slots, gb, c, kvh, d), kind, (2, 4))
+            vq, vs = quantize(randn(slots, gb, c, kvh, d), kind, (2, 4))
+            ks = ks.expand(slots, gb, c, kvh, 1)[..., 0].contiguous()
+            vs = vs.expand(slots, gb, c, kvh, 1)[..., 0].contiguous()
+            _, err = pool_case(f"pool {kind} pages", kind, *k2_fns, q, kq, vq, valid,
+                               k_scale=ks, v_scale=vs)
+            k2_err = max(k2_err, err)
+        if kind == "bf16":
+            k, v = (randn(slots, gb, t_k2, kvh, d, dtype=bf16) for _ in range(2))
+            kw = dict(kv_len=kv_k2)
+        else:
+            k, ks = quantize(randn(slots, gb, t_k2, kvh, d), kind, (2, 4))
+            v, vs = quantize(randn(slots, gb, t_k2, kvh, d), kind, (2, 4))
+            ks = ks.expand(slots, gb, t_k2, kvh, 1)[..., 0].contiguous()
+            vs = vs.expand(slots, gb, t_k2, kvh, 1)[..., 0].contiguous()
+            ks[:, :, kv_k2:], vs[:, :, kv_k2:] = 1e4, 1e4
+            kw = dict(kv_len=kv_k2, k_scale=ks, v_scale=vs)
+        poison(k, kv_k2, 1)
+        poison(v, kv_k2, -1)
+        _, err = pool_case(f"pool {kind}, kv_len {kv_k2} < T {t_k2}, tail poisoned",
+                           "bfloat16" if kind == "bf16" else kind, *k2_fns, q, k, v, valid,
+                           **kw)
+        k2_err = max(k2_err, err)
+    long_s, c_long = 32, 128
+    valid_long = torch.zeros((N_STAGES, long_s), dtype=torch.bool, device=dev)
+    for s in range(N_STAGES):           # 0, 4, 9, ..., 32 valid slots
+        valid_long[s, :long_s * s // (N_STAGES - 1)] = True
+    k, v = randn(long_s, gb, c, kvh, d, dtype=bf16), randn(long_s, gb, c, kvh, d, dtype=bf16)
+    _, err = pool_case(f"pool bf16, {long_s}-slot stack, C {c_long}", "bfloat16", *k2_fns,
+                       randn(gb, c_long, h, d, dtype=bf16), k, v, valid_long)
+    k2_err = max(k2_err, err)
+    del k, v
     k2 = results["pool_attention"]
     k2["max_abs_err"] = max(k2.get("max_abs_err", 0.0), k2_err)
 
@@ -402,56 +476,64 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, full: bool) -> None
     log(f"[kernels] K3 pool_attention_paged  layer view of a "
         f"[{N_STAGES},{npages},{lps},{BATCH},{c},{kvh},{d}] pool")
     k3_err = 0.0
+    k3_fns = (ops.pool_attention_paged, ref.pool_attention_paged_plain)
     handles = torch.arange(slots, dtype=torch.int32, device=dev)
     for name, dt in floats:
         q = randn(gb, c, h, d, dtype=dt)
         kp = randn(N_STAGES, npages, lps, BATCH, c, kvh, d, dtype=dt)
         vp = randn(N_STAGES, npages, lps, BATCH, c, kvh, d, dtype=dt)
         k_l, v_l = kp[:, :, 1], vp[:, :, 1]           # strided views
-        got = ops.pool_attention_paged(q, k_l, v_l, handles, valid, ppc=1)
-        want = ref.pool_attention_paged_plain(q, k_l, v_l, handles, valid, ppc=1)
-        k3_err = max(k3_err, compare(f"paged {name}", got, want, name))
-        m, l, acc = got
-        check(bool((m[:BATCH] == -1e30).all() and (l[:BATCH] == 0).all()
-                   and (acc[:BATCH] == 0).all()),
-              "K3: an all-invalid group is not exactly (-1e30, 0, 0)")
+        got, err = pool_case(f"paged {name}", name, *k3_fns, q, k_l, v_l, handles, valid, ppc=1)
+        k3_err = max(k3_err, err)
         if name == "bfloat16":
-            ms = time_ms(lambda: ops.pool_attention_paged(q, k_l, v_l, handles,
-                                                          valid, ppc=1))
+            call = lambda: ops.pool_attention_paged(q, k_l, v_l, handles, valid, ppc=1)
+            ms, win_ms = time_ms(call), windowed_ms(call)
+            prof_ms, seen = profiled_ms(call, "PagedWalk")
+            log(f"  torch.profiler: attn_tc_kernel<PagedWalk> {seen} launches, "
+                + (f"{prof_ms:.4f} ms device time each" if seen else "no device time seen"))
             plain = time_ms(lambda: ref.pool_attention_paged_plain(
                 q, k_l, v_l, handles, valid, ppc=1))
             kv_read = 2.0 * n_valid * BATCH * c * kvh * d * kp.element_size()
             ops_n = 4.0 * d * n_valid * BATCH * h * c * c
             b_ms, by = bound_ms(nbytes(q, valid, handles, *got) + kv_read, ops_n, name)
-            record("pool_attention_paged", ms=ms, plain_ms=plain, library_ms=None,
-                   bound_ms=b_ms, bound_by=by)
-            log(f"  time: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                f"bound {b_ms:.4f} ms ({by})")
+            record("pool_attention_paged", ms=ms, windowed_ms=win_ms, profiler_ms=prof_ms,
+                   plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=by)
+            log(f"  time: kernel {ms:.4f} ms ({win_ms:.4f} ms a call in windows of "
+                f"back-to-back calls), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({by})")
         del kp, vp
     # quantized pages with per-page scales read through the same handles
     q = randn(gb, c, h, d, dtype=torch.bfloat16)
-    for kind in kinds:
+    for kind in K1_KINDS:
         kp, ksp = quantize(randn(N_STAGES, npages, lps, BATCH, c, kvh, d), kind, (4, 6))
         vp, vsp = quantize(randn(N_STAGES, npages, lps, BATCH, c, kvh, d), kind, (4, 6))
-        args = (q, kp[:, :, 0], vp[:, :, 0], handles, valid)
-        kw = dict(ppc=1, k_scale=ksp[:, :, 0], v_scale=vsp[:, :, 0])
-        got = ops.pool_attention_paged(*args, **kw)
-        want = ref.pool_attention_paged_plain(*args, **kw)
-        k3_err = max(k3_err, compare(f"paged {kind} pages", got, want, kind))
-    if full:
-        # four pages a chunk, shuffled handles, a partial last page
-        ppc, pt = 4, c // 4
+        _, err = pool_case(f"paged {kind} pages", kind, *k3_fns, q, kp[:, :, 0], vp[:, :, 0],
+                           handles, valid, ppc=1, k_scale=ksp[:, :, 0], v_scale=vsp[:, :, 0])
+        k3_err = max(k3_err, err)
+    # several pages a chunk, shuffled handles, a partial last page: pages of
+    # 128 tokens (a tile within a page) and of 16 (four pages a tile), fp32
+    # (full only) and, through the tensor-core body, bf16 and int8
+    for pt in (c // 4, 16):
+        ppc = c // pt
         perm = torch.randperm(npages * ppc, generator=gen, device=dev)
-        handles = perm[: slots * ppc].to(torch.int32)
-        q = randn(gb, c, h, d)
-        kp = randn(N_STAGES, npages * ppc, lps, BATCH, pt, kvh, d)
-        vp = randn(N_STAGES, npages * ppc, lps, BATCH, pt, kvh, d)
-        args = (q, kp[:, :, 1], vp[:, :, 1], handles, valid)
-        kv_len = 3 * pt - pt // 5                   # the third page is partial
-        got = ops.pool_attention_paged(*args, ppc=ppc, kv_len=kv_len)
-        want = ref.pool_attention_paged_plain(*args, ppc=ppc, kv_len=kv_len)
-        k3_err = max(k3_err, compare(f"paged ppc 4, shuffled handles, kv_len "
-                                     f"{kv_len} fp32", got, want, "float32"))
+        hnd = perm[: slots * ppc].to(torch.int32)
+        kv_len = 3 * 128 - 128 // 5                   # 358: a partial page and tile
+        cases = (("float32", "float32"),) if full and pt == c // 4 else ()
+        for name, kind in cases + (("bfloat16", "bfloat16"), ("int8", "int8")):
+            dt = torch.float32 if name == "float32" else torch.bfloat16
+            kp = randn(N_STAGES, npages * ppc, lps, BATCH, pt, kvh, d)
+            vp = randn(N_STAGES, npages * ppc, lps, BATCH, pt, kvh, d)
+            kw = dict(ppc=ppc, kv_len=kv_len)
+            if kind == "int8":
+                kp, ksp = quantize(kp, kind, (4, 6))
+                vp, vsp = quantize(vp, kind, (4, 6))
+                kw.update(k_scale=ksp[:, :, 1], v_scale=vsp[:, :, 1])
+            else:
+                kp, vp = kp.to(dt), vp.to(dt)
+            _, err = pool_case(f"paged pt {pt} (ppc {ppc}), shuffled handles, kv_len "
+                               f"{kv_len} {name}", kind, *k3_fns, randn(gb, c, h, d, dtype=dt),
+                               kp[:, :, 1], vp[:, :, 1], hnd, valid, **kw)
+            k3_err = max(k3_err, err)
+            del kp, vp
     k3 = results["pool_attention_paged"]
     k3["max_abs_err"] = max(k3.get("max_abs_err", 0.0), k3_err)
 
@@ -578,8 +660,11 @@ def decode_kernel_phase(results: dict) -> None:
     CUDA-event windows) with every row at full length, so that the bound
     counts every byte K5 must read; held at ragged lengths 0, 1, 77, 4099,
     12345, 20001, 32767 and S with keys and values past each length
-    poisoned (+-1e4), each output at its own max|ref| (``compare``), the
-    empty row exactly zero."""
+    poisoned (+-1e4), and at lengths 100x apart in one call (~300 and
+    ~32k, which the device-side split must balance), each output at its own
+    max|ref| (``compare``), the empty row exactly zero. The bf16 time is
+    also read in windows of back-to-back calls and from a torch.profiler
+    trace."""
     import torch
     from repro_torch.kernels import ops, ref
 
@@ -587,6 +672,8 @@ def decode_kernel_phase(results: dict) -> None:
     gen = torch.Generator(device=dev).manual_seed(3)
     b, s = DECODE_KERNEL_BATCH, DECODE_KERNEL_S
     ragged = torch.tensor([0, 1, 77, 4099, 12345, 20001, s - 1, s], dtype=torch.int32,
+                          device=dev)
+    spread = torch.tensor([300, 30000, 327, s, 310, 31000, 299, 32000], dtype=torch.int32,
                           device=dev)
     err = 0.0
     for arch, (h, kvh, d) in DECODE_SHAPES.items():
@@ -602,7 +689,11 @@ def decode_kernel_phase(results: dict) -> None:
             err = max(err, compare(f"decode {arch} {name} full length", (got,), (want,),
                                    name, ("out",)))
             if name == "bfloat16":
-                ms = time_ms(lambda: ops.decode_attention(q, k, v, full))
+                call = lambda: ops.decode_attention(q, k, v, full)
+                ms, win_ms = time_ms(call), windowed_ms(call)
+                prof_ms, seen = profiled_ms(call, "decode_attn_kernel")
+                log(f"  torch.profiler: decode_attn_kernel {seen} launches, "
+                    + (f"{prof_ms:.4f} ms device time each" if seen else "no device time seen"))
                 plain = time_ms(lambda: ref.decode_attention_plain(q, k, v, full))
                 lib_call, backend = sdpa_decode(q, k, v, full)
                 check((lib_call().squeeze(2).float() - want.float()).abs().max().item()
@@ -610,23 +701,31 @@ def decode_kernel_phase(results: dict) -> None:
                       "the SDPA yardstick does not compute K5's function")
                 lib = time_ms(lib_call)
                 b_ms, by = bound_ms(nbytes(q, k, v, full, got), 4.0 * d * s * h * b, name)
-                times = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                times = dict(ms=ms, windowed_ms=win_ms, profiler_ms=prof_ms, plain_ms=plain,
+                             library_ms=lib, bound_ms=b_ms,
                              bound_by=by, library=f"scaled_dot_product_attention "
                              f"(enable_gqa, bool mask; backend {backend})")
                 if arch == "qwen3-8b":
                     results.setdefault("decode_attention", {}).update(times)
                 else:
                     results.setdefault("decode_attention", {})[f"d{d}"] = times
-                log(f"  time: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms "
+                log(f"  time: kernel {ms:.4f} ms ({win_ms:.4f} ms a call in windows of "
+                    f"back-to-back calls), plain {plain:.4f} ms, sdpa {lib:.4f} ms "
                     f"({backend}), bound {b_ms:.4f} ms ({by}), "
                     f"{nbytes(k, v) / 1e9:.3f} GB of K/V")
-            for i, n in enumerate(ragged.tolist()):   # poison past each length
-                k[i, n:], v[i, n:] = 1e4, -1e4
-            got = ops.decode_attention(q, k, v, ragged)
-            want = ref.decode_attention_plain(q, k, v, ragged)
-            check(bool((got[0] == 0).all()), f"K5 {arch} {name}: the kv_len = 0 row is not zero")
-            err = max(err, compare(f"decode {arch} {name} ragged, tail poisoned",
-                                   (got,), (want,), name, ("out",)))
+            for lens, what in ((ragged, "ragged"), (spread, "lengths 100x apart")):
+                if what != "ragged":                  # fresh keys, then a new poison
+                    k.normal_(generator=gen)
+                    v.normal_(generator=gen)
+                for i, n in enumerate(lens.tolist()):   # poison past each length
+                    k[i, n:], v[i, n:] = 1e4, -1e4
+                got = ops.decode_attention(q, k, v, lens)
+                want = ref.decode_attention_plain(q, k, v, lens)
+                if what == "ragged":
+                    check(bool((got[0] == 0).all()),
+                          f"K5 {arch} {name}: the kv_len = 0 row is not zero")
+                err = max(err, compare(f"decode {arch} {name} {what}, tail poisoned",
+                                       (got,), (want,), name, ("out",)))
             del q, k, v, got, want
             torch.cuda.empty_cache()
     results["decode_attention"]["max_abs_err"] = err
@@ -836,6 +935,103 @@ def shadowed(fn, kind: str, worst: list):
     return call
 
 
+# a wave's device time by kernel: (label, lowercased substrings of the
+# kernel's name), the first match wins; the rest is "other"
+WAVE_CATEGORIES = (
+    ("K1 chunk_attention", ("chunkwalk", "chunk_attn")),
+    ("K2 pool_attention", ("stackwalk", "pool_attn")),
+    ("K3 pool_attention_paged", ("paged_attn",)),
+    ("K4 ssd", ("ssd",)),
+    ("matmuls", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+    ("page gathers / scatters", ("index", "gather", "scatter")),
+    ("copies / casts", ("copy", "memcpy", "memset")),
+)
+
+
+def wave_split(arch: str, staged=None,
+               combo=("qship", "cuda", "cuda", "auto")) -> dict:
+    """One bf16 wave (BATCH requests) of ``arch`` at full width and depth
+    through PrefillEngine + TorchExecutor under ``combo``, traced by
+    torch.profiler (device activity only) after a warm-up wave and an
+    untraced wave: the device time by WAVE_CATEGORIES (seconds), the busy
+    time (the union of the kernels' intervals) and the device's idle share
+    of the traced window (first kernel's start to last kernel's end), the
+    wave's host wall time traced and untraced, the card's clocks, power
+    and temperature just after it, and the 12 kernels that take the most
+    device time. ``staged``: the model's bf16 weights (made from seed 0 if
+    None). Logs and returns the numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core import pipeline as pp
+    from repro_torch.core.staging import init_staged
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.runtime.engine import (EngineConfig, PrefillEngine,
+                                            TorchExecutor)
+
+    cfg = get_config(arch)
+    seq = N_CHUNKS * CHUNK
+    remote, attn, pool, kv = combo
+    run = RunConfig(num_chunks=N_CHUNKS, num_stages=N_STAGES, mbkr=not cfg.attn_free,
+                    remote_attn=remote, attn_backend=attn, pool_backend=pool, kv_dtype=kv)
+    if staged is None:
+        plan = pp.build_plan(cfg, N_STAGES, seq, run)
+        staged = init_staged(cfg, plan, torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+
+    def wave() -> float:
+        ex = TorchExecutor(cfg, staged, run, device="cuda")
+        eng = PrefillEngine(EngineConfig(model=cfg, num_stages=N_STAGES, num_chunks=N_CHUNKS,
+                                         max_batch=BATCH, buckets=(seq,)), ex)
+        for r in make_requests(BATCH, seq, cfg.vocab_size, seed=0):
+            eng.submit(r)
+        eng.run_until_drained()
+        check(len(ex.waves) == 1 and len(eng.done) == BATCH, f"{arch}: not one wave")
+        return ex.waves[0]["dur"]
+
+    wave()                              # warm-up: allocator, library handles
+    untraced = wave()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        traced = wave()
+        torch.cuda.synchronize()
+    clocks = card_clocks()
+    path = ROOT / "build" / f"wave_trace_{arch}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+    check(bool(spans), f"{arch}: the traced wave holds no device time")
+    split: dict = {}
+    by_name: dict = {}
+    for t0, t1, name in spans:
+        low = name.lower()
+        label = next((lab for lab, keys in WAVE_CATEGORIES if any(k in low for k in keys)),
+                     "other")
+        split[label] = split.get(label, 0.0) + (t1 - t0) / 1e6
+        by_name[name] = by_name.get(name, 0.0) + (t1 - t0) / 1e6
+    busy, (lo, hi) = 0.0, spans[0][:2]
+    for t0, t1, _ in spans[1:]:
+        if t0 > hi:
+            busy, lo, hi = busy + hi - lo, t0, t1
+        else:
+            hi = max(hi, t1)
+    busy = (busy + hi - lo) / 1e6
+    window = (max(t1 for _, t1, _ in spans) - spans[0][0]) / 1e6
+    out = dict(split=split, busy_s=busy, window_s=window, idle_share=1.0 - busy / window,
+               wave_s=untraced, traced_wave_s=traced, kernels=len(spans), card=clocks)
+    log(f"[wave] {arch} bf16 {'/'.join(combo)}: wave {untraced:.4f} s untraced, "
+        f"{traced:.4f} s traced; {len(spans)} device activities; busy {busy:.4f} s of a "
+        f"{window:.4f} s window, idle share {1.0 - busy / window:.4f}; card after it "
+        f"(SM clock, its max, power draw, temperature): {clocks}")
+    for label, sec in sorted(split.items(), key=lambda x: -x[1]):
+        log(f"  {label}: {sec:.4f} s ({sec / busy:.1%} of the device's busy time)")
+    for name, sec in sorted(by_name.items(), key=lambda x: -x[1])[:12]:
+        log(f"    {sec:.4f} s  {name[:110]}")
+    return out
+
+
 def serve_model(arch: str, results: dict) -> None:
     """One model at full width and depth through PrefillEngine +
     TorchExecutor.
@@ -992,6 +1188,8 @@ def serve_model(arch: str, results: dict) -> None:
     for name in spec["kernels"]:
         check(launches[name] > 0, f"kernel {name} was not launched on the {arch} main path")
         results[name].setdefault("launches_by_path", {})[arch] = launches[name]
+    if arch == "qwen3-8b":                 # where a bf16 wave's device time goes
+        wave_split(arch, staged)
     for combo, logits in bf16.items():
         log(f"  bf16 {'/'.join(combo)}")
         hold(cfg, logits, witness[combo[3]], "witness", "/".join(combo))
@@ -1293,14 +1491,18 @@ def decode_phase(results: dict) -> None:
 
 # ------------------------------------------------------------------- build
 
-# K1's tensor-core body: (mangled template argument, name) of its K/V types
-TC_KV_TYPES = (("13__nv_bfloat16", "bf16"), ("a", "int8"), ("13__nv_fp8_e4m3", "fp8"))
+# the tensor-core body (K1-K3) and K5: (mangled template argument, name) of
+# their element types
+TC_KV_TYPES = (("13__nv_bfloat16", "bf16"), ("a", "int8"), ("13__nv_fp8_e4m3", "fp8"),
+               ("f", "fp32"))
+TC_WALKS = {"ChunkWalk": "K1", "StackWalk": "K2", "PagedWalk": "K3"}
 
 
 def build_phase() -> None:
     """Compiles every library (``-Xptxas -v``) and prints, per library, the
     largest register count and spill of its kernels and, for each instance
-    of K1's tensor-core body, its own registers and spills."""
+    of the tensor-core body (K1-K3) and of K5, its own registers and
+    spills."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     build.build_all(verbose=True)
@@ -1315,19 +1517,37 @@ def build_phase() -> None:
                 log(f"    {line.strip()}")
         for part in text.split("Compiling entry function '")[1:]:
             fn = part.split("'", 1)[0]
-            if "chunk_attn_tc_kernel" not in fn:
+            if "attn_tc_kernelI" in fn:
+                args = fn.split("attn_tc_kernelI", 1)[1]
+                walk = next((k for w, k in TC_WALKS.items() if w in args), "?")
+                what = f"{walk} tensor-core body, bf16 q"
+            elif "decode_attn_kernelI" in fn:
+                args = fn.split("decode_attn_kernelI", 1)[1]
+                _, group, heads = re.findall(r"Li(\d+)E", args)[:3]
+                what = f"K5 G {group}, {heads} kv head(s) a unit"
+            else:
                 continue
-            args = fn.split("chunk_attn_tc_kernelI", 1)[1]
             kv = next((n for m, n in TC_KV_TYPES if args.startswith(m)), args[:24])
             d = re.search(r"Li(\d+)E", args).group(1)
             reg = re.search(r"Used (\d+) registers", part)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
-            log(f"    K1 tensor-core body, bf16 q, {kv} K/V, D {d}: registers "
+            log(f"    {what}, {kv} K/V, D {d}: registers "
                 f"{reg.group(1) if reg else '?'}, spill stores / loads "
                 f"{spill.group(1) + ' / ' + spill.group(2) if spill else '?'} bytes")
 
 
 # -------------------------------------------------------------------- main
+
+def card_clocks() -> str:
+    """The card's SM clock, its maximum, power draw and temperature as
+    nvidia-smi prints them (beside a timing: a card set below its power
+    limit or running hot runs slower under load); what nvidia-smi says
+    if it cannot."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+                          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return ((out.stdout or out.stderr).strip() or "not read").splitlines()[0]
+
 
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -28,44 +28,53 @@
 // dequantized inside the kernels: per-token fp32 scales [.., T, KVH] for
 // K1/K2, per-page scales for K3.
 //
-// Two bodies, chosen statically by q's dtype and the head dim (launch_chunk;
-// no runtime fallback: a body that fails to build or launch raises):
+// Two bodies, chosen statically by q's dtype and the head dim (launch_chunk,
+// launch_pool, launch_paged; K3 also by its page shape; no runtime
+// fallback: a body that fails to build or launch raises):
 //
-// * K1 with bf16 q and bf16 / int8 / fp8 K/V at D = 112 or 128 — every K1
-//   launch of the bf16 main paths — runs the tensor-core body
-//   (chunk_attn_tc.cuh): a persistent grid, one block an SM, with two
-//   consumer warpgroups, each walking its own units (a 64-row query block
-//   of one head) longest first, and a producer warpgroup that loads their
-//   Q and 64-key K/V tiles by TMA ahead across units, into mbarrier rings
-//   (1-byte tiles are widened to bf16 in shared memory once, exact), and
-//   lends its registers to the consumers (setmaxnreg). S = Q·K^T and P·V
-//   are wgmma products with fp32 accumulators; the next tile's S runs
-//   under this tile's exponentials; P is fed from registers and split
-//   hi + lo so that P·V keeps p to ~16 bits as the reference's fp32 p·V
-//   does; out leaves by TMA stores, acc by stores that fill whole 32-byte
-//   sectors. What bounds it: at qwen3-8b's shape (C = 512, D = 128) the
-//   least time is set by bytes, two thirds of them the outputs (out bf16
-//   and the fp32 acc the combine chain needs); the products, with P·V
-//   doubled, need about half of that time at the bf16 tensor-core rate.
-//   It runs at about 1.9x that time (PERF.md).
+// * K1, K2 and K3 with bf16 q and bf16 / int8 / fp8 K/V at D = 112 or 128
+//   — every K1, K2 and K3 launch of the bf16 main paths (K3: pages that
+//   fill whole 64-key tiles, tc::paged_tc_fits) — run the tensor-core
+//   body (chunk_attn_tc.cuh), one kernel over three unit walks: a persistent
+//   grid, one block an SM, with two consumer warpgroups, each walking its
+//   own units (a 64-row query block of one head) longest first, and a
+//   producer warpgroup that loads their Q and 64-key K/V tiles by TMA
+//   ahead across units, into mbarrier rings (1-byte tiles are widened to
+//   bf16 in shared memory once, exact), and lends its registers to the
+//   consumers (setmaxnreg). S = Q·K^T and P·V are wgmma products with fp32
+//   accumulators; the next tile's S runs under this tile's exponentials;
+//   P is fed from registers and split hi + lo so that P·V keeps p to ~16
+//   bits as the reference's fp32 p·V does. K1's units are causal (tiles
+//   above the diagonal never load); out leaves by TMA stores, acc by
+//   stores that fill whole 32-byte sectors. K2's units walk the valid
+//   slots of their group (SlotCursor: tile j of valid slot s of row bg is
+//   row s*G*B + bg of k/v seen as [S*G*B, T, KVH, D]); a block collects
+//   valid [G, S] once, units of the groups with the most valid slots go
+//   first, and a group with none stores the identity state without a
+//   load. K3's units are K2's, with each tile loaded in place from the
+//   page store through the page handles (PagedCursor: a box of a page, or
+//   64 / pt boxes of whole pages, of a 5-D map of the strided store), so
+//   K2 and K3 sum a slot stack in the same order. What bounds them: K1 at
+//   qwen3-8b's shape (C = 512, D = 128) by bytes, two thirds of them the
+//   outputs (out bf16 and the fp32 acc the combine chain needs); K2 and
+//   K3 by operations (their fp32 acc is written once per query, their
+//   products run over every valid slot), at the bf16 tensor-core rate
+//   with P·V counted twice. PERF.md keeps the distances.
 //
 // * Everything else — fp32 q (the 1e-4 parity mode, which TF32 products
-//   could not meet), D = 16, and K2 / K3 — runs the first, simple body:
-//   one thread block per (group*batch, head, 64-row query block); 128
-//   threads, two per query row, each owning half of the head dim in
-//   registers (q, acc). A loop inside the block walks the K/V tiles (32
-//   rows) of every visited chunk — the Hopper form of the TPU's sequential
-//   inner grid axes (nk for K1, (slot, nk) for K2, (slot, page) for K3).
-//   Tiles land in shared memory in their storage dtype by cp.async,
-//   double-buffered: the next tile (possibly the next valid slot's or
-//   page's) is in flight while the current one computes — the counterpart
-//   of K3's make_async_copy double buffer. Each landed tile is dequantized
-//   once into fp32 shared tiles that every query row of the block reuses.
-//   Its products run on the CUDA cores in fp32, so the fp32 FMA issue rate
-//   and shared-memory reads bound it, far from the bytes (K1) or the bf16
-//   tensor-core rate (K2 / K3 over a stack of slots); moving K2 / K3 onto
-//   chunk_attn_tc.cuh's ring, tile sources and tile update is the next
-//   step, and PERF.md keeps the measured distance to the bound.
+//   could not meet), D = 16, and K3's other page shapes — runs the first,
+//   simple body: one thread block per (group*batch, head, 64-row query
+//   block); 128 threads, two per query row, each owning half of the head
+//   dim in registers (q, acc). A loop inside the block walks the K/V tiles (32 rows) of every
+//   visited chunk — the Hopper form of the TPU's sequential inner grid
+//   axes (nk for K1, (slot, nk) for K2, (slot, page) for K3). Tiles land
+//   in shared memory in their storage dtype by cp.async, double-buffered:
+//   the next tile (possibly the next valid slot's or page's) is in flight
+//   while the current one computes — the counterpart of K3's
+//   make_async_copy double buffer. Each landed tile is dequantized once
+//   into fp32 shared tiles that every query row of the block reuses. Its
+//   products run on the CUDA cores in fp32, so the fp32 FMA issue rate and
+//   shared-memory reads bound it, far from the bf16 tensor-core rate.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -345,7 +354,7 @@ chunk_attn_kernel(const TQ* __restrict__ q, const TKV* k, const TKV* v, const fl
                    ((size_t)b * H + h) * C + qi, row * D);
 }
 
-__device__ int collect_slots(const int* valid, int g, int S, int* slots) {
+__device__ int collect_slots(const uint8_t* valid, int g, int S, int* slots) {
   __shared__ int n_valid;
   if (threadIdx.x == 0) {
     int n = 0;
@@ -360,7 +369,7 @@ __device__ int collect_slots(const int* valid, int g, int S, int* slots) {
 template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(NTHREADS)
 pool_attn_kernel(const TQ* __restrict__ q, const TKV* k, const TKV* v, const float* ks,
-                 const float* vs, const int* valid, float* m_out, float* l_out,
+                 const float* vs, const uint8_t* valid, float* m_out, float* l_out,
                  float* acc_out, int B, int C, int H, int S, int T, int KVH, int kv_len,
                  float scale) {
   __shared__ int slots[MAX_SLOTS];
@@ -382,7 +391,7 @@ pool_attn_kernel(const TQ* __restrict__ q, const TKV* k, const TKV* v, const flo
 template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(NTHREADS)
 paged_attn_kernel(const TQ* __restrict__ q, const TKV* k, const TKV* v, const float* ks,
-                  const float* vs, const int* handles, const int* valid, float* m_out,
+                  const float* vs, const int* handles, const uint8_t* valid, float* m_out,
                   float* l_out, float* acc_out, int B, int C, int H, int S, int ppc, int pt,
                   int KVH, int kv_len, long long sg, long long sp, long long sb,
                   long long st, long long sh, long long ssg, long long ssp, long long ssb,
@@ -441,26 +450,36 @@ int launch_chunk(const void* q, const void* k, const void* v, const float* ks, c
 
 template <typename TQ, typename TKV, int D>
 int launch_pool(const void* q, const void* k, const void* v, const float* ks, const float* vs,
-                const int* valid, float* m, float* l, float* acc, int G, int B, int C, int H,
-                int S, int T, int KVH, int kv_len, float scale, cudaStream_t stream) {
-  auto kern = pool_attn_kernel<TQ, TKV, D>;
-  const size_t smem = smem_bytes<TKV, D>();
-  static bool ready = false;
-  cudaError_t err = prepare(kern, smem, ready);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((C + BQ - 1) / BQ, H, G * B);
-  kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v), ks,
-      vs, valid, m, l, acc, B, C, H, S, T, KVH, kv_len, scale);
-  return (int)cudaGetLastError();
+                const uint8_t* valid, float* m, float* l, float* acc, int G, int B, int C,
+                int H, int S, int T, int KVH, int kv_len, float scale, cudaStream_t stream) {
+  if constexpr (std::is_same<TQ, __nv_bfloat16>::value && (D == 112 || D == 128)) {
+    return tc::launch_pool_tc<TKV, D>(q, k, v, ks, vs, valid, m, l, acc, G, B, C, H, S, T,
+                                      KVH, kv_len, scale, stream);
+  } else {
+    auto kern = pool_attn_kernel<TQ, TKV, D>;
+    const size_t smem = smem_bytes<TKV, D>();
+    static bool ready = false;
+    cudaError_t err = prepare(kern, smem, ready);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((C + BQ - 1) / BQ, H, G * B);
+    kern<<<grid, NTHREADS, smem, stream>>>(
+        static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v), ks,
+        vs, valid, m, l, acc, B, C, H, S, T, KVH, kv_len, scale);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename TQ, typename TKV, int D>
 int launch_paged(const void* q, const void* k, const void* v, const float* ks,
-                 const float* vs, const int* handles, const int* valid, float* m, float* l,
-                 float* acc, int G, int B, int C, int H, int S, int ppc, int pt, int KVH,
+                 const float* vs, const int* handles, const uint8_t* valid, float* m, float* l,
+                 float* acc, int G, int B, int C, int H, int S, int P, int ppc, int pt, int KVH,
                  int kv_len, const long long* st, const long long* sst, float scale,
                  cudaStream_t stream) {
+  if constexpr (std::is_same<TQ, __nv_bfloat16>::value && (D == 112 || D == 128)) {
+    if (tc::paged_tc_fits(G, P, B, pt, st))
+      return tc::launch_paged_tc<TKV, D>(q, k, v, ks, vs, handles, valid, m, l, acc, G, B, C,
+                                         H, S, P, ppc, pt, KVH, kv_len, st, sst, scale, stream);
+  }
   auto kern = paged_attn_kernel<TQ, TKV, D>;
   const size_t smem = smem_bytes<TKV, D>();
   static bool ready = false;
@@ -527,26 +546,31 @@ int chunk_attention_launch(const void* q, const void* k, const void* v, const vo
            kv_len, scale, static_cast<cudaStream_t>(stream))
 }
 
-// K2. valid: [G, S] int32; k/v [S, G*B, T, KVH, D]; scales [S, G*B, T, KVH].
+// K2. valid: [G, S] bool (one byte each); k/v [S, G*B, T, KVH, D]; scales
+// [S, G*B, T, KVH].
+// The tensor-core body takes G <= 64 groups and G x ceil(S / 32) <= 1024.
 int pool_attention_launch(const void* q, const void* k, const void* v, const void* ks,
                           const void* vs, const void* valid, void* m, void* l, void* acc,
                           int q_dtype, int kv_dtype, int G, int B, int C, int H, int S, int T,
                           int KVH, int D, int kv_len, float scale, void* stream) {
   if (S > MAX_SLOTS) return (int)cudaErrorInvalidValue;
   DISPATCH(launch_pool, q, k, v, static_cast<const float*>(ks),
-           static_cast<const float*>(vs), static_cast<const int*>(valid),
+           static_cast<const float*>(vs), static_cast<const uint8_t*>(valid),
            static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(acc), G, B, C,
            H, S, T, KVH, kv_len, scale, static_cast<cudaStream_t>(stream))
 }
 
 // K3. Page store k/v [G, P, B, pt, KVH, D] given by 5 element strides
 // (group, page, batch, token, head; the head dim is contiguous); scales
-// [G, P, B, KVH] by 4 strides; handles [S*ppc] and valid [G, S] int32.
+// [G, P, B, KVH] by 4 strides; handles [S*ppc] int32 and valid [G, S] bool.
+// bf16 q at D 112 / 128 runs the tensor-core body when tc::paged_tc_fits
+// (pages that fill whole 64-key tiles, strides one 5-D map can hold);
+// other page shapes run flash_block.
 int pool_attention_paged_launch(const void* q, const void* k, const void* v, const void* ks,
                                 const void* vs, const void* handles, const void* valid,
                                 void* m, void* l, void* acc, int q_dtype, int kv_dtype, int G,
-                                int B, int C, int H, int S, int ppc, int pt, int KVH, int D,
-                                int kv_len, long long sg, long long sp, long long sb,
+                                int B, int C, int H, int S, int P, int ppc, int pt, int KVH,
+                                int D, int kv_len, long long sg, long long sp, long long sb,
                                 long long st, long long sh, long long ssg, long long ssp,
                                 long long ssb, long long ssh, float scale, void* stream) {
   if (S > MAX_SLOTS) return (int)cudaErrorInvalidValue;
@@ -554,8 +578,8 @@ int pool_attention_paged_launch(const void* q, const void* k, const void* v, con
   const long long sstrides[4] = {ssg, ssp, ssb, ssh};
   DISPATCH(launch_paged, q, k, v, static_cast<const float*>(ks),
            static_cast<const float*>(vs), static_cast<const int*>(handles),
-           static_cast<const int*>(valid), static_cast<float*>(m), static_cast<float*>(l),
-           static_cast<float*>(acc), G, B, C, H, S, ppc, pt, KVH, kv_len, strides, sstrides,
+           static_cast<const uint8_t*>(valid), static_cast<float*>(m), static_cast<float*>(l),
+           static_cast<float*>(acc), G, B, C, H, S, P, ppc, pt, KVH, kv_len, strides, sstrides,
            scale, static_cast<cudaStream_t>(stream))
 }
 

@@ -1,17 +1,21 @@
 // Tensor-core machinery of the chunk-attention kernels for Hopper (sm_90a):
 // TMA tile loads under mbarriers, wgmma products, and the online-softmax
-// tile update on wgmma fragments. chunk_attn.cu includes it; K1's bf16 body
-// (chunk_attn_tc_kernel below) is built from it.
+// tile update on wgmma fragments. chunk_attn.cu includes it; the bf16
+// bodies of K1 (chunk attention), K2 (pool attention over a slot stack)
+// and K3 (the same over pages read in place) are one kernel built from it,
+// attn_tc_kernel, over three unit walks.
 //
-// The pieces, meant to be shared by every kernel of chunk_attn.cu that
-// moves onto the tensor cores:
+// The pieces:
 //   Ring          STAGES stages of K and V tiles in shared memory; K and V
 //                 each have a "full" mbarrier (TMA bytes landed) and an
 //                 "empty" one (the consumer warpgroup is done with it).
-//   DenseTiles    a producer source: tile t of one (batch row, kv head) of
-//                 k/v [B,T,KVH,D], loaded by TMA (K1). Another source only
-//                 has to say how tile t lands (a slot stack for K2, page
-//                 handles for K3).
+//   Tiles         a producer source: a unit's K/V tiles as TMA loads, in
+//                 the order of a cursor that knows where each tile lies:
+//                 DenseCursor, the tiles of one (batch row, kv head) of
+//                 k/v [B,T,KVH,D] (K1); SlotCursor, the tiles of the valid
+//                 slots of one group of k/v [S,G*B,T,KVH,D] (K2);
+//                 PagedCursor, the same slots' pages of the store
+//                 [G,P,B,pt,KVH,D] through the page handles (K3).
 //   produce()     the producer's loop (one thread) over a source's tiles.
 //   TileState, issue_scores(), softmax_max(), softmax_p(), issue_pv()
 //                 the consumer: one warpgroup's 64 query rows, their fp32
@@ -26,6 +30,10 @@
 //                 tile's exponentials.
 //   widen_tile()  an int8 / fp8-e4m3 tile (exact in bf16) widened once into
 //                 the swizzled bf16 layout the wgmma reads.
+//   ChunkWalk, StackWalk, PagedWalk
+//                 the units (64-row query blocks) of K1, K2 and K3, longest
+//                 first, with their tile counts and cursors, and what a
+//                 unit stores (K1: out, acc, m, l; K2, K3: acc, m, l).
 //
 // Shared-memory layout of a bf16 operand tile: 64 rows x 128 bytes per box
 // (8 KB, the 128-byte swizzle of TMA and of the wgmma descriptors), two
@@ -108,6 +116,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
       : "memory");
 }
 
@@ -269,36 +287,132 @@ struct Ring {
   __device__ uint64_t* vempty(int s) const { return bars + 3 * STAGES + s; }
 };
 
-// K1's source: the tiles of k/v [B,T,KVH,D] of one (batch row b, kv head
-// hk), 64 keys each; rows past T land as zeros (TMA's out-of-bounds fill).
-template <typename TKV, int D>
-struct DenseTiles {
+// Where the tiles of one unit lie: each cursor knows the first key `key0`
+// of the current tile, loads the current tile's box of columns
+// [col, col + box width) of kv head hk into dst (load()), and steps to the
+// next tile (next()). The producer and the consumer warpgroup each walk a
+// unit's tiles with their own cursor, in one order. K1 and K2 read a 4-D
+// tensor [rows, T, KVH, D] at row `row4`.
+
+// K1: the tiles of one batch row b of k/v [B,T,KVH,D], 64 keys each.
+struct DenseCursor {
+  int row4, key0;
+  __device__ void next() { key0 += BK; }
+  __device__ void load(const CUtensorMap* map, unsigned char* dst, uint64_t* bar, int col,
+                       int hk, int) const {
+    tma_load_4d(dst, map, bar, col, hk, key0, row4);
+  }
+};
+
+// The first slot at or after s whose bit is set in `bits` (one bit a slot,
+// 32 a word; -1: none).
+__device__ __forceinline__ int first_valid(const uint32_t* bits, int words, int s) {
+  for (int w = s >> 5; w < words; ++w) {
+    const uint32_t x = bits[w] & (w == (s >> 5) ? ~0u << (s & 31) : ~0u);
+    if (x) return (w << 5) + __ffs(x) - 1;
+  }
+  return -1;
+}
+
+// K2: the tiles of the valid slots of one group, slot by slot (tps tiles a
+// slot), of k/v [S,GB,T,KVH,D] seen as [S*GB, T, KVH, D]: tile j of slot s
+// of row bg is at row4 = s * GB + bg, key0 = j * 64. `bits` holds the
+// group's valid slots.
+struct SlotCursor {
+  const uint32_t* bits;
+  int words, GB, bg, tps;
+  int slot, j, row4, key0;
+  __device__ void start() {
+    slot = first_valid(bits, words, 0);
+    j = key0 = 0;
+    row4 = slot * GB + bg;
+  }
+  __device__ void next() {
+    if (++j == tps) {
+      j = 0;
+      slot = first_valid(bits, words, slot + 1);
+      row4 = slot * GB + bg;
+    }
+    key0 = j * BK;
+  }
+  __device__ void load(const CUtensorMap* map, unsigned char* dst, uint64_t* bar, int col,
+                       int hk, int) const {
+    tma_load_4d(dst, map, bar, col, hk, key0, row4);
+  }
+};
+
+// K3: the same walk over the valid slots, but a slot's keys are the pt
+// tokens of each of its ppc pages, read in place from the page store
+// [G,P,B,pt,KVH,D] through the page handles [S*ppc], as a 5-D tensor
+// {D, KVH, pt, n3, n4}: (n3, n4) = (B, G*P) when the group stride is P
+// page strides, else (G*B, P); the unit's row is at c3 on the 4th axis,
+// its page h at c4 + h on the 5th. A 64-key tile is one box of a page (pt
+// a multiple of 64) or 64 / pt boxes of whole pages (pt dividing 64, a
+// multiple of 8, so each box keeps the 128-byte swizzle's phase). A page
+// past the chunk's last (only in a tile past kv_len) loads the last page
+// again: its keys are masked. sbase: the unit's per-page scale offset.
+struct PagedCursor {
+  const uint32_t* bits;
+  const int* handles;
+  int words, tps, ppc, pt, c3, c4;
+  long long sbase;
+  int slot, j, key0;
+  __device__ void start() {
+    slot = first_valid(bits, words, 0);
+    j = key0 = 0;
+  }
+  __device__ void next() {
+    if (++j == tps) {
+      j = 0;
+      slot = first_valid(bits, words, slot + 1);
+    }
+    key0 = j * BK;
+  }
+  __device__ int handle(int tok) const { return handles[slot * ppc + min(tok / pt, ppc - 1)]; }
+  __device__ void load(const CUtensorMap* map, unsigned char* dst, uint64_t* bar, int col,
+                       int hk, int rowbytes) const {
+    const int sub = min(pt, BK);
+    for (int r = 0; r < BK / sub; ++r) {
+      const int tok = key0 + r * sub, page = tok / pt;
+      tma_load_5d(dst + r * sub * rowbytes, map, bar, col, hk, page < ppc ? tok - page * pt : 0,
+                  c3, c4 + handle(tok));
+    }
+  }
+};
+
+// A producer source: the ntiles K/V tiles of one (unit, kv head hk), in
+// the cursor's order, as TMA loads; rows past the tensor's end land as
+// zeros (TMA's out-of-bounds fill), never as rows of the next row4 or page.
+template <typename TKV, int D, class Cursor>
+struct Tiles {
   const CUtensorMap* k;
   const CUtensorMap* v;
-  int hk, b, ntiles;
+  int hk, ntiles;
+  Cursor cur;
   static constexpr uint32_t TILE_TX = KVBox<TKV, D>::BOXES * KVBox<TKV, D>::BYTES;
-  // tile t of k (or v) into dst, completing on bar
-  __device__ void load(const CUtensorMap* map, int t, unsigned char* dst, uint64_t* bar) const {
+  // the current tile of k (or v) into dst, completing on bar
+  __device__ void load(const CUtensorMap* map, unsigned char* dst, uint64_t* bar) const {
 #pragma unroll
     for (int c = 0; c < KVBox<TKV, D>::BOXES; ++c)
-      tma_load_4d(dst + c * BOX, map, bar, c * 64, hk, t * BK, b);
+      cur.load(map, dst + c * BOX, bar, c * 64, hk,
+               KVBox<TKV, D>::COLS * (int)sizeof(TKV));
   }
 };
 
 // The producer's loop (one thread) over a source's tiles, keeping STAGES
 // in flight; `done` tiles went through the ring before. Returns the count
 // after these.
-template <typename TKV, int D, class Tiles>
-__device__ int produce(const Tiles& src, const Ring<TKV, D>& ring, int done) {
-  for (int t = 0; t < src.ntiles; ++t) {
+template <typename TKV, int D, class Src>
+__device__ int produce(Src src, const Ring<TKV, D>& ring, int done) {
+  for (int t = 0; t < src.ntiles; ++t, src.cur.next()) {
     const int u = done + t, s = u % STAGES;
     const uint32_t parity = ((u / STAGES) + 1) & 1;
     if (u >= STAGES) mbar_wait(ring.kempty(s), parity);
-    mbar_expect_tx(ring.kfull(s), Tiles::TILE_TX);
-    src.load(src.k, t, ring.k(s), ring.kfull(s));
+    mbar_expect_tx(ring.kfull(s), Src::TILE_TX);
+    src.load(src.k, ring.k(s), ring.kfull(s));
     if (u >= STAGES) mbar_wait(ring.vempty(s), parity);
-    mbar_expect_tx(ring.vfull(s), Tiles::TILE_TX);
-    src.load(src.v, t, ring.v(s), ring.vfull(s));
+    mbar_expect_tx(ring.vfull(s), Src::TILE_TX);
+    src.load(src.v, ring.v(s), ring.vfull(s));
   }
   return done + src.ntiles;
 }
@@ -509,64 +623,185 @@ __device__ __forceinline__ void issue_pv(TileState<D>& st, uint32_t (&hi)[16],
   keep(st.o);
 }
 
-// ------------------------------------------------------------ K1's body
+// ------------------------------------------------------- the unit walks
 
-// A unit of work: one 64-row query block of one (batch row, query head).
-// Units are numbered longest causal first: u = (z * B + b) * H + h for
-// query block nqb - 1 - z.
-struct Units {
-  int C, H, B, nqb, causal_offset, kv_len;
+// A unit of work: one 64-row query block (rows q0..q0+63) of one query head
+// h of Q / output row `row`, against ntiles K/V tiles of kv head hk; `grp`
+// is K2's group.
+struct Unit {
+  int h, hk, row, q0, ntiles, grp;
+};
+
+// K1: the query blocks of q [B,C,H,D] against k/v [B,T,KVH,D] under the
+// causal offset, numbered longest first: u = (z * B + b) * H + h for query
+// block nqb - 1 - z. Tiles above the diagonal or at / past kv_len are not
+// in a unit. out (bf16) leaves by TMA stores staged in the unit's Q tile,
+// hence three Q tiles in flight.
+struct ChunkWalk {
+  static constexpr bool OUT = true;
+  static constexpr int QBUFS = 3;
+  static constexpr int TABLE = 0;                 // shared-memory bytes of setup()
+  int B, C, H, KVH, T, nqb, causal_offset, kv_len;
+  __device__ void setup(unsigned char*, int) const {}
+  __device__ ChunkWalk bind(const unsigned char*) const { return *this; }
   __device__ int count() const { return nqb * B * H; }
-  __device__ void at(int u, int& h, int& b, int& q0, int& ntiles) const {
-    h = u % H;
-    b = (u / H) % B;
-    q0 = (nqb - 1 - u / (H * B)) * BQ;
-    const int last_q = min(q0 + BQ, C) - 1;
+  __device__ Unit at(int u) const {
+    Unit x;
+    x.h = u % H;
+    x.hk = x.h / (H / KVH);
+    x.row = (u / H) % B;
+    x.q0 = (nqb - 1 - u / (H * B)) * BQ;
+    x.grp = 0;
+    const int last_q = min(x.q0 + BQ, C) - 1;
     const int rows = max(0, min(kv_len, last_q + causal_offset + 1));
-    ntiles = (rows + BK - 1) / BK;
+    x.ntiles = (rows + BK - 1) / BK;
+    return x;
+  }
+  __device__ DenseCursor tiles(const Unit& x) const { return DenseCursor{x.row, 0}; }
+  // the per-token scale [B,T,KVH] of key `key` of the cursor's tile row
+  __device__ size_t scale_at(const DenseCursor& c, int key, int hk) const {
+    return ((size_t)c.row4 * T + key) * KVH + hk;
   }
 };
 
-template <typename TKV, int D>
-struct K1Smem {   // byte offsets from a 1024-aligned base
+constexpr int MAX_GROUPS = 64;                    // K2's stage groups
+constexpr int MAX_WORDS = 1024;                   // K2's valid bits: G x ceil(S / 32) words
+
+// K2: the query blocks of q [G*B,C,H,D] against the valid slots of their
+// group g = row / B in k/v [S,G*B,T,KVH,D], every key below kv_len visible
+// (the causal offset is kv_len, so only a slot's tail tile is masked).
+// setup() collects valid [G,S] once a block into shared memory: one bit a
+// slot, the count of valid slots of each group and the groups ordered by
+// it, most first; units are numbered group by group in that order, so the
+// longest go first. A group with no valid slot has units of no tile, which
+// store the identity state (-1e30, 0, 0) without a K/V load. No out: two Q
+// tiles in flight.
+struct StackWalk {
+  static constexpr bool OUT = false;
+  static constexpr int QBUFS = 2;
+  static constexpr int TABLE = 4 * (MAX_WORDS + 2 * MAX_GROUPS);
+  int G, B, C, H, KVH, S, T, nqb, causal_offset, kv_len, tps, words;
+  const uint8_t* valid;                           // [G, S] bool
+  const uint32_t* bits;                           // [G][words]   (after bind)
+  const int* nvalid;                              // [G]
+  const int* order;                               // [G], most valid slots first
+  __device__ void setup(unsigned char* table, int tid) const {
+    uint32_t* b = reinterpret_cast<uint32_t*>(table);
+    int* n = reinterpret_cast<int*>(b + MAX_WORDS);
+    int* o = n + MAX_GROUPS;
+    for (int i = tid; i < G * words; i += NTHREADS) b[i] = 0;
+    __syncthreads();
+    for (int i = tid; i < G * S; i += NTHREADS)   // one byte of valid a thread
+      if (valid[i] != 0) atomicOr(&b[(i / S) * words + (i % S) / 32], 1u << ((i % S) & 31));
+    __syncthreads();
+    if (tid < G) {
+      int c = 0;
+      for (int w = 0; w < words; ++w) c += __popc(b[tid * words + w]);
+      n[tid] = c;
+    }
+    __syncthreads();
+    if (tid < G) {                                // rank: more slots first, then by index
+      int r = 0;
+      for (int g = 0; g < G; ++g) r += n[g] > n[tid] || (n[g] == n[tid] && g < tid);
+      o[r] = tid;
+    }
+  }
+  __device__ StackWalk bind(const unsigned char* table) const {
+    StackWalk w = *this;
+    w.bits = reinterpret_cast<const uint32_t*>(table);
+    w.nvalid = reinterpret_cast<const int*>(w.bits + MAX_WORDS);
+    w.order = w.nvalid + MAX_GROUPS;
+    return w;
+  }
+  __device__ int count() const { return G * B * H * nqb; }
+  __device__ Unit at(int u) const {
+    const int per = B * H * nqb, r = u % per;
+    Unit x;
+    x.grp = order[u / per];
+    x.h = r % H;
+    x.hk = x.h / (H / KVH);
+    x.row = x.grp * B + (r / H) % B;
+    x.q0 = (r / (H * B)) * BQ;
+    x.ntiles = nvalid[x.grp] * tps;
+    return x;
+  }
+  __device__ SlotCursor tiles(const Unit& x) const {
+    SlotCursor c{bits + x.grp * words, words, G * B, x.row, tps};
+    c.start();
+    return c;
+  }
+  // the per-token scale [S,GB,T,KVH] of key `key` of the cursor's slot
+  __device__ size_t scale_at(const SlotCursor& c, int key, int hk) const {
+    return ((size_t)c.row4 * T + key) * KVH + hk;
+  }
+};
+
+// K3: K2's walk (T = ppc * pt, the chunk's tokens) over pages read in
+// place: PagedCursor's tiles; per-page scales [G,P,B,KVH] by strides.
+struct PagedWalk : StackWalk {
+  const int* handles;                             // [S * ppc] int32
+  int ppc, pt, P;
+  bool gp;                                        // the group stride is P page strides
+  long long ssg, ssp, ssb, ssh;                   // scale strides (elements)
+  __device__ PagedWalk bind(const unsigned char* table) const {
+    PagedWalk w = *this;
+    static_cast<StackWalk&>(w) = StackWalk::bind(table);
+    return w;
+  }
+  __device__ PagedCursor tiles(const Unit& x) const {
+    const int g = x.grp, b = x.row - x.grp * B;
+    PagedCursor c{bits + g * words, handles, words, tps, ppc, pt, gp ? b : x.row,
+                  gp ? g * P : 0, g * ssg + b * ssb};
+    c.start();
+    return c;
+  }
+  __device__ size_t scale_at(const PagedCursor& c, int key, int hk) const {
+    return (size_t)(c.sbase + (long long)c.handle(key) * ssp + hk * ssh);
+  }
+};
+
+template <typename TKV, int D, int QBUFS, int TABLE>
+struct TcSmem {   // byte offsets from a 1024-aligned base
   static constexpr bool QUANT = !KVBox<TKV, D>::WIDE;
-  // one consumer warpgroup's part (two parts, then both warpgroups' scales
-  // and barriers)
-  static constexpr int Q = 0;                     // QBUFS Q tiles, then their out staging
+  // one consumer warpgroup's part (two parts, then both warpgroups' scales,
+  // barriers and the walk's table)
+  static constexpr int Q = 0;                     // QBUFS Q tiles (K1: then their out staging)
   static constexpr int RING = Q + QBUFS * 2 * BOX;
   static constexpr int WIDE = RING + STAGES * 2 * KVBox<TKV, D>::TILE;   // widened K | V
   static constexpr int PART = WIDE + (QUANT ? 4 * BOX : 0);
   static constexpr int SCALES = 2 * PART;         // per warpgroup: k | v scales
   static constexpr int BARS = SCALES + (QUANT ? 2 * 2 * BK * 4 : 0);
   static constexpr int NBARS = 4 * STAGES + 2 * QBUFS;   // the ring's, qfull, qempty
-  static constexpr int BYTES = BARS + 2 * NBARS * 8;
+  static constexpr int TAB = BARS + 2 * NBARS * 8;
+  static constexpr int BYTES = TAB + TABLE;
   static constexpr size_t DYNAMIC = BYTES + 1024;                        // + alignment slack
 };
 
-// K1 for bf16 q and bf16 / int8 / fp8 K/V at D = 112 or 128: a persistent
-// grid of one block an SM. Each block has two consumer warpgroups that
-// walk their own units, round robin over the grid's 2 x gridDim.x
-// warpgroups in longest-first order, and a producer warpgroup whose
-// registers go to the consumers (setmaxnreg); one of its threads per
-// consumer warpgroup loads that warpgroup's Q tiles (QBUFS in flight) and
-// K/V tiles (a STAGES ring) by TMA, ahead across units, so that a unit's
-// loads and its predecessor's stores run under products. In a unit, the
-// scores of tile t + 1 run on the tensor cores during the exponentials of
-// tile t (bf16 tiles; 1-byte tiles are widened first, one at a time), and
-// a K tile's stage is refilled once its scores are done. Tiles above
-// the causal diagonal and at or past kv_len are never loaded. out (bf16)
-// leaves by TMA stores from the unit's own Q tile, swizzled; acc (fp32) by
-// 8-byte stores that fill whole 32-byte sectors; m and l [B,H,C] by plain
-// stores. Rows past C and columns past D are never stored.
-template <typename TKV, int D>
+// ------------------------------------------------- the tensor-core body
+
+// K1 and K2 for bf16 q and bf16 / int8 / fp8 K/V at D = 112 or 128: a
+// persistent grid of one block an SM. Each block has two consumer
+// warpgroups that walk their own units of the Walk (ChunkWalk: K1,
+// StackWalk: K2), round robin over the grid's 2 x gridDim.x warpgroups in
+// its longest-first order, and a producer warpgroup whose registers go to
+// the consumers (setmaxnreg); one of its threads per consumer warpgroup
+// loads that warpgroup's Q tiles (QBUFS in flight) and K/V tiles (a STAGES
+// ring) by TMA, ahead across units, so that a unit's loads (and, K1, its
+// predecessor's stores) run under products. In a unit, the scores of tile
+// t + 1 run on the tensor cores during the exponentials of tile t (bf16
+// tiles; 1-byte tiles are widened first, one at a time), and a K tile's
+// stage is refilled once its scores are done. K1's out (bf16) leaves by
+// TMA stores from the unit's own Q tile, swizzled; acc (fp32) by 8-byte
+// stores that fill whole 32-byte sectors; m and l by plain stores. Rows
+// past C and columns past D are never stored.
+template <typename TKV, int D, class Walk>
 __global__ void __launch_bounds__(NTHREADS, 1)
-chunk_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
-                     const __grid_constant__ CUtensorMap kmap,
-                     const __grid_constant__ CUtensorMap vmap,
-                     const __grid_constant__ CUtensorMap omap, const float* ks,
-                     const float* vs, float* m_out, float* l_out, float* acc_out, int B, int C,
-                     int H, int T, int KVH, int causal_offset, int kv_len, float scale) {
-  using L = K1Smem<TKV, D>;
+attn_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap,
+               const float* ks, const float* vs, float* m_out, float* l_out, float* acc_out,
+               const Walk walk_in, float scale) {
+  constexpr int QBUFS = Walk::QBUFS;
+  using L = TcSmem<TKV, D, QBUFS, Walk::TABLE>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -580,9 +815,10 @@ chunk_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const Ring<TKV, D> ring{smem + L::RING, bars};
   uint64_t* qfull = bars + 4 * STAGES;                    // [QBUFS]
   uint64_t* qempty = qfull + QBUFS;                       // [QBUFS]
-  const Units units{C, H, B, (C + BQ - 1) / BQ, causal_offset, kv_len};
   const int first = 2 * blockIdx.x + (wg & 1), stride = 2 * gridDim.x;
+  const int C = walk_in.C, H = walk_in.H;
 
+  walk_in.setup(base + L::TAB, tid);
   if (tid < 2) {
     uint64_t* b0 = reinterpret_cast<uint64_t*>(base + L::BARS) + tid * L::NBARS;
     for (int i = 0; i < 4 * STAGES; ++i)                 // full: TMA, empty: consumers
@@ -591,21 +827,22 @@ chunk_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  const Walk walk = walk_in.bind(base + L::TAB);
 
   if (tid >= NCONSUMER) {                                 // ---- producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (tid == NCONSUMER || tid == NCONSUMER + 32) {      // one thread per consumer stream
       int done = 0, n = 0;
-      for (int u = first; u < units.count(); u += stride, ++n) {
-        int h, b, q0, ntiles;
-        units.at(u, h, b, q0, ntiles);
+      for (int u = first; u < walk.count(); u += stride, ++n) {
+        const Unit x = walk.at(u);
         const int qb = n % QBUFS;
         if (n >= QBUFS) mbar_wait(&qempty[qb], ((n / QBUFS) + 1) & 1);
         unsigned char* qt = smem + L::Q + qb * 2 * BOX;
         mbar_expect_tx(&qfull[qb], 2 * BOX);
-        tma_load_4d(qt, &qmap, &qfull[qb], 0, h, q0, b);
-        tma_load_4d(qt + BOX, &qmap, &qfull[qb], 64, h, q0, b);
-        done = produce(DenseTiles<TKV, D>{&kmap, &vmap, h / (H / KVH), b, ntiles}, ring, done);
+        tma_load_4d(qt, &qmap, &qfull[qb], 0, x.h, x.q0, x.row);
+        tma_load_4d(qt + BOX, &qmap, &qfull[qb], 64, x.h, x.q0, x.row);
+        using Src = Tiles<TKV, D, decltype(walk.tiles(x))>;
+        done = produce(Src{&kmap, &vmap, x.hk, x.ntiles, walk.tiles(x)}, ring, done);
       }
     }
     return;
@@ -622,10 +859,15 @@ chunk_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
   for (int i = 0; i < 32; ++i) sa[i] = sb[i] = 0.f;
   int done = 0, n = 0;                                    // tiles through the ring, units
-  for (int u = first; u < units.count(); u += stride, ++n) {
-    int h, b, q0, ntiles;
-    units.at(u, h, b, q0, ntiles);
-    const int hk = h / (H / KVH);
+  for (int u = first; u < walk.count(); u += stride, ++n) {
+    const Unit x = walk.at(u);
+    const int h = x.h, hk = x.hk, q0 = x.q0;
+    // from lane 0, so that ptxas sees the wgmmas' loop bounds warp-uniform
+    // (K2's come from shared memory; a bound it cannot prove uniform
+    // serializes the wgmmas)
+    const int ntiles = __shfl_sync(0xffffffffu, x.ntiles, 0);
+    const int causal_offset = walk.causal_offset, kv_len = walk.kv_len;
+    auto cur = walk.tiles(x);
     const int qb = n % QBUFS;
     unsigned char* qt = smem + L::Q + qb * 2 * BOX;
     const int lim[2] = {min(q0 + row[0] + causal_offset, kv_len - 1),
@@ -634,8 +876,8 @@ chunk_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     st.init();
     mbar_wait(&qfull[qb], (n / QBUFS) & 1);
     if constexpr (L::QUANT) {
-      for (int t = 0; t < ntiles; ++t) {
-        const int w = done + t, stage = w % STAGES, key0 = t * BK;
+      for (int t = 0; t < ntiles; ++t, cur.next()) {
+        const int w = done + t, stage = w % STAGES, key0 = cur.key0;
         const bool masked = key0 + BK - 1 > q0 + causal_offset || key0 + BK > kv_len;
         mbar_wait(ring.kfull(stage), (w / STAGES) & 1);
         mbar_wait(ring.vfull(stage), (w / STAGES) & 1);
@@ -645,7 +887,7 @@ chunk_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         {
           const int key = key0 + (wtid & (BK - 1));
           const float* src = wtid < BK ? ks : vs;
-          ksc[wtid] = key < kv_len ? src[((size_t)b * T + key) * KVH + hk] : 0.f;
+          ksc[wtid] = key < kv_len ? src[walk.scale_at(cur, key, hk)] : 0.f;
         }
         fence_async_smem();
         wg_sync(wg);
@@ -669,21 +911,21 @@ chunk_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       // the scores of tile t + 1 go to the tensor cores after tile t's row
       // max (which rescales acc) and run under its exponentials; the two
       // score sets swap roles from tile to tile
-      auto step = [&](int t, float (&cur)[32], float (&nxt)[32]) {
-        const int w = done + t, stage = w % STAGES, key0 = t * BK;
+      auto step = [&](int t, float (&now)[32], float (&nxt)[32]) {
+        const int w = done + t, stage = w % STAGES, key0 = cur.key0;
         const bool masked = key0 + BK - 1 > q0 + causal_offset || key0 + BK > kv_len;
         wgmma_wait0();                   // the scores of tile t: its K is free
-        keep(cur);
+        keep(now);
         mbar_arrive(ring.kempty(stage));
         const TileScores sc{nullptr, nullptr, scale, masked, key0, {lim[0], lim[1]}, tig};
         float msafe[2], corr[2];
-        softmax_max<D, false>(st, cur, sc, msafe, corr);
+        softmax_max<D, false>(st, now, sc, msafe, corr);
         if (t + 1 < ntiles) {
           mbar_wait(ring.kfull((w + 1) % STAGES), ((w + 1) / STAGES) & 1);
           issue_scores<D>(nxt, qt, ring.k((w + 1) % STAGES));
         }
         uint32_t hi[16], lo[16];
-        softmax_p<D, false>(st, cur, sc, msafe, corr, hi, lo);
+        softmax_p<D, false>(st, now, sc, msafe, corr, hi, lo);
         mbar_wait(ring.vfull(stage), (w / STAGES) & 1);
         issue_pv<D>(st, hi, lo, ring.v(stage));
         wgmma_wait0();                   // this P·V and the next tile's scores
@@ -692,6 +934,7 @@ chunk_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         keep(lo);
         keep(nxt);
         mbar_arrive(ring.vempty(stage));
+        cur.next();
       };
       if (ntiles > 0) {
         mbar_wait(ring.kfull(done % STAGES), (done / STAGES) & 1);
@@ -711,38 +954,59 @@ chunk_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       st.l[r] += __shfl_xor_sync(0xffffffffu, st.l[r], 2);
     }
     wg_sync(wg);                         // every warp is done reading this Q tile
+    if constexpr (Walk::OUT) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int rr = row[r], sw = rr & 7, qi = q0 + rr;
-      const float den = fmaxf(st.l[r], 1e-30f);
-      float* arow = acc_out + (((size_t)b * C + qi) * H + h) * D + 2 * tig;
+      for (int r = 0; r < 2; ++r) {
+        const int rr = row[r], sw = rr & 7, qi = q0 + rr;
+        const float den = fmaxf(st.l[r], 1e-30f);
+        float* arow = acc_out + (((size_t)x.row * C + qi) * H + h) * D + 2 * tig;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const float a0 = st.o[4 * j + 2 * r], a1 = st.o[4 * j + 2 * r + 1];
-        *reinterpret_cast<uint32_t*>(qt + (j >> 3) * BOX + rr * 128 + (((j & 7) ^ sw) << 4) +
-                                     4 * tig) =
-            pack_bf16(__float2bfloat16_rn(a0 / den), __float2bfloat16_rn(a1 / den));
-        if (acc_out != nullptr && qi < C)
-          *reinterpret_cast<float2*>(arow + 8 * j) = make_float2(a0, a1);
+        for (int j = 0; j < D / 8; ++j) {
+          const float a0 = st.o[4 * j + 2 * r], a1 = st.o[4 * j + 2 * r + 1];
+          *reinterpret_cast<uint32_t*>(qt + (j >> 3) * BOX + rr * 128 + (((j & 7) ^ sw) << 4) +
+                                       4 * tig) =
+              pack_bf16(__float2bfloat16_rn(a0 / den), __float2bfloat16_rn(a1 / den));
+          if (acc_out != nullptr && qi < C)
+            *reinterpret_cast<float2*>(arow + 8 * j) = make_float2(a0, a1);
+        }
+        if (m_out != nullptr && tig == 0 && qi < C) {
+          const size_t ml = ((size_t)x.row * H + h) * C + qi;
+          m_out[ml] = st.m[r];
+          l_out[ml] = st.l[r];
+        }
       }
-      if (m_out != nullptr && tig == 0 && qi < C) {
-        const size_t ml = ((size_t)b * H + h) * C + qi;
-        m_out[ml] = st.m[r];
-        l_out[ml] = st.l[r];
+      fence_async_smem();
+      wg_sync(wg);
+      if (wtid == 0) {
+        tma_store_4d(&omap, qt, 0, h, q0, x.row);
+        tma_store_4d(&omap, qt + BOX, 64, h, q0, x.row);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        // the previous unit's stores have read their Q tile: it may be reloaded
+        asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+        if (n > 0) mbar_arrive(&qempty[(n - 1) % QBUFS]);
       }
-    }
-    fence_async_smem();
-    wg_sync(wg);
-    if (wtid == 0) {
-      tma_store_4d(&omap, qt, 0, h, q0, b);
-      tma_store_4d(&omap, qt + BOX, 64, h, q0, b);
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-      // the previous unit's stores have read their Q tile: it may be reloaded
-      asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-      if (n > 0) mbar_arrive(&qempty[(n - 1) % QBUFS]);
+    } else {
+      if (wtid == 0) mbar_arrive(&qempty[qb]);   // the Q tile may be reloaded
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = q0 + row[r];
+        if (qi >= C) continue;
+        float* arow = acc_out + (((size_t)x.row * C + qi) * H + h) * D + 2 * tig;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<float2*>(arow + 8 * j) =
+              make_float2(st.o[4 * j + 2 * r], st.o[4 * j + 2 * r + 1]);
+        if (tig == 0) {
+          const size_t ml = ((size_t)x.row * H + h) * C + qi;
+          m_out[ml] = st.m[r];
+          l_out[ml] = st.l[r];
+        }
+      }
     }
   }
-  if (wtid == 0) tma_store_wait();
+  if constexpr (Walk::OUT) {
+    if (wtid == 0) tma_store_wait();
+  }
 }
 
 // ------------------------------------------------------------- host side
@@ -796,15 +1060,28 @@ constexpr CUtensorMapDataType kv_map_type() {
   return sizeof(TKV) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8;
 }
 
-template <typename TKV, int D>
-int launch_chunk_tc(const void* q, const void* k, const void* v, const float* ks,
-                    const float* vs, void* out, float* m, float* l, float* acc, int B, int C,
-                    int H, int T, int KVH, int causal_offset, int kv_len, float scale,
-                    cudaStream_t stream) {
-  using L = K1Smem<TKV, D>;
-  using KB = KVBox<TKV, D>;
-  if (B == 0 || C == 0 || H == 0) return (int)cudaSuccess;
-  auto kern = chunk_attn_tc_kernel<TKV, D>;
+// The SM count, read once.
+inline cudaError_t sm_count(int& sms) {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  sms = n;
+  return cudaSuccess;
+}
+
+// Launches the tensor-core body over `walk` (units units): the kernel's
+// shared-memory opt-in once, then a persistent grid of one block an SM, at
+// most one block per two units. k/v maps km / vm; om: K1's out.
+template <typename TKV, int D, class Walk>
+int launch_tc(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+              const CUtensorMap& om, const float* ks, const float* vs, float* m, float* l,
+              float* acc, const Walk& walk, int units, float scale, cudaStream_t stream) {
+  using L = TcSmem<TKV, D, Walk::QBUFS, Walk::TABLE>;
+  auto kern = attn_tc_kernel<TKV, D, Walk>;
   static bool ready = false;
   if (!ready) {
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -812,6 +1089,22 @@ int launch_chunk_tc(const void* q, const void* k, const void* v, const float* ks
     if (err != cudaSuccess) return (int)err;
     ready = true;
   }
+  int sms = 0;
+  cudaError_t err = sm_count(sms);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = min(sms, (units + 1) / 2);
+  kern<<<grid, NTHREADS, L::DYNAMIC, stream>>>(qm, km, vm, om, ks, vs, m, l, acc, walk, scale);
+  return (int)cudaGetLastError();
+}
+
+// K1: q [B,C,H,D] bf16, k/v [B,T,KVH,D], out [B,C,H,D] bf16.
+template <typename TKV, int D>
+int launch_chunk_tc(const void* q, const void* k, const void* v, const float* ks,
+                    const float* vs, void* out, float* m, float* l, float* acc, int B, int C,
+                    int H, int T, int KVH, int causal_offset, int kv_len, float scale,
+                    cudaStream_t stream) {
+  using KB = KVBox<TKV, D>;
+  if (B == 0 || C == 0 || H == 0) return (int)cudaSuccess;
   CUtensorMap qm, km, vm, om;
   const CUtensorMapSwizzle kv_sw = KB::WIDE ? CU_TENSOR_MAP_SWIZZLE_128B
                                             : CU_TENSOR_MAP_SWIZZLE_NONE;
@@ -827,19 +1120,99 @@ int launch_chunk_tc(const void* q, const void* k, const void* v, const float* ks
          rows_map(&km, kv_map_type<TKV>(), sizeof(TKV), k, B, T, KVH, D, KB::COLS, kv_sw) &&
          rows_map(&vm, kv_map_type<TKV>(), sizeof(TKV), v, B, T, KVH, D, KB::COLS, kv_sw);
   if (!ok) return (int)cudaErrorInvalidValue;
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
+  const int nqb = (C + BQ - 1) / BQ;
+  const ChunkWalk walk{B, C, H, KVH, T, nqb, causal_offset, kv_len};
+  return launch_tc<TKV, D>(qm, km, vm, om, ks, vs, m, l, acc, walk, B * H * nqb, scale, stream);
+}
+
+// K2: q [G*B,C,H,D] bf16, k/v [S,G*B,T,KVH,D] (the 4-D [S*G*B,T,KVH,D]),
+// valid [G,S] bool; fp32 m, l [G*B,H,C] and acc [G*B,C,H,D].
+template <typename TKV, int D>
+int launch_pool_tc(const void* q, const void* k, const void* v, const float* ks,
+                   const float* vs, const uint8_t* valid, float* m, float* l, float* acc, int G,
+                   int B, int C, int H, int S, int T, int KVH, int kv_len, float scale,
+                   cudaStream_t stream) {
+  using KB = KVBox<TKV, D>;
+  const int words = (S + 31) / 32;
+  if (G > MAX_GROUPS || G * words > MAX_WORDS) return (int)cudaErrorInvalidValue;
+  if (G * B == 0 || C == 0 || H == 0) return (int)cudaSuccess;
+  CUtensorMap qm, km, vm;
+  const CUtensorMapSwizzle kv_sw = KB::WIDE ? CU_TENSOR_MAP_SWIZZLE_128B
+                                            : CU_TENSOR_MAP_SWIZZLE_NONE;
+  bool ok = rows_map(&qm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, q, G * B, C, H, D, 64,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  km = vm = qm;                          // never read when there are no keys
+  if (S == 0 || T == 0)
+    kv_len = 0;                          // no tile is loaded
+  else
+    ok = ok &&
+         rows_map(&km, kv_map_type<TKV>(), sizeof(TKV), k, S * G * B, T, KVH, D, KB::COLS,
+                  kv_sw) &&
+         rows_map(&vm, kv_map_type<TKV>(), sizeof(TKV), v, S * G * B, T, KVH, D, KB::COLS,
+                  kv_sw);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const int nqb = (C + BQ - 1) / BQ;
+  const StackWalk walk{G, B, C, H, KVH, S, T, nqb, kv_len, kv_len, (kv_len + BK - 1) / BK,
+                       words, valid, nullptr, nullptr, nullptr};
+  return launch_tc<TKV, D>(qm, km, vm, qm, ks, vs, m, l, acc, walk, G * B * H * nqb, scale,
+                           stream);
+}
+
+// K3's tensor-core route takes pages that fill whole 64-key tiles (pt a
+// multiple of 64, or a multiple of 8 dividing 64) of a store whose group
+// stride is P page strides or B batch strides (one 5-D tensor map).
+inline bool paged_tc_fits(int G, int P, int B, int pt, const long long* st) {
+  const bool tiles = pt > 0 && pt % 8 == 0 && (pt % BK == 0 || BK % pt == 0);
+  return tiles && (G == 1 || st[0] == (long long)P * st[1] || st[0] == (long long)B * st[2]);
+}
+
+// K3: q [G*B,C,H,D] bf16; the page store k/v [G,P,B,pt,KVH,D] by element
+// strides st = (group, page, batch, token, head), the head dim contiguous;
+// handles [S*ppc] int32, valid [G,S] bool; per-page scales [G,P,B,KVH] by
+// strides sst. The caller has checked paged_tc_fits.
+template <typename TKV, int D>
+int launch_paged_tc(const void* q, const void* k, const void* v, const float* ks,
+                    const float* vs, const int* handles, const uint8_t* valid, float* m,
+                    float* l, float* acc, int G, int B, int C, int H, int S, int P, int ppc,
+                    int pt, int KVH, int kv_len, const long long* st, const long long* sst,
+                    float scale, cudaStream_t stream) {
+  using KB = KVBox<TKV, D>;
+  const int words = (S + 31) / 32;
+  if (G > MAX_GROUPS || G * words > MAX_WORDS) return (int)cudaErrorInvalidValue;
+  if (G * B == 0 || C == 0 || H == 0) return (int)cudaSuccess;
+  CUtensorMap qm, km, vm;
+  bool ok = rows_map(&qm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, q, G * B, C, H, D, 64,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  km = vm = qm;                          // never read when there are no keys
+  const bool gp = G == 1 || st[0] == (long long)P * st[1];
+  if (S == 0 || P == 0 || kv_len == 0) {
+    kv_len = 0;                          // no tile is loaded
+  } else {
+    EncodeTiled fn = encode_tiled();
+    const cuuint64_t e = sizeof(TKV);
+    // {D, KVH, pt, n3, n4} with strides (head, token, batch, page):
+    // (n3, n4) = (B, G*P) or (G*B, P)
+    const cuuint64_t dims[5] = {(cuuint64_t)D, (cuuint64_t)KVH, (cuuint64_t)pt,
+                                (cuuint64_t)(gp ? B : G * B), (cuuint64_t)(gp ? G * P : P)};
+    const cuuint64_t strides[4] = {st[4] * e, st[3] * e, st[2] * e, st[1] * e};
+    const cuuint32_t box[5] = {(cuuint32_t)KB::COLS, 1, (cuuint32_t)min(pt, BK), 1, 1};
+    const cuuint32_t one[5] = {1, 1, 1, 1, 1};
+    const CUtensorMapSwizzle sw = KB::WIDE ? CU_TENSOR_MAP_SWIZZLE_128B
+                                           : CU_TENSOR_MAP_SWIZZLE_NONE;
+    for (int i = 0; i < 2 && ok; ++i)
+      ok = fn != nullptr &&
+           fn(i == 0 ? &km : &vm, kv_map_type<TKV>(), 5, const_cast<void*>(i == 0 ? k : v),
+              dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
   }
-  const int units = B * H * ((C + BQ - 1) / BQ);
-  const int grid = min(sms, (units + 1) / 2);           // persistent: one block an SM
-  kern<<<grid, NTHREADS, L::DYNAMIC, stream>>>(qm, km, vm, om, ks, vs, m, l, acc, B, C, H, T,
-                                               KVH, causal_offset, kv_len, scale);
-  return (int)cudaGetLastError();
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const int nqb = (C + BQ - 1) / BQ;
+  const PagedWalk walk{{G, B, C, H, KVH, S, ppc * pt, nqb, kv_len, kv_len, (kv_len + BK - 1) / BK,
+                        words, valid, nullptr, nullptr, nullptr},
+                       handles, ppc, pt, P, gp, sst[0], sst[1], sst[2], sst[3]};
+  return launch_tc<TKV, D>(qm, km, vm, qm, ks, vs, m, l, acc, walk, G * B * H * nqb, scale,
+                           stream);
 }
 
 }  // namespace tc

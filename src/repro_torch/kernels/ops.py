@@ -34,14 +34,17 @@ _COMBOS = {(torch.float32, torch.float32): 0, (torch.float32, torch.int8): 1,
            (torch.bfloat16, torch.float8_e4m3fn): 5}
 _HEAD_DIMS = (16, 112, 128)   # smoke; zamba2-7b's shared block; qwen3-8b
 _MAX_SLOTS = 1024
+# the tensor-core body of K1-K3 (bf16 q at these head dims) and K2's and K3's
+# limits on valid [G, S] there (MAX_GROUPS, MAX_WORDS in csrc/chunk_attn_tc.cuh)
+_TC_HEAD_DIMS, _TC_MAX_GROUPS, _TC_MAX_WORDS = (112, 128), 64, 1024
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "chunk_attention_launch": [_P] * 9 + [_I] * 10 + [_F, _P],
     "pool_attention_launch": [_P] * 9 + [_I] * 11 + [_F, _P],
-    "pool_attention_paged_launch": [_P] * 10 + [_I] * 12 + [_LL] * 9 + [_F, _P],
+    "pool_attention_paged_launch": [_P] * 10 + [_I] * 13 + [_LL] * 9 + [_F, _P],
     "ssd_launch": [_P] * 9 + [_I] * 9 + [_P],
-    "decode_attention_launch": [_P] * 8 + [_I] * 8 + [_F, _P],
+    "decode_attention_launch": [_P] * 7 + [_I] * 7 + [_F, _P],
 }
 _SSD_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (P, N) = (head dim, state size): smoke; zamba2-7b; mamba2-130m
@@ -63,8 +66,11 @@ def _fn(lib_name: str, name: str):
     return fn
 
 
-def _call(lib_name: str, name: str, tag: str, *args) -> None:
-    err = _fn(lib_name, name)(*args, torch.cuda.current_stream().cuda_stream)
+def _call(lib_name: str, name: str, tag: str, on, *args) -> None:
+    """Launches ``name`` of library ``lib_name`` on the current stream of
+    the card that holds the tensor ``on``; counts it under ``tag``."""
+    stream = torch._C._cuda_getCurrentRawStream(on.get_device())
+    err = _fn(lib_name, name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} failed: CUDA error {err}")
     LAUNCHES[tag] += 1
@@ -116,13 +122,25 @@ def _check_dense(*ts) -> None:
             raise ValueError("kernel inputs must be contiguous and 16-byte aligned")
 
 
+def _check_tc_groups(q: torch.Tensor, ng: int, s: int) -> None:
+    """K2 and K3 with bf16 q at head dim 112 / 128 (the tensor-core body)
+    take at most 64 groups and G x ceil(S / 32) <= 1024 words of valid
+    bits (``MAX_GROUPS``, ``MAX_WORDS`` in ``csrc/chunk_attn_tc.cuh``)."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] in _TC_HEAD_DIMS and (
+            ng > _TC_MAX_GROUPS or ng * -(-s // 32) > _TC_MAX_WORDS):
+        raise ValueError(f"{ng} groups x {s} slots: the tensor-core body takes at most "
+                         f"{_TC_MAX_GROUPS} groups and {_TC_MAX_WORDS} words of valid bits")
+
+
 def _valid_groups(valid: torch.Tensor, gb: int, s: int) -> torch.Tensor:
+    """``valid`` as [G, S] bool (one byte a slot, as the kernels read it;
+    no copy when it is one already)."""
     valid = valid if valid.ndim == 2 else valid[None]
     if valid.shape[1] != s or gb % valid.shape[0]:
         raise ValueError(f"valid {tuple(valid.shape)} does not fit {gb} rows x {s} slots")
     if s > _MAX_SLOTS:
         raise ValueError(f"{s} slots > {_MAX_SLOTS}")
-    return valid.to(torch.int32).contiguous()
+    return (valid if valid.dtype == torch.bool else valid != 0).contiguous()
 
 
 # -------------------------------------------------------------------- K1
@@ -164,7 +182,7 @@ def chunk_attention(q, k, v, *, causal_offset: int = 0,
         m = torch.empty((b, h, c), device=q.device)
         l = torch.empty((b, h, c), device=q.device)
         acc = torch.empty((b, c, h, d), device=q.device)
-    _call(_attn_lib(q.dtype, k.dtype), "chunk_attention_launch", "chunk_attention",
+    _call(_attn_lib(q.dtype, k.dtype), "chunk_attention_launch", "chunk_attention", q,
           _ptr(q), _ptr(k), _ptr(v), _ptr(k_scale), _ptr(v_scale), _ptr(out),
           _ptr(m), _ptr(l), _ptr(acc), _Q_CODES[q.dtype], _KV_CODES[k.dtype],
           b, c, h, t, kvh, d, int(causal_offset), kv_len, float(scale))
@@ -184,7 +202,14 @@ def pool_attention(q, k, v, valid, *, scale: Optional[float] = None,
     """Pool attention over a stack of stored chunks in one launch (K2).
     q [G*B,C,H,D]; k/v [S,G*B,T,KVH,D] (scales [S,G*B,T,KVH]); ``valid``
     [S] (G = 1) or [G,S] gates each (group, slot). Returns the fp32 state
-    (m, l) [G*B,H,C] and acc [G*B,C,H,D]."""
+    (m, l) [G*B,H,C] and acc [G*B,C,H,D].
+
+    On the card the route is static: bf16 q with bf16, int8 or fp8 K/V at
+    head dim 112 or 128 runs the tensor-core body (``csrc/
+    chunk_attn_tc.cuh``, K1's kernel over K2's unit walk: wgmma on TMA-fed
+    tiles of the valid slots, P·V split hi + lo; there at most 64 groups and
+    G x ceil(S / 32) <= 1024); fp32 q and head dim 16 run the CUDA-core
+    body (``flash_block``). Neither falls back on the other."""
     gb, c, h, d = q.shape
     s, _, t, kvh, _ = k.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -201,11 +226,12 @@ def pool_attention(q, k, v, valid, *, scale: Optional[float] = None,
                                         kv_len=kv_len, k_scale=k_scale,
                                         v_scale=v_scale)
     _check_dense(q, k, v, k_scale, v_scale)
+    ng = valid.shape[0]
+    _check_tc_groups(q, ng, s)
     m = torch.empty((gb, h, c), device=q.device)
     l = torch.empty((gb, h, c), device=q.device)
     acc = torch.empty((gb, c, h, d), device=q.device)
-    ng = valid.shape[0]
-    _call(_attn_lib(q.dtype, k.dtype), "pool_attention_launch", "pool_attention",
+    _call(_attn_lib(q.dtype, k.dtype), "pool_attention_launch", "pool_attention", q,
           _ptr(q), _ptr(k), _ptr(v), _ptr(k_scale), _ptr(v_scale), _ptr(valid),
           _ptr(m), _ptr(l), _ptr(acc), _Q_CODES[q.dtype], _KV_CODES[k.dtype],
           ng, gb // ng, c, h, s, t, kvh, d, kv_len, float(scale))
@@ -227,7 +253,17 @@ def pool_attention_paged(q, k_pages, v_pages, handles, valid, *, ppc: int,
     visited slots; ``valid`` [S] or [G,S]; per-page scales [P,B,1,KVH,1] /
     [G,P,B,1,KVH,1] (any strides). ``kv_len`` (default ppc*pt) drops
     trailing empty pages and masks a partial last page. Returns the fp32
-    state like ``pool_attention``."""
+    state like ``pool_attention``.
+
+    On the card the route is static: bf16 q with bf16, int8 or fp8 pages at
+    head dim 112 or 128 runs the tensor-core body of K1 / K2 over the pages
+    in place (``PagedWalk`` in ``csrc/chunk_attn_tc.cuh``: TMA boxes of
+    whole pages through a 5-D map of the strided store) when the pages fill
+    whole 64-key tiles (pt a multiple of 64, or a multiple of 8 dividing 64)
+    and the group stride is P page strides or B batch strides
+    (``tc::paged_tc_fits``), so that K2 and K3 sum a slot stack in the same
+    order; fp32 q, head dim 16 and other page shapes run the CUDA-core
+    body (``flash_block``). Neither falls back on the other."""
     gb, c, h, d = q.shape
     grouped = k_pages.ndim == 6
     kp = k_pages if grouped else k_pages[None]
@@ -261,6 +297,7 @@ def pool_attention_paged(q, k_pages, v_pages, handles, valid, *, ppc: int,
     align = 16 // kp.element_size()
     if any(x % align for x in st[:5]) or kp.data_ptr() % 16 or vp.data_ptr() % 16:
         raise ValueError("page rows must be 16-byte aligned")
+    _check_tc_groups(q, ng, s)
     sst = (0, 0, 0, 0)
     if ks is not None:
         if vs.stride() != ks.stride():
@@ -270,10 +307,10 @@ def pool_attention_paged(q, k_pages, v_pages, handles, valid, *, ppc: int,
     l = torch.empty((gb, h, c), device=q.device)
     acc = torch.empty((gb, c, h, d), device=q.device)
     _call(_attn_lib(q.dtype, kp.dtype), "pool_attention_paged_launch",
-          "pool_attention_paged",
+          "pool_attention_paged", q,
           _ptr(q), _ptr(kp), _ptr(vp), _ptr(ks), _ptr(vs), _ptr(handles),
           _ptr(valid), _ptr(m), _ptr(l), _ptr(acc), _Q_CODES[q.dtype],
-          _KV_CODES[kp.dtype], ng, b, c, h, s, ppc, pt, kvh, d, kv_len,
+          _KV_CODES[kp.dtype], ng, b, c, h, s, npages, ppc, pt, kvh, d, kv_len,
           st[0], st[1], st[2], st[3], st[4], *sst, float(scale))
     return m, l, acc
 
@@ -326,7 +363,7 @@ def ssd(x, dt, a_log, b, c, d_skip, *, chunk: int = 128, init_state=None):
     _check_dense(x, dt, a2, b, c, d2, init_state)
     y = torch.empty_like(x)
     final = torch.empty((r, h, p, n), device=x.device)
-    _call("ssd", "ssd_launch", "ssd", _ptr(x), _ptr(dt), _ptr(a2), _ptr(b),
+    _call("ssd", "ssd_launch", "ssd", x, _ptr(x), _ptr(dt), _ptr(a2), _ptr(b),
           _ptr(c), _ptr(d2), _ptr(init_state), _ptr(y), _ptr(final),
           _SSD_CODES[x.dtype], r, t, h, p, g, n, ck, gs)
     return y, final
@@ -335,18 +372,79 @@ def ssd(x, dt, a_log, b, c, d_skip, *, chunk: int = 128, init_state=None):
 # -------------------------------------------------------------------- K5
 
 _DECODE_GROUPS = (1, 2, 4, 8)     # G = H / KVH the kernel is built for
-_DECODE_BLOCKS = 4 * 132          # partial blocks aimed at: 4 per H100 SM
-_DECODE_MIN_SPLIT = 256           # keys a split takes before S is cut again
+# csrc/decode_attn.cu: threads a block, keys a row group takes from a tile
+_DECODE_THREADS, _DECODE_U = 128, 4
+_DECODE_CAP_PER_SM = 4            # the grid's most blocks an SM (the scratch is sized for it)
+_DECODE_SCRATCH: dict = {}        # device -> [grid cap, fp32 partials, int32 pair counters]
 
 
-def decode_splits(s: int, pairs: int) -> Tuple[int, int]:
-    """(nsplit, split_len) of K5's flash-decoding split of a cache of S
-    positions over ``pairs`` (batch row, kv head) pairs: about
-    ``_DECODE_BLOCKS`` blocks in all, and no more splits than
-    ``_DECODE_MIN_SPLIT`` keys each would give."""
-    want = max(1, min(-(-_DECODE_BLOCKS // pairs), -(-s // _DECODE_MIN_SPLIT)))
-    split_len = -(-s // want)
-    return -(-s // split_len), split_len
+def decode_heads_per_unit(g: int, d: int, itemsize: int, kvh: int) -> int:
+    """Kv heads one unit of K5's work takes (``PAIR_HEADS`` in
+    ``csrc/decode_attn.cu``): 2 when G = 1, a head's key row is no whole
+    number of 64-byte DRAM bursts (bf16 at D 16 or 112) and KVH is even,
+    so that a key's rows of the two heads are one contiguous span; else 1."""
+    return 2 if g == 1 and (d * itemsize) % 64 and kvh % 2 == 0 else 1
+
+
+def decode_tile_keys(d: int, itemsize: int, hp: int = 1) -> int:
+    """Keys in one of K5's tiles at head dim ``d``, element size
+    ``itemsize`` and ``hp`` kv heads a unit: one row group holds a head's
+    key row in 16-byte pieces (padded to a power of two of threads), hp
+    row groups a key, and each takes U keys a tile (``Geo`` in
+    ``csrc/decode_attn.cu``)."""
+    tpr = d * itemsize // 16
+    tpr_p = 2
+    while tpr_p < tpr:
+        tpr_p *= 2
+    return _DECODE_THREADS // tpr_p // hp * _DECODE_U
+
+
+def decode_ranges(lengths, kvh: int, blocks: int, keys: int):
+    """K5's split of the work, as the kernel computes it on the device. The
+    keys of every (row, unit) pair, laid end to end (row-major, then unit,
+    then position; ``kvh`` units a row, each one kv head or two
+    (``decode_heads_per_unit``); row b has ``lengths[b]`` keys per unit,
+    already clamped to [0, S]), are cut into ``blocks`` ranges of L keys,
+    L = ceil(total / blocks) rounded up to a whole tile of ``keys`` keys.
+    Returns (L, ranges): per block, its segments (row, unit, first
+    position, end position), a range cut at pair boundaries."""
+    lengths = [int(x) for x in lengths]
+    total = kvh * sum(lengths)
+    per = -(-total // blocks)
+    span = max(keys, -(-per // keys) * keys)
+    pairs = [(b, h, n) for b, n in enumerate(lengths) for h in range(kvh) if n]
+    ranges, starts, pos = [], [], 0
+    for b, h, n in pairs:
+        starts.append(pos)
+        pos += n
+    for j in range(blocks):
+        lo, hi = j * span, min((j + 1) * span, total)
+        segs = []
+        for (b, h, n), s0 in zip(pairs, starts):
+            a, e = max(lo, s0), min(hi, s0 + n)
+            if a < e:
+                segs.append((b, h, a - s0, e - s0))
+        ranges.append(segs)
+    return span, ranges
+
+
+def _decode_scratch(device, g: int, d: int, pairs: int):
+    """(cap, partials, counters) for a launch on ``device``: the grid's most
+    blocks, the cached fp32 partial-state scratch ((2 cap + pairs) x G x
+    (D + 2) floats: a slot per segment, of up to two kv heads' G x (D + 2))
+    and int32 pair counters (zero: each launch leaves them zero), grown
+    when a call needs more."""
+    entry = _DECODE_SCRATCH.get(device)
+    if entry is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        entry = _DECODE_SCRATCH[device] = [_DECODE_CAP_PER_SM * sms, None, None]
+    cap, part, cnt = entry
+    need = (2 * cap + pairs) * g * (d + 2)
+    if part is None or part.numel() < need:
+        entry[1] = part = torch.empty(need, device=device)
+    if cnt is None or cnt.numel() < pairs:
+        entry[2] = cnt = torch.zeros(pairs, dtype=torch.int32, device=device)
+    return cap, part, cnt
 
 
 def decode_attention(q, k, v, kv_len, *, scale: Optional[float] = None):
@@ -357,7 +455,14 @@ def decode_attention(q, k, v, kv_len, *, scale: Optional[float] = None):
     q's dtype: the softmax over the first kv_len[b] keys, p in fp32, one
     normalisation by max(l, 1e-30), so a row with kv_len = 0 gives zeros.
     Unlike the reference wrapper there is no lane padding and no block
-    halving: the kernel masks the ragged tail of any S."""
+    halving: the kernel masks the ragged tail of any S.
+
+    On the card one launch of ``csrc/decode_attn.cu``: a grid sized to the
+    card splits the keys of all rows into equal ranges on the device
+    (``decode_ranges``), streams K/V through a ``cp.async`` ring in shared
+    memory and merges a pair's partial states in the block that finishes
+    it last. Its scratch is cached per device, so launches of it are
+    ordered on one stream."""
     b, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     if (k.shape != (b, s, kvh, d) or v.shape != k.shape or tuple(kv_len.shape) != (b,)
@@ -380,14 +485,9 @@ def decode_attention(q, k, v, kv_len, *, scale: Optional[float] = None):
     _check_dense(q, k, v)
     if not kv_len.is_contiguous():
         raise ValueError("kv_len must be contiguous")
-    nsplit, split_len = decode_splits(s, b * kvh)
-    g = h // kvh
-    part_m = torch.empty((b, kvh, nsplit, g), device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b, kvh, nsplit, g, d), device=q.device)
+    cap, part, cnt = _decode_scratch(q.device, h // kvh, d, b * kvh)
     out = torch.empty_like(q)
-    _call("decode_attn", "decode_attention_launch", "decode_attention",
-          _ptr(q), _ptr(k), _ptr(v), _ptr(kv_len), _ptr(part_m), _ptr(part_l),
-          _ptr(part_acc), _ptr(out), _Q_CODES[q.dtype], b, h, kvh, d, s, nsplit,
-          split_len, float(scale))
+    _call("decode_attn", "decode_attention_launch", "decode_attention", q,
+          _ptr(q), _ptr(k), _ptr(v), _ptr(kv_len), _ptr(part), _ptr(cnt), _ptr(out),
+          _Q_CODES[q.dtype], b, h, kvh, d, s, cap, float(scale))
     return out

@@ -122,16 +122,54 @@ def test_decode_wrapper_on_cpu_is_the_plain_version():
     assert ops.LAUNCHES["decode_attention"] == 0
 
 
-@pytest.mark.parametrize("s,pairs", [(1, 1), (16, 4), (520, 16), (32768, 32), (32768, 64),
-                                     (32768, 256), (1000, 1000)])
-def test_decode_splits_cover_the_cache(s, pairs):
-    """K5's split of S: every position in exactly one split, no split
-    empty, about ``_DECODE_BLOCKS`` blocks, and no more splits than
-    ``_DECODE_MIN_SPLIT`` keys each would give."""
-    nsplit, split_len = ops.decode_splits(s, pairs)
-    assert nsplit * split_len >= s > (nsplit - 1) * split_len
-    assert nsplit <= -(-s // ops._DECODE_MIN_SPLIT)
-    assert nsplit == 1 or nsplit * pairs <= 2 * ops._DECODE_BLOCKS
+DECODE_RULE_CASES = {   # (row lengths, H, KVH, head dim, item size); S = 32768
+    "full": ([32768] * 8, 32, 8, 128, 2),          # qwen3-8b's timed decode shape
+    "ragged": ([0, 1, 77, 4099, 12345, 20001, 32767, 32768], 32, 8, 128, 2),
+    "100x": ([300, 30000, 327, 32768, 310, 31000, 299, 32000], 32, 32, 112, 2),  # zamba2-7b
+    "one_key": ([0, 1], 8, 8, 16, 4),
+    "short_rows": ([5] * 300, 4, 1, 128, 4),
+    "empty": ([0, 0, 0], 8, 4, 128, 2),
+}
+
+
+@pytest.mark.parametrize("blocks", [132, 396])
+@pytest.mark.parametrize("case", DECODE_RULE_CASES)
+def test_decode_splits_cover_the_cache(case, blocks):
+    """K5's split of the work (``ops.decode_ranges``, the rule the kernel
+    computes on the device): every key of every row lies in exactly one
+    segment, no segment reaches past its row's length (so none past S), and
+    no block takes more than one tile of keys above the mean, whatever the
+    lengths are (the ragged and 100x cases); a block's segments run in
+    sequence order. zamba2-7b's MHA bf16 rows (224 bytes) pair their kv
+    heads, qwen3-8b's GQA rows do not."""
+    lengths, h, kvh, d, itemsize = DECODE_RULE_CASES[case]
+    hp = ops.decode_heads_per_unit(h // kvh, d, itemsize, kvh)
+    assert hp == (2 if case == "100x" else 1)
+    keys = ops.decode_tile_keys(d, itemsize, hp)
+    units = kvh // hp
+    span, ranges = ops.decode_ranges(lengths, units, blocks, keys)
+    assert len(ranges) == blocks and span % keys == 0
+    covered = {}
+    for segs in ranges:
+        assert segs == sorted(segs)
+        for b, u, a, e in segs:
+            assert 0 <= a < e <= lengths[b] <= 32768
+            covered.setdefault((b, u), []).append((a, e))
+    for b, n in enumerate(lengths):
+        for u in range(units):
+            pos = 0
+            for a, e in sorted(covered.pop((b, u), [])):
+                assert a == pos
+                pos = e
+            assert pos == n
+    assert not covered
+    total = units * sum(lengths)
+    loads = [sum(e - a for _, _, a, e in segs) for segs in ranges]
+    assert sum(loads) == total
+    assert max(loads) < total / blocks + keys
+    # the kernel's tiles at the decode shapes (bf16): 32 keys at D 128, 16
+    # two-head keys at D 112
+    assert ops.decode_tile_keys(128, 2) == 32 and ops.decode_tile_keys(112, 2, 2) == 16
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "kv_dtype", "group", "kv_len_dtype",

@@ -89,48 +89,100 @@ def test_full_attention_is_offset_past_last_key():
 
 # ------------------------------------------ K1's tensor-core tile algorithm
 
-def _tile_emulation(q, k, v, k_scale=None, v_scale=None, *, causal_offset, kv_len,
-                    split=True):
-    """The arithmetic of K1's tensor-core body (``csrc/chunk_attn_tc.cuh``),
-    in torch on the CPU: 64-key tiles with a running max; q and k/v values
-    exact in bf16 (bf16, or int8 / fp8 payloads); S in fp32, the k scale on
-    the score columns and the mask before the exponential; l of the
-    unscaled p; the v scale folded into p, then P·V as hi·V + lo·V with
-    hi = bf16(p), lo = bf16(p - hi) (``split``), or P rounded once to bf16.
-    Returns (m, l) [B,H,C] and acc [B,C,H,D] fp32, as the kernel does."""
-    b, c, h, d = q.shape
-    t, kvh = k.shape[1], k.shape[2]
-    g = h // kvh
-    scale = 1.0 / math.sqrt(d)
-    qf = q.float().reshape(b, c, kvh, g, d)
+def _online_tiles(qf, tiles, scale, split):
+    """The consumer warpgroup's arithmetic of the tensor-core body
+    (``csrc/chunk_attn_tc.cuh``) over a sequence of 64-key tiles, in torch
+    on the CPU. qf [b, c, kvh, g, d] fp32 (values exact in bf16); each tile
+    (kt, vt, ksc, vsc, visible): k/v values [b, n, kvh, d] fp32 (bf16, or
+    int8 / fp8 payloads), per-key scales [b, n, kvh] or None, and the keys
+    each query sees, broadcastable to [c, n]. S in fp32, the k scale on
+    the score columns and the mask before the exponential with a running
+    max; l of the unscaled p; the v scale folded into p, then P·V as
+    hi·V + lo·V with hi = bf16(p), lo = bf16(p - hi) (``split``), or P
+    rounded once to bf16. Returns (m, l) [b, kvh, g, c] and acc
+    [b, kvh, g, c, d] fp32."""
+    b, c, kvh, g, d = qf.shape
     m = torch.full((b, kvh, g, c), NEG_INF)
     l = torch.zeros((b, kvh, g, c))
     acc = torch.zeros((b, kvh, g, c, d))
-    qpos = torch.arange(c)[:, None] + causal_offset
-    rows = max(0, min(kv_len, c + causal_offset))
-    for k0 in range(0, rows, 64):
-        keys = slice(k0, min(k0 + 64, t))
-        kt, vt = k[:, keys].float(), v[:, keys].float()
+    for kt, vt, ksc, vsc, visible in tiles:
         s = torch.einsum("bckgd,btkd->bkgct", qf, kt) * scale
-        if k_scale is not None:
-            s = s * k_scale[:, keys].transpose(1, 2)[:, :, None, None, :]
-        kpos = torch.arange(k0, k0 + kt.shape[1])[None, :]
-        s = torch.where((kpos <= qpos) & (kpos < kv_len), s, torch.full_like(s, NEG_INF))
+        if ksc is not None:
+            s = s * ksc.transpose(1, 2)[:, :, None, None, :]
+        s = torch.where(visible, s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(-1))
         m_safe = torch.where(m_new < NEG_INF / 2, torch.zeros_like(m_new), m_new)
         corr = torch.exp(m - m_safe)
         p = torch.exp(s - m_safe[..., None])
         l = l * corr + p.sum(-1)
-        if v_scale is not None:
-            p = p * v_scale[:, keys].transpose(1, 2)[:, :, None, None, :]
+        if vsc is not None:
+            p = p * vsc.transpose(1, 2)[:, :, None, None, :]
         hi = p.bfloat16().float()
         pv = torch.einsum("bkgct,btkd->bkgcd", hi, vt)
         if split:
             pv = pv + torch.einsum("bkgct,btkd->bkgcd", (p - hi).bfloat16().float(), vt)
         acc = acc * corr[..., None] + pv
         m = m_new
-    return (m.reshape(b, h, c), l.reshape(b, h, c),
-            acc.permute(0, 3, 1, 2, 4).reshape(b, c, h, d))
+    return m, l, acc
+
+
+def _as_kernel_state(m, l, acc):
+    """[b, kvh, g, c(, d)] -> (m, l) [b, H, c] and acc [b, c, H, d]."""
+    b, kvh, g, c, d = acc.shape
+    return (m.reshape(b, kvh * g, c), l.reshape(b, kvh * g, c),
+            acc.permute(0, 3, 1, 2, 4).reshape(b, c, kvh * g, d))
+
+
+def _tile_emulation(q, k, v, k_scale=None, v_scale=None, *, causal_offset, kv_len,
+                    split=True):
+    """K1's tensor-core body on the CPU (``_online_tiles``): the 64-key
+    tiles of k/v [B,T,KVH,D] up to the last key a query of the chunk sees,
+    the causal mask and kv_len before the exponential. Returns (m, l)
+    [B,H,C] and acc [B,C,H,D] fp32, as the kernel does."""
+    b, c, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, c, kvh, h // kvh, d)
+    qpos = torch.arange(c)[:, None] + causal_offset
+    rows = max(0, min(kv_len, c + causal_offset))
+
+    def tiles():
+        for k0 in range(0, rows, 64):
+            keys = slice(k0, min(k0 + 64, t))
+            kpos = torch.arange(k0, keys.stop)[None, :]
+            yield (k[:, keys].float(), v[:, keys].float(),
+                   None if k_scale is None else k_scale[:, keys],
+                   None if v_scale is None else v_scale[:, keys],
+                   (kpos <= qpos) & (kpos < kv_len))
+    return _as_kernel_state(*_online_tiles(qf, tiles(), 1.0 / math.sqrt(d), split))
+
+
+def _stack_emulation(q, k, v, valid, k_scale=None, v_scale=None, *, kv_len, split=True):
+    """K2's tensor-core body on the CPU (``_online_tiles``): for the rows of
+    each group g, the 64-key tiles below kv_len of each valid slot of
+    ``valid[g]``, slot by slot (SlotCursor), every such key visible, the
+    ragged tail tile masked before the exponential. q [G*B,C,H,D]; k/v
+    [S,G*B,T,KVH,D], scales [S,G*B,T,KVH]. Returns (m, l) [G*B,H,C] and acc
+    [G*B,C,H,D] fp32; a group with no valid slot keeps (-1e30, 0, 0)."""
+    gb, c, h, d = q.shape
+    t, kvh = k.shape[2], k.shape[3]
+    ng = valid.shape[0]
+    rows_g = gb // ng
+    parts = []
+    for g in range(ng):
+        rows = slice(g * rows_g, (g + 1) * rows_g)
+        qf = q[rows].float().reshape(rows_g, c, kvh, h // kvh, d)
+
+        def tiles():
+            for s in np.flatnonzero(np.asarray(valid[g])):
+                for k0 in range(0, kv_len, 64):
+                    keys = slice(k0, min(k0 + 64, t))
+                    kpos = torch.arange(k0, keys.stop)[None, :]
+                    yield (k[s, rows, keys].float(), v[s, rows, keys].float(),
+                           None if k_scale is None else k_scale[s, rows, keys],
+                           None if v_scale is None else v_scale[s, rows, keys],
+                           kpos < kv_len)
+        parts.append(_as_kernel_state(*_online_tiles(qf, tiles(), 1.0 / math.sqrt(d), split)))
+    return tuple(torch.cat(x) for x in zip(*parts))
 
 
 def _k1_inputs(kind, b, c, h, kvh, d, t):
@@ -190,6 +242,154 @@ def test_k1_tile_algorithm_matches_pallas():
     for g, w in zip(got, want[1:]):
         w = np.asarray(w, np.float32)
         assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max()
+
+
+# ------------------------------------------ K2's tensor-core tile algorithm
+
+K2_VALID = {"mixed": [[1, 0, 1, 1], [0, 1, 0, 0]], "none": [[0, 0, 0, 0], [0, 0, 0, 0]],
+            "all": [[1, 1, 1, 1], [1, 1, 1, 1]]}
+
+
+def _k2_inputs(kind, gb, c, h, kvh, d, s, t):
+    """bf16 q [G*B,C,H,D] and k/v [S,G*B,T,KVH,D] (bf16, or int8 / fp8
+    payloads with per-token scales [S,G*B,T,KVH]), made with numpy from a
+    seed."""
+    q = torch.from_numpy(_randn(gb, c, h, d, seed=41)).bfloat16()
+    k, v = _randn(s, gb, t, kvh, d, seed=42), _randn(s, gb, t, kvh, d, seed=43)
+    if kind == "bf16":
+        return q, torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16(), None, None
+    kq, _, ks = _quant(k, kind, (4,))
+    vq, _, vs = _quant(v, kind, (4,))
+    return q, kq, vq, torch.from_numpy(ks[..., 0]), torch.from_numpy(vs[..., 0])
+
+
+def _state_held(got, want, rel):
+    """Entries where ``want`` holds the empty-row sentinel m = -1e30 are
+    equal; every other entry of m, l and acc lies within ``rel`` of its
+    tensor's max|want| (as ``chip_smoke.compare`` holds the card)."""
+    for g, w in zip(got, want):
+        empty = w <= NEG_INF / 10
+        assert torch.equal(g[empty], w[empty])
+        g, w = g[~empty], w[~empty]
+        if w.numel():
+            assert (g - w).abs().max().item() <= rel * w.abs().max().item()
+
+
+# every valid pattern x K/V kind with the hi/lo split; and P rounded once to
+# bf16 (a plain tensor-core P·V), which must miss the card's 1e-3 check
+K2_CASES = [(vd, kind, True) for vd in K2_VALID for kind in ("bf16", "int8", "fp8")] \
+    + [("all", "bf16", False)]
+
+
+@pytest.mark.parametrize("vd,kind,split", K2_CASES)
+def test_k2_tile_algorithm_matches_plain(vd, kind, split):
+    """K2's tensor-core tile algorithm (64-key tiles walked slot by slot
+    over the valid slots of each group, hi/lo P·V, the k scale on the
+    scores and the v scale in p, kv_len < T with a ragged tail tile)
+    against ``pool_attention_plain`` at qwen3-8b's head shape (H 32, KVH 8,
+    D 128; 2 groups of 1 row, C 64, 4 slots of T 200, kv_len 150): m, l and
+    acc within 1e-5 of their max|ref|, 100x inside the card's 1e-3 check;
+    an all-invalid group exactly (-1e30, 0, 0). Without the split acc is
+    off by more than 1e-3 of max|acc|."""
+    valid = torch.tensor(K2_VALID[vd])
+    q, k, v, ks, vs = _k2_inputs(kind, 2, 64, 32, 8, 128, 4, 200)
+    got = _stack_emulation(q, k, v, valid, ks, vs, kv_len=150, split=split)
+    want = ref.pool_attention_plain(q, k, v, valid, kv_len=150, k_scale=ks, v_scale=vs)
+    if not split:
+        assert (got[2] - want[2]).abs().max().item() > 1e-3 * want[2].abs().max().item()
+        return
+    _state_held(got, want, 1e-5)
+    for gi, row in enumerate(K2_VALID[vd]):
+        if not any(row):
+            m, l, acc = (x[gi:gi + 1] for x in got)
+            assert bool((m == NEG_INF).all() and (l == 0).all() and (acc == 0).all())
+
+
+def test_k2_tile_algorithm_matches_pallas():
+    """The same emulation against the reference Pallas pool kernel
+    (interpret mode) at a small size: one group, three slots of which two
+    are valid, two 64-key tiles a slot, kv_len < T."""
+    b, c, h, kvh, d, s, t, kv_len = 1, 64, 4, 2, 32, 3, 128, 120
+    q, k, v, _, _ = _k2_inputs("bf16", b, c, h, kvh, d, s, t)
+    valid = np.array([1, 0, 1], np.int32)
+    want = ref_ca.pool_attention_pallas(
+        *(jnp.asarray(x.float().numpy()) for x in (q, k, v)), jnp.asarray(valid[:, None]),
+        kv_len=kv_len, block_q=c, block_k=16, interpret=True)
+    got = _stack_emulation(q, k, v, valid[None], kv_len=kv_len)
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float32)
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max()
+
+
+def _paged_emulation(q, kp, vp, handles, valid, ks=None, vs=None, *, ppc, kv_len):
+    """K3's tensor-core body on the CPU: K2's walk over the valid slots of
+    each group, but each 64-key tile assembled as ``PagedCursor`` loads it
+    from the page store [G,P,B,pt,KVH,D] through the handles: one box of a
+    page (pt a multiple of 64) or 64 / pt boxes of whole pages, a page past
+    the chunk's last replaced by the last page (its keys are masked);
+    per-page scales [G,P,B,1,KVH,1]. Returns (m, l) [G*B,H,C], acc
+    [G*B,C,H,D]."""
+    gb, c, h, d = q.shape
+    ng, _, b, pt, kvh, _ = kp.shape
+    sub = min(pt, 64)
+    parts = []
+    for g in range(ng):
+        qf = q[g * b:(g + 1) * b].float().reshape(b, c, kvh, h // kvh, d)
+
+        def tiles():
+            for s in np.flatnonzero(np.asarray(valid[g])):
+                for k0 in range(0, kv_len, 64):
+                    rows = []
+                    for r in range(64 // sub):
+                        tok = k0 + r * sub
+                        page = tok // pt
+                        hnd = int(handles[s * ppc + min(page, ppc - 1)])
+                        tin = tok % pt if page < ppc else 0
+                        rows.append((hnd, slice(tin, tin + sub)))
+                    kt = torch.cat([kp[g, hh, :, tt] for hh, tt in rows], 1).float()
+                    vt = torch.cat([vp[g, hh, :, tt] for hh, tt in rows], 1).float()
+                    ksc = vsc = None
+                    if ks is not None:
+                        ksc = torch.cat([ks[g, hh, :, 0, :, 0][:, None].expand(b, sub, kvh)
+                                         for hh, _ in rows], 1)
+                        vsc = torch.cat([vs[g, hh, :, 0, :, 0][:, None].expand(b, sub, kvh)
+                                         for hh, _ in rows], 1)
+                    kpos = torch.arange(k0, k0 + 64)[None, :]
+                    yield kt, vt, ksc, vsc, kpos < kv_len
+        parts.append(_as_kernel_state(*_online_tiles(qf, tiles(), 1.0 / math.sqrt(d), True)))
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+@pytest.mark.parametrize("pt", [128, 16])
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_k3_tile_algorithm_matches_plain(pt, kind):
+    """K3's tensor-core tile walk over pages read in place (``PagedCursor``
+    in ``csrc/chunk_attn_tc.cuh``): pages of 128 tokens (a tile within a
+    page) and of 16 (four pages a tile), shuffled handles, a partial last
+    page (kv_len 200 of 256), two groups with mixed valid slots, against
+    ``pool_attention_paged_plain`` at qwen3-8b's head shape within 1e-5 of
+    max|ref| (m, l, acc); a group with no valid slot exactly (-1e30, 0,
+    0). The same sums as K2's walk over the gathered stack."""
+    ng, b, c, h, kvh, d, s, t = 2, 1, 64, 32, 8, 128, 3, 256
+    ppc = t // pt
+    npages = (s + 1) * ppc
+    handles = torch.from_numpy(np.random.default_rng(3).permutation(npages)[: s * ppc]
+                               .astype(np.int32))
+    q = torch.from_numpy(_randn(ng * b, c, h, d, seed=51)).bfloat16()
+    k, v = _randn(ng, npages, b, pt, kvh, d, seed=52), _randn(ng, npages, b, pt, kvh, d, seed=53)
+    ks = vs = None
+    if kind == "bf16":
+        kp, vp = torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16()
+    else:
+        kp, _, ks = _quant(k, kind, (3, 5))
+        vp, _, vs = _quant(v, kind, (3, 5))
+        ks, vs = torch.from_numpy(ks), torch.from_numpy(vs)
+    for valid in ([[1, 0, 1], [0, 1, 1]], [[0, 0, 0], [1, 1, 0]]):
+        valid = torch.tensor(valid)
+        got = _paged_emulation(q, kp, vp, handles, valid, ks, vs, ppc=ppc, kv_len=200)
+        want = ref.pool_attention_paged_plain(q, kp, vp, handles, valid, ppc=ppc, kv_len=200,
+                                              k_scale=ks, v_scale=vs)
+        _state_held(got, want, 1e-5)
 
 
 # ------------------------------------------------------------------ K2
