@@ -10,8 +10,8 @@ prints no result line):
 1. card: prints the card's name and power limit (nvidia-smi), turns TF32 off;
 2. build: compiles every ``src/repro_torch/csrc/*.cu`` with nvcc (one
    process per library, all at once), timed, with each library's
-   registers and spills, and each instance's of the tensor-core body
-   (K1-K3) and of K5;
+   registers and spills, and each instance's of the tensor-core bodies
+   (K1-K3, K4) and of K5;
 3. kernels: holds each CUDA kernel against its plain PyTorch version on the
    card, each output tensor at its own scale (see ``compare``), and times
    kernel, plain version and, where one exists, a PyTorch call computing
@@ -34,7 +34,10 @@ prints no result line):
      torch.profiler trace and from windows of back-to-back calls;
    - K4 the Mamba2 SSD scan at zamba2-7b's and mamba2-130m's shapes in
      bf16 and fp32, with a non-zero init_state, one a_log / d_skip row per
-     stage (Gs = 8) and a case with G < H SSM groups;
+     stage (Gs = 8), x, b and c dense and as strided views of one
+     conv-output buffer (the layout the Mamba2 block hands over), and a
+     case with G < H SSM groups; the bf16 time also in windows and from a
+     torch.profiler trace, which must show the tensor-core body;
    - K5 flash-decode at qwen3-8b's (GQA, head dim 128) and zamba2-7b's (MHA,
      head dim 112) decode shapes, 8 rows over a 32768-token cache, bf16 and
      fp32, timed with every row at full length (also in windows and from a
@@ -51,10 +54,11 @@ prints no result line):
    run; mamba2-130m (24 layers) under terapipe. Each model's bf16 runs are
    its main path: the kernels' launch counters are set to 0 just before
    them and read just after, and every kernel of the path must have
-   launched. After qwen3-8b's, one more bf16 qship/cuda wave runs under
-   torch.profiler: its device time by kernel (K1, K2, matmuls, page
+   launched. Then one more bf16 qship/cuda wave of the model runs under
+   torch.profiler: its device time by kernel (K1, K2, K4, matmuls, page
    gathers and scatters, the rest) and the device's idle share
-   (``wave_split``). In bf16 the logits are held against a witness that keeps p in
+   (``wave_split``); every K4 launch in it must be the tensor-core body.
+   In bf16 the logits are held against a witness that keeps p in
    fp32 as the kernels do (and the ``torch`` SSD), at a limit that two
    planted kernel faults must break (K2 faults for qwen3-8b, K4 faults for
    the others); in fp32 every request's argmax must equal the ``torch``
@@ -543,11 +547,14 @@ SSD_SHAPES = {"zamba2-7b": (112, 64, 64), "mamba2-130m": (24, 64, 128)}
 SSD_CHUNK = 256                    # both models' ssm.chunk_size
 
 
-def ssd_inputs(gen, rows: int, t: int, h: int, p: int, g: int, n: int, dtype):
+def ssd_inputs(gen, rows: int, t: int, h: int, p: int, g: int, n: int, dtype,
+               strided: bool = False):
     """Random SSD inputs with the model's distributions: dt log-uniform in
     [1e-3, 1e-1] per head (``init_block``'s dt_bias) times a log-normal
     factor, A = -(1..H) with one a_log row per stage (Gs = 8), d_skip near
-    1, B and C unit-variance, a non-zero fp32 init_state."""
+    1, B and C unit-variance, a non-zero fp32 init_state. ``strided``: x, b
+    and c are views into one [rows, t, h p + 2 g n] buffer, the layout the
+    Mamba2 block hands K4 (its conv output, read in place)."""
     import math
     import torch
     dev = torch.device("cuda")
@@ -561,16 +568,26 @@ def ssd_inputs(gen, rows: int, t: int, h: int, p: int, g: int, n: int, dtype):
     a_log = torch.log(torch.arange(1, h + 1, device=dev, dtype=torch.float32))[None] \
         + 0.1 * randn(N_STAGES, h)
     d_skip = 1.0 + 0.1 * randn(N_STAGES, h)
-    return (randn(rows, t, h, p).to(dtype), dt, a_log, randn(rows, t, g, n).to(dtype),
-            randn(rows, t, g, n).to(dtype), d_skip, 0.1 * randn(rows, h, p, n))
+    if strided:
+        x, b, c = torch.split(randn(rows, t, h * p + 2 * g * n).to(dtype),
+                              [h * p, g * n, g * n], dim=-1)
+        x, b, c = x.view(rows, t, h, p), b.view(rows, t, g, n), c.view(rows, t, g, n)
+    else:
+        x, b, c = (randn(rows, t, h, p).to(dtype), randn(rows, t, g, n).to(dtype),
+                   randn(rows, t, g, n).to(dtype))
+    return x, dt, a_log, b, c, d_skip, 0.1 * randn(rows, h, p, n)
 
 
 def ssd_phase(results: dict) -> None:
     """K4 against ``ssd_plain`` at both models' serve shapes (16 rows =
     8 stages x batch 2, T = 512, chunk 256), bf16 and fp32, non-zero
-    init_state, Gs = 8; then G = 2 < H without an init_state. Times kernel
-    and plain version at zamba2-7b's shape (the main path of the two) and
-    mamba2-130m's, in bf16."""
+    init_state, Gs = 8, with x, b and c dense and as the strided views the
+    Mamba2 block hands over (one conv-output buffer); then G = 2 < H
+    without an init_state, bf16 (the tensor-core body) and fp32. In bf16
+    at each shape: kernel and plain version timed on dense inputs (and the
+    kernel on the strided views), in windows of back-to-back calls and from
+    a torch.profiler trace, which must show the tensor-core body
+    (``ssd_tc_kernel``)."""
     import torch
     from repro_torch.kernels import ops, ref
 
@@ -580,36 +597,53 @@ def ssd_phase(results: dict) -> None:
     labels = ("y", "state")
     for arch, (h, p, n) in SSD_SHAPES.items():
         for name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-            log(f"[kernels] K4 ssd {arch} {name}  x [{rows},{t},{h},{p}], "
-                f"b/c [{rows},{t},1,{n}], Gs {N_STAGES}, init_state")
-            args = ssd_inputs(gen, rows, t, h, p, 1, n, dt)
-            *xs, init = args
-            got = ops.ssd(*xs, chunk=SSD_CHUNK, init_state=init)
-            want = ref.ssd_plain(*xs, chunk=SSD_CHUNK, init_state=init)
-            torch.cuda.synchronize()
-            err = max(err, compare(f"ssd {arch} {name}", got, want, name, labels))
+            times = {}
+            for strided in (False, True):
+                layout = "strided views" if strided else "dense"
+                log(f"[kernels] K4 ssd {arch} {name}  x [{rows},{t},{h},{p}], "
+                    f"b/c [{rows},{t},1,{n}], Gs {N_STAGES}, init_state, {layout}")
+                args = ssd_inputs(gen, rows, t, h, p, 1, n, dt, strided=strided)
+                *xs, init = args
+                got = ops.ssd(*xs, chunk=SSD_CHUNK, init_state=init)
+                want = ref.ssd_plain(*xs, chunk=SSD_CHUNK, init_state=init)
+                torch.cuda.synchronize()
+                err = max(err, compare(f"ssd {arch} {name} {layout}", got, want, name,
+                                       labels))
+                if name != "bfloat16":
+                    continue
+                call = lambda: ops.ssd(*xs, chunk=SSD_CHUNK, init_state=init)
+                if strided:
+                    times["strided_ms"] = time_ms(call)
+                    log(f"  time: kernel {times['strided_ms']:.4f} ms")
+                    continue
+                ms, win_ms = time_ms(call), windowed_ms(call)
+                prof_ms, seen = profiled_ms(call, "ssd_tc_kernel")
+                log(f"  torch.profiler: ssd_tc_kernel {seen} launches, "
+                    + (f"{prof_ms:.4f} ms device time each" if seen else "no device time seen"))
+                check(seen > 0, f"K4 {arch} bf16: the tensor-core body did not run")
+                plain = time_ms(lambda: ref.ssd_plain(*xs, chunk=SSD_CHUNK, init_state=init))
+                tri = SSD_CHUNK * (SSD_CHUNK + 1) / 2
+                per_chunk = 2.0 * tri * (n + p) + 4.0 * SSD_CHUNK * p * n
+                ops_n = per_chunk * rows * h * (t // SSD_CHUNK)
+                b_ms, by = bound_ms(nbytes(*args, *got), ops_n, name)
+                times.update(ms=ms, windowed_ms=win_ms, profiler_ms=prof_ms, plain_ms=plain,
+                             library_ms=None, bound_ms=b_ms, bound_by=by)
+                log(f"  time: kernel {ms:.4f} ms ({win_ms:.4f} ms a call in windows of "
+                    f"back-to-back calls), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({by}), "
+                    f"{ops_n / 1e9:.1f} GFLOP")
             if name != "bfloat16":
                 continue
-            ms = time_ms(lambda: ops.ssd(*xs, chunk=SSD_CHUNK, init_state=init))
-            plain = time_ms(lambda: ref.ssd_plain(*xs, chunk=SSD_CHUNK, init_state=init))
-            tri = SSD_CHUNK * (SSD_CHUNK + 1) / 2
-            per_chunk = 2.0 * tri * (n + p) + 4.0 * SSD_CHUNK * p * n
-            ops_n = per_chunk * rows * h * (t // SSD_CHUNK)
-            b_ms, by = bound_ms(nbytes(*args, *got), ops_n, name)
-            times = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
-                         bound_by=by)
             if arch == "zamba2-7b":
                 results.setdefault("ssd", {}).update(times)
             else:
                 results.setdefault("ssd", {})[arch] = times
-            log(f"  time: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                f"bound {b_ms:.4f} ms ({by}), {ops_n / 1e9:.1f} GFLOP")
     h, p, n = SSD_SHAPES["zamba2-7b"]
-    log(f"[kernels] K4 ssd G = 2 < H = {h}, no init_state, fp32")
-    *xs, _ = ssd_inputs(gen, rows, t, h, p, 2, n, torch.float32)
-    got = ops.ssd(*xs, chunk=SSD_CHUNK)
-    want = ref.ssd_plain(*xs, chunk=SSD_CHUNK)
-    err = max(err, compare("ssd G=2", got, want, "float32", labels))
+    for name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        log(f"[kernels] K4 ssd G = 2 < H = {h}, no init_state, {name}")
+        *xs, _ = ssd_inputs(gen, rows, t, h, p, 2, n, dt)
+        got = ops.ssd(*xs, chunk=SSD_CHUNK)
+        want = ref.ssd_plain(*xs, chunk=SSD_CHUNK)
+        err = max(err, compare(f"ssd G=2 {name}", got, want, name, labels))
     results["ssd"]["max_abs_err"] = err
 
 
@@ -951,7 +985,8 @@ WAVE_CATEGORIES = (
 def wave_split(arch: str, staged=None,
                combo=("qship", "cuda", "cuda", "auto")) -> dict:
     """One bf16 wave (BATCH requests) of ``arch`` at full width and depth
-    through PrefillEngine + TorchExecutor under ``combo``, traced by
+    through PrefillEngine + TorchExecutor under ``combo`` (the SSD on K4),
+    traced by
     torch.profiler (device activity only) after a warm-up wave and an
     untraced wave: the device time by WAVE_CATEGORIES (seconds), the busy
     time (the union of the kernels' intervals) and the device's idle share
@@ -973,7 +1008,8 @@ def wave_split(arch: str, staged=None,
     seq = N_CHUNKS * CHUNK
     remote, attn, pool, kv = combo
     run = RunConfig(num_chunks=N_CHUNKS, num_stages=N_STAGES, mbkr=not cfg.attn_free,
-                    remote_attn=remote, attn_backend=attn, pool_backend=pool, kv_dtype=kv)
+                    remote_attn=remote, attn_backend=attn, pool_backend=pool, kv_dtype=kv,
+                    ssm_backend="cuda")
     if staged is None:
         plan = pp.build_plan(cfg, N_STAGES, seq, run)
         staged = init_staged(cfg, plan, torch.Generator(device="cuda").manual_seed(0),
@@ -1019,14 +1055,20 @@ def wave_split(arch: str, staged=None,
             hi = max(hi, t1)
     busy = (busy + hi - lo) / 1e6
     window = (max(t1 for _, t1, _ in spans) - spans[0][0]) / 1e6
+    # K4's launches by body: the tensor-core one, or the CUDA-core one
+    k4 = {body: sum(key in name for _, _, name in spans)
+          for body, key in (("tensor cores", "ssd_tc_kernel"), ("cuda cores", "ssd_kernel"))}
     out = dict(split=split, busy_s=busy, window_s=window, idle_share=1.0 - busy / window,
-               wave_s=untraced, traced_wave_s=traced, kernels=len(spans), card=clocks)
+               wave_s=untraced, traced_wave_s=traced, kernels=len(spans), card=clocks,
+               k4_launches=k4)
     log(f"[wave] {arch} bf16 {'/'.join(combo)}: wave {untraced:.4f} s untraced, "
         f"{traced:.4f} s traced; {len(spans)} device activities; busy {busy:.4f} s of a "
         f"{window:.4f} s window, idle share {1.0 - busy / window:.4f}; card after it "
         f"(SM clock, its max, power draw, temperature): {clocks}")
     for label, sec in sorted(split.items(), key=lambda x: -x[1]):
         log(f"  {label}: {sec:.4f} s ({sec / busy:.1%} of the device's busy time)")
+    if any(k4.values()):
+        log(f"  K4 launches by body: {k4}")
     for name, sec in sorted(by_name.items(), key=lambda x: -x[1])[:12]:
         log(f"    {sec:.4f} s  {name[:110]}")
     return out
@@ -1188,8 +1230,13 @@ def serve_model(arch: str, results: dict) -> None:
     for name in spec["kernels"]:
         check(launches[name] > 0, f"kernel {name} was not launched on the {arch} main path")
         results[name].setdefault("launches_by_path", {})[arch] = launches[name]
-    if arch == "qwen3-8b":                 # where a bf16 wave's device time goes
-        wave_split(arch, staged)
+    # where a bf16 wave's device time goes; every K4 launch of it must run
+    # the tensor-core body
+    split = wave_split(arch, staged)
+    if "ssd" in spec["kernels"]:
+        k4 = split["k4_launches"]
+        check(k4["tensor cores"] > 0 and k4["cuda cores"] == 0,
+              f"{arch} bf16 wave: K4 launches by body {k4}")
     for combo, logits in bf16.items():
         log(f"  bf16 {'/'.join(combo)}")
         hold(cfg, logits, witness[combo[3]], "witness", "/".join(combo))
@@ -1501,7 +1548,7 @@ TC_WALKS = {"ChunkWalk": "K1", "StackWalk": "K2", "PagedWalk": "K3"}
 def build_phase() -> None:
     """Compiles every library (``-Xptxas -v``) and prints, per library, the
     largest register count and spill of its kernels and, for each instance
-    of the tensor-core body (K1-K3) and of K5, its own registers and
+    of the tensor-core bodies (K1-K3, K4) and of K5, its own registers and
     spills."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -1517,6 +1564,14 @@ def build_phase() -> None:
                 log(f"    {line.strip()}")
         for part in text.split("Compiling entry function '")[1:]:
             fn = part.split("'", 1)[0]
+            reg = re.search(r"Used (\d+) registers", part)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+            usage = (f"registers {reg.group(1) if reg else '?'}, spill stores / loads "
+                     f"{spill.group(1) + ' / ' + spill.group(2) if spill else '?'} bytes")
+            if "ssd_tc_kernelI" in fn:
+                n = re.search(r"Li(\d+)E", fn.split("ssd_tc_kernelI", 1)[1]).group(1)
+                log(f"    K4 tensor-core body, bf16, P 64, N {n}: {usage}")
+                continue
             if "attn_tc_kernelI" in fn:
                 args = fn.split("attn_tc_kernelI", 1)[1]
                 walk = next((k for w, k in TC_WALKS.items() if w in args), "?")
@@ -1529,11 +1584,7 @@ def build_phase() -> None:
                 continue
             kv = next((n for m, n in TC_KV_TYPES if args.startswith(m)), args[:24])
             d = re.search(r"Li(\d+)E", args).group(1)
-            reg = re.search(r"Used (\d+) registers", part)
-            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
-            log(f"    {what}, {kv} K/V, D {d}: registers "
-                f"{reg.group(1) if reg else '?'}, spill stores / loads "
-                f"{spill.group(1) + ' / ' + spill.group(2) if spill else '?'} bytes")
+            log(f"    {what}, {kv} K/V, D {d}: {usage}")
 
 
 # -------------------------------------------------------------------- main

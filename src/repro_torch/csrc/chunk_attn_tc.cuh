@@ -1,5 +1,6 @@
 // Tensor-core machinery of the chunk-attention kernels for Hopper (sm_90a):
-// TMA tile loads under mbarriers, wgmma products, and the online-softmax
+// TMA tile loads under mbarriers, wgmma products (their PTX, and
+// issue_scores(), in hopper_tc.cuh, shared with K4), and the online-softmax
 // tile update on wgmma fragments. chunk_attn.cu includes it; the bf16
 // bodies of K1 (chunk attention), K2 (pool attention over a slot stack)
 // and K3 (the same over pages read in place) are one kernel built from it,
@@ -47,14 +48,12 @@
 // bytes.
 #pragma once
 
-#include <cuda.h>            // CUtensorMap and its enums (header only)
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <cuda_fp8.h>
-#include <stdint.h>
 
-// Internal linkage (an unnamed namespace around tc): the libraries built
-// from chunk_attn.cu share no symbol, so no static of one is another's.
+#include "hopper_tc.cuh"     // mbarriers, TMA, wgmma, descriptors, encoder
+
+// Internal linkage, as in hopper_tc.cuh: the libraries built from
+// chunk_attn.cu share no symbol, so no static of one is another's.
 namespace {
 namespace tc {
 
@@ -62,202 +61,13 @@ constexpr int BQ = 64;               // query rows of one unit: one consumer war
 constexpr int BK = 64;               // keys per tile
 constexpr int STAGES = 2;            // K/V ring depth (per consumer warpgroup)
 constexpr int QBUFS = 3;             // Q tiles in flight (per consumer warpgroup)
-constexpr int WG = 128;              // threads of a warpgroup
 constexpr int NCONSUMER = 2 * WG;    // two consumer warpgroups
 constexpr int NTHREADS = NCONSUMER + WG;   // + a producer warpgroup
 // setmaxnreg: the producer warpgroup's registers go to the consumers
 // (128 x 40 + 256 x 232 <= 65536, one block an SM)
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
-constexpr int BOX = 8192;            // one 64 x 128-byte swizzled box
 constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-
-// ------------------------------------------------------------------ PTX
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Waits until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(c4)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
-                                             int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::
-          "l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// waits until the committed stores' shared-memory sources have been read
-// (the block may then exit; the writes complete on their own)
-__device__ __forceinline__ void tma_store_wait() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-// generic-proxy writes to shared memory -> visible to wgmma / TMA reads
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// consumer warpgroup wg's own barrier (barrier 0 is __syncthreads')
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(WG) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Registers an in-flight wgmma reads or writes: no use is moved across this
-// point. Placed right after a wait, and right before the wgmma_fence of a
-// batch for every register its wgmmas read, so that no instruction that
-// defines one lands between the batch's wgmmas (ptxas would serialize).
-template <int N>
-__device__ __forceinline__ void keep(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void keep(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void keep(uint64_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+l"(r[i])::"memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (in 16-byte units), layout type 1 in bits 62-63.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-// S (+)= A·B, A and B K-major bf16 tiles in shared memory (128-byte swizzle)
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// O += A·B, A (64 x 16 bf16) from registers (a0-a3: the fragment), B an MN-major bf16 tile in shared
-// memory (128-byte swizzle, transpose bit set)
-__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56], uint32_t a0, uint32_t a1,
-                                              uint32_t a2, uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, "
-      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-// O += A·B, A (64 x 16 bf16) from registers (a0-a3: the fragment), B an MN-major bf16 tile in shared
-// memory (128-byte swizzle, transpose bit set)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0, uint32_t a1,
-                                              uint32_t a2, uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-
-// 2^x by the SFU (relative error ~2^-22; 2^(-1.4e30) is 0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 a, __nv_bfloat16 b) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(a)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(b)) << 16);
-}
 
 // ---------------------------------------------------------- tile layouts
 
@@ -476,32 +286,6 @@ struct TileState {
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   }
 };
-
-// S = Q·K^T of one 64-key tile, issued into s as one wgmma commit group:
-// D/16 k-steps over the two boxes of q [64][D] and k [64 keys][D] (s
-// needs no zeros: the first k-step's scale-d = 0 writes over it). The
-// caller waits for it.
-template <int D>
-__device__ __forceinline__ void issue_scores(float (&s)[32], const unsigned char* q,
-                                             const unsigned char* k) {
-  // every descriptor before the first wgmma: an instruction that defines a
-  // wgmma's input between two of them makes ptxas serialize the group
-  uint64_t dq[D / 16], dk[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int off = (kk >> 2) * BOX + (kk & 3) * 32;
-    dq[kk] = sw128_desc(q + off, 16, 1024);
-    dk[kk] = sw128_desc(k + off, 16, 1024);
-  }
-  keep(dq);
-  keep(dk);
-  keep(s);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(s, dq[kk], dk[kk], kk > 0);
-  wgmma_commit();
-  keep(s);
-}
 
 // The rest of the update of `st` by one 64-key tile whose scores s have
 // landed (with issue_scores, the counterpart of the reference's
@@ -1010,32 +794,6 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
 }
 
 // ------------------------------------------------------------- host side
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, fetched through the runtime so
-// that the library links no -lcuda; null if the driver has none.
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // A contiguous [B, rows, heads, D] tensor as a 4-d map {D, heads, rows, B}
 // with boxes of {cols, 1, 64, 1}; out-of-bounds elements load as zeros and

@@ -43,7 +43,7 @@ _SIGNATURES = {
     "chunk_attention_launch": [_P] * 9 + [_I] * 10 + [_F, _P],
     "pool_attention_launch": [_P] * 9 + [_I] * 11 + [_F, _P],
     "pool_attention_paged_launch": [_P] * 10 + [_I] * 13 + [_LL] * 9 + [_F, _P],
-    "ssd_launch": [_P] * 9 + [_I] * 9 + [_P],
+    "ssd_launch": [_P] * 9 + [_I] * 9 + [_LL] * 6 + [_P],
     "decode_attention_launch": [_P] * 7 + [_I] * 7 + [_F, _P],
 }
 _SSD_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -326,13 +326,36 @@ def ssd_chunk(t: int, chunk: int) -> int:
     return ck
 
 
+def ssd_strides(t: torch.Tensor) -> Tuple[int, int]:
+    """(row, position) element strides of x [R,T,H,P] or b / c [R,T,G,N] as
+    K4 reads them in place: a position's heads (groups) and the last dim
+    dense, the row and position strides whole multiples of 16 bytes and the
+    data 16-byte aligned — so the Mamba2 block's views into its conv output
+    [R, T, d_in + 2 G N] are taken as they are. Raises on another layout."""
+    _, _, a, d = t.shape
+    item = t.element_size()
+    dense = (d == 1 or t.stride(3) == 1) and (a == 1 or t.stride(2) == d)
+    if not dense or any(s * item % 16 for s in t.stride()[:2]) or t.data_ptr() % 16:
+        raise ValueError(f"K4 takes [R,T,heads,dim] views with heads and dim dense and "
+                         f"16-byte rows; got shape {tuple(t.shape)} strides {t.stride()}")
+    return t.stride(0), t.stride(1)
+
+
 def ssd(x, dt, a_log, b, c, d_skip, *, chunk: int = 128, init_state=None):
     """Mamba2 chunked SSD scan (K4). x [R,T,H,P] and b, c [R,T,G,N] in
-    bf16 or fp32 (G divides H); dt [R,T,H] fp32 (after softplus); a_log
-    and d_skip [H], or [Gs,H] for Gs equal stage groups of rows (one layer
-    per pipeline stage); init_state [R,H,P,N] fp32 or None. Runs at
+    bf16 or fp32 (G divides H), read in place at their own row and
+    position strides (``ssd_strides``); dt [R,T,H] fp32 (after softplus);
+    a_log and d_skip [H], or [Gs,H] for Gs equal stage groups of rows (one
+    layer per pipeline stage); init_state [R,H,P,N] fp32 or None. Runs at
     ``ssd_chunk(T, chunk)``. Returns (y [R,T,H,P] in x's dtype, final state
-    [R,H,P,N] fp32)."""
+    [R,H,P,N] fp32).
+
+    On the card the route is static: bf16 at (P, N) = (64, 64) or
+    (64, 128) with a chunk of 256 (every launch of the bf16 serve paths)
+    runs the tensor-core body (``ssd_tc_kernel`` in ``csrc/ssd.cu``: wgmma
+    on TMA-fed tiles, the masked half skipped, the state update split
+    hi + lo); fp32, (16, 16) and other chunks run the CUDA-core body
+    (``ssd_kernel``). Neither falls back on the other."""
     r, t, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     a2 = a_log if a_log.ndim == 2 else a_log[None]
@@ -360,12 +383,13 @@ def ssd(x, dt, a_log, b, c, d_skip, *, chunk: int = 128, init_state=None):
     if ck > _SSD_MAX_CHUNK:
         raise ValueError(f"chunk {ck} > {_SSD_MAX_CHUNK}")
     a2, d2 = a2.contiguous(), d2.contiguous()
-    _check_dense(x, dt, a2, b, c, d2, init_state)
-    y = torch.empty_like(x)
+    _check_dense(dt, a2, d2, init_state)
+    strides = [s for v in (x, b, c) for s in ssd_strides(v)]
+    y = torch.empty((r, t, h, p), device=x.device, dtype=x.dtype)
     final = torch.empty((r, h, p, n), device=x.device)
     _call("ssd", "ssd_launch", "ssd", x, _ptr(x), _ptr(dt), _ptr(a2), _ptr(b),
           _ptr(c), _ptr(d2), _ptr(init_state), _ptr(y), _ptr(final),
-          _SSD_CODES[x.dtype], r, t, h, p, g, n, ck, gs)
+          _SSD_CODES[x.dtype], r, t, h, p, g, n, ck, gs, *strides)
     return y, final
 
 

@@ -103,10 +103,10 @@ def ssd_chunked(x, dt, a_log, b, c, d_skip, *, chunk: int,
 def _ssd_cuda(x, dt, a_log, b, c, d_skip, *, chunk: int,
               init_state: Optional[torch.Tensor] = None):
     """Kernel K4 behind the ``ssm_backend`` knob (``ops.ssd``, looked up at
-    call time); same signature and semantics as ``ssd_chunked``. The
-    projections hand over strided views, the kernel takes dense rows."""
-    return ops.ssd(x.contiguous(), dt.contiguous(), a_log, b.contiguous(),
-                   c.contiguous(), d_skip, chunk=chunk,
+    call time); same signature and semantics as ``ssd_chunked``. x, b and c
+    are the block's views into its conv output, which K4 reads in place
+    (``ops.ssd_strides``)."""
+    return ops.ssd(x, dt.contiguous(), a_log, b, c, d_skip, chunk=chunk,
                    init_state=None if init_state is None else init_state.contiguous())
 
 

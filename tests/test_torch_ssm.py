@@ -3,14 +3,17 @@ same numpy inputs: the plain version of the SSD scan K4
 (``repro_torch.kernels.ref.ssd_plain``, which ``kernels.ops.ssd`` takes on
 the CPU) against the reference Pallas kernel in interpret mode
 (``repro.kernels.ops.ssd``), the sequential oracle ``ref.ssd_ref`` and the
-chunked ``models.ssm.ssd_chunked``; the port's own ``ssd_chunked``; the
-causal conv, the block with and without carried state, whole-model
+chunked ``models.ssm.ssd_chunked``; the port's own ``ssd_chunked``; K4's
+tensor-core tile algorithm emulated on the CPU against ``ssd_plain`` and
+the Pallas kernel; strided views of the conv output through ``ops.ssd``;
+the causal conv, the block with and without carried state, whole-model
 forwards of the smoke mamba2-130m and zamba2-7b, and the bridge's fp32
 leaves.
 
 Tolerances: the SSD outputs y and the final state each within 1e-5 of their
-own max|ref| (fp32; the gap is summation order); blocks 1e-5 likewise;
-forwards max rel < 2e-3 (denominator floor 1e-3), the bound of
+own max|ref| (fp32; the gap is summation order); the tile algorithm's state
+within 1e-5 and its y (bf16 operands on the y side) within 5e-3; blocks
+1e-5; forwards max rel < 2e-3 (denominator floor 1e-3), the bound of
 ``tests/helpers/pipeline_check.py``."""
 import jax
 import jax.numpy as jnp
@@ -27,6 +30,7 @@ from repro.models.api import build_model
 from repro_torch import bridge
 from repro_torch.configs import get_smoke_config, replace
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as port_ref
 from repro_torch.models import hybrid as HY
 from repro_torch.models import ssm as S
 
@@ -141,6 +145,179 @@ def test_ssd_refuses_bad_shapes():
         ops.ssd(T_(x), T_(dt), T_(a), T_(b), T_(c), T_(d), chunk=16)
     with pytest.raises(ValueError):
         ops.ssd(T_(x), T_(dt[:, :8]), T_(a[0]), T_(b), T_(c), T_(d[0]), chunk=16)
+
+
+# ------------------------------------------ K4's tensor-core tile algorithm
+
+LOG2E = 1.4426950408889634
+TC_CHUNK, TC_TILE = 256, 64
+
+
+def _bf16(t):
+    return t.bfloat16().float()
+
+
+def _warp_scan(v):
+    """Inclusive scan of v [..., 256] in ``ssd_tc_kernel``'s order: by
+    shuffles (Hillis-Steele) within each warp of 32 positions, then the warp
+    totals added in order. Returns (the scan, the chunk's total)."""
+    w = v.reshape(*v.shape[:-1], TC_CHUNK // 32, 32)
+    for off in (1, 2, 4, 8, 16):
+        w = torch.cat([w[..., :off], w[..., off:] + w[..., :-off]], dim=-1)
+    tot, pre = torch.zeros_like(w[..., 0, 0]), []
+    for k in range(TC_CHUNK // 32):
+        pre.append(tot)
+        tot = tot + w[..., k, 31]
+    return (w + torch.stack(pre, -1)[..., None]).reshape(v.shape), tot
+
+
+def _tile_emulation(x, dt, a_log, b, c, d_skip, init_state=None, *, split=True):
+    """K4's tensor-core body (``ssd_tc_kernel`` in ``csrc/ssd.cu``) on the
+    CPU, in its order and with its bf16 roundings. Per chunk of 256: cs =
+    the warp-shuffle scan of dt A in log2 units; per 64-row query tile i,
+    Y = 2^cs_i C_i.bf16(S)^T + d x_i, then for each key tile j <= i (10 of
+    the 16 pairs) the scores C_i.B_j^T, masked (j > i, diagonal tile) before
+    the exponential, P = bf16(scores 2^(cs_i - cs_j) dt_j), Y += P.x_j;
+    then S = S 2^cs_last + x^T.(hi + lo), hi = bf16(w o B), lo = bf16(w o B
+    - hi), w = 2^(cs_last - cs) dt (``split=False``: x^T.hi, one bf16
+    rounding). x, b and c hold bf16 values. Returns (y [R,T,H,P] fp32, the
+    accumulator the kernel rounds to bf16 as it stores it; the state
+    [R,H,P,N] fp32)."""
+    r, t, h, p = x.shape
+    g, n = b.shape[2:]
+    a2 = -torch.exp(port_ref.per_row(a_log, r)) * LOG2E          # [R,H]
+    dsk = port_ref.per_row(d_skip, r)[:, :, None, None]
+    st = torch.zeros((r, h, p, n)) if init_state is None else init_state.clone()
+    xs = x.permute(0, 2, 1, 3)                                   # [R,H,T,P]
+    bs = b.repeat_interleave(h // g, 2).permute(0, 2, 1, 3)      # [R,H,T,N]
+    cs_ = c.repeat_interleave(h // g, 2).permute(0, 2, 1, 3)
+    dts = dt.permute(0, 2, 1)                                    # [R,H,T]
+    tri = torch.ones((TC_TILE, TC_TILE), dtype=torch.bool).tril()
+    tiles = lambda c0, i: slice(c0 + TC_TILE * i, c0 + TC_TILE * (i + 1))   # noqa: E731
+    ys = []
+    for c0 in range(0, t, TC_CHUNK):
+        d = dts[..., c0:c0 + TC_CHUNK]
+        cs, last = _warp_scan(d * a2[..., None])
+        loc = lambda i: slice(TC_TILE * i, TC_TILE * (i + 1))   # noqa: E731
+        sbf = _bf16(st)
+        yc = []
+        for i in range(TC_CHUNK // TC_TILE):
+            ci, csi = cs_[:, :, tiles(c0, i)], cs[..., loc(i)]
+            y = (ci @ sbf.transpose(-1, -2)) * torch.exp2(csi)[..., None] \
+                + dsk * xs[:, :, tiles(c0, i)]
+            for j in range(i + 1):
+                s = ci @ bs[:, :, tiles(c0, j)].transpose(-1, -2)
+                dl = csi[..., :, None] - cs[..., None, loc(j)]
+                if j == i:
+                    dl = dl.masked_fill(~tri, float("-inf"))
+                pm = _bf16(s * torch.exp2(dl) * d[..., None, loc(j)])
+                y = y + pm @ xs[:, :, tiles(c0, j)]
+            yc.append(y)
+        ys.append(torch.cat(yc, 2))
+        wb = (torch.exp2(last[..., None] - cs) * d)[..., None] * bs[:, :, c0:c0 + TC_CHUNK]
+        hi = _bf16(wb)
+        xt = xs[:, :, c0:c0 + TC_CHUNK].transpose(-1, -2)
+        upd = xt @ hi + xt @ _bf16(wb - hi) if split else xt @ hi
+        st = st * torch.exp2(last)[..., None, None] + upd
+    return torch.cat(ys, 2).permute(0, 2, 1, 3), st
+
+
+def _serve_inputs(r, t, h, p, g, n, init, seed=0):
+    """SSD inputs with the serve path's distributions (``chip_smoke.
+    ssd_inputs``), made with numpy: dt log-uniform in [1e-3, 1e-1] per head
+    times a log-normal factor, a_log = log(1..H) + noise, d_skip near 1, x,
+    B and C unit normal rounded to bf16, init_state 0.1 x normal."""
+    rng = np.random.default_rng(seed)
+    u = rng.random(h)
+    dt_head = np.exp(u * (np.log(0.1) - np.log(1e-3)) + np.log(1e-3))
+    dt = dt_head * np.exp(0.5 * rng.standard_normal((r, t, h)))
+    a_log = np.log(np.arange(1, h + 1)) + 0.1 * rng.standard_normal(h)
+    d_skip = 1.0 + 0.1 * rng.standard_normal(h)
+    x = rng.standard_normal((r, t, h, p))
+    b, c = rng.standard_normal((r, t, g, n)), rng.standard_normal((r, t, g, n))
+    st0 = 0.1 * rng.standard_normal((r, h, p, n)) if init else None
+    f32 = lambda a: None if a is None else torch.from_numpy(np.asarray(a, np.float32))  # noqa
+    return (_bf16(f32(x)), f32(dt), f32(a_log), _bf16(f32(b)), _bf16(f32(c)),
+            f32(d_skip), f32(st0))
+
+
+# (P, N): zamba2-7b's and mamba2-130m's heads; 4 heads, 2 rows, two chunks;
+# with and without init_state, G = 1 as at both serve shapes and G = 2; and
+# without the hi / lo split, which must miss the card's 1e-3 state check
+TC_CASES = [(p, n, 1, init, True) for p, n in ((64, 64), (64, 128)) for init in (False, True)] \
+    + [(64, 64, 2, True, True), (64, 64, 1, True, False), (64, 128, 1, False, False)]
+
+
+@pytest.mark.parametrize("p,n,g,init,split", TC_CASES)
+def test_k4_tile_algorithm_matches_plain(p, n, g, init, split):
+    """K4's tensor-core tile algorithm against ``ssd_plain`` on the same
+    bf16-valued inputs: the state within 1e-5 of max|state| (100x inside
+    the card's 1e-3 check) and y within 5e-3 of max|y| (4x inside its
+    2e-2). Without the hi / lo split of w o B the state is off by more than
+    1e-3 of max|state|: the split is what keeps K4 inside the check."""
+    *args, st0 = _serve_inputs(2, 2 * TC_CHUNK, 4, p, g, n, init)
+    y, st = _tile_emulation(*args, init_state=st0, split=split)
+    y_want, st_want = port_ref.ssd_plain(*args, chunk=TC_CHUNK, init_state=st0)
+    st_err = (st - st_want).abs().max().item() / st_want.abs().max().item()
+    if not split:
+        assert st_err > 1e-3, st_err
+        return
+    assert st_err <= 1e-5, st_err
+    assert (y - y_want).abs().max().item() <= 5e-3 * y_want.abs().max().item()
+
+
+def test_k4_tile_algorithm_matches_pallas():
+    """The same emulation against the reference Pallas SSD kernel
+    (interpret mode) at a small size: one row, two heads, two chunks of
+    256, zamba2-7b's head (P 64, N 64), an init_state."""
+    *args, st0 = _serve_inputs(1, 2 * TC_CHUNK, 2, 64, 1, 64, True, seed=1)
+    got = _tile_emulation(*args, init_state=st0)
+    want = ref_ops.ssd(*(jnp.asarray(v.numpy()) for v in args), chunk=TC_CHUNK,
+                       init_state=jnp.asarray(st0.numpy()))
+    for g, w, rel in zip(got, want, (5e-3, 1e-5)):
+        w = np.asarray(w, np.float32)
+        assert np.abs(g.numpy() - w).max() <= rel * np.abs(w).max()
+
+
+def _conv_views(r, t, h, p, g, n, dtype, seed=0):
+    """x [R,T,H,P], b and c [R,T,G,N] as the Mamba2 block hands them to
+    K4: views into one conv output [R, T, H P + 2 G N]."""
+    rng = np.random.default_rng(seed)
+    xbc = torch.from_numpy(rng.standard_normal((r, t, h * p + 2 * g * n)).astype(np.float32))
+    xbc = xbc.to(dtype)
+    x, b, c = torch.split(xbc, [h * p, g * n, g * n], dim=-1)
+    return x.view(r, t, h, p), b.view(r, t, g, n), c.view(r, t, g, n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_takes_strided_views(dtype):
+    """``ops.ssd`` on the conv output's strided views equals it on dense
+    copies, and ``ops.ssd_strides`` takes those views as they are (the
+    strides K4 reads them at on the card)."""
+    r, t, h, p, g, n = 2, 64, 4, 16, 1, 16
+    x, b, c = _conv_views(r, t, h, p, g, n, dtype)
+    assert not x.is_contiguous() and not b.is_contiguous()
+    _, dt, _, _, _ = _inputs(r, t, h, p, g, n, seed=4)
+    a, d = _heads(h)
+    a, d = T_(a[0]), T_(d[0])
+    got = ops.ssd(x, T_(dt), a, b, c, d, chunk=32)
+    want = ops.ssd(x.contiguous(), T_(dt), a, b.contiguous(), c.contiguous(), d, chunk=32)
+    for gv, wv in zip(got, want):
+        assert torch.equal(gv, wv)
+    conv = h * p + 2 * g * n
+    assert ops.ssd_strides(x) == (t * conv, conv)
+    assert ops.ssd_strides(c) == (t * conv, conv)
+
+
+def test_ssd_strides_refuses_other_layouts():
+    """K4 takes a position's heads and the last dim dense and 16-byte rows;
+    a transposed view, a strided last dim or an odd position stride raise."""
+    x = torch.zeros((2, 8, 4, 16), dtype=torch.bfloat16)
+    assert ops.ssd_strides(x) == (8 * 64, 64)
+    odd_rows = torch.zeros((2, 8, 68), dtype=torch.bfloat16)[..., :64].view(2, 8, 4, 16)
+    for bad in (x.transpose(2, 3), x[..., ::2], odd_rows):
+        with pytest.raises(ValueError):
+            ops.ssd_strides(bad)
 
 
 # ------------------------------------------------------------ the block
