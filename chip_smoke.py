@@ -32,6 +32,11 @@ prints no result line):
      K3 case has an all-invalid group, which must come out exactly (-1e30,
      0, 0); K1's, K2's and K3's bf16 times are also read from a
      torch.profiler trace and from windows of back-to-back calls;
+   - K1 at the GPipe baseline's shape: 8 rows of a whole 4096-token
+     sequence against itself (C = T = 4096, causal offset 0), qwen3-8b's
+     heads, bf16, held against the plain version on 2 rows, each query row
+     at its own scale, which two planted K1 faults must break, and timed
+     beside SDPA's causal time (``k1_gpipe_shape``);
    - K4 the Mamba2 SSD scan at zamba2-7b's and mamba2-130m's shapes in
      bf16 and fp32, with a non-zero init_state, one a_log / d_skip row per
      stage (Gs = 8), x, b and c dense and as strided views of one
@@ -74,7 +79,16 @@ prints no result line):
    long-context decode in bf16 (qwen3-8b, zamba2-7b): 4 rows at ragged
    positions in a 32768-token cache, 16 steps with K5, with its plain
    version, and with every K5 launch held against the plain version, which
-   both planted faults must break by 10x (see ``decode_phase``).
+   both planted faults must break by 10x (see ``decode_phase``);
+7. baselines + continuous: qwen3-8b at full width and depth in bf16, the
+   same 8 requests through MOCAP and terapipe (``PrefillEngine``), the GPipe
+   baseline (``build_plan(mode="gpipe")``, M = 8, through
+   ``prefill_pipeline``; K1 exactly layers_per_stage x (M + N - 1) times)
+   and ``ContinuousEngine`` (EDF, an SLO, Poisson arrivals, waves of 2;
+   K1 and K2): logits against MOCAP's (GPipe's argmax held where MOCAP's
+   top-2 margin is above the measured bf16 spread), planted K1 faults, the waves in
+   admission order, the four paths' wall times; then GPipe in fp32 against
+   the ``torch`` backends (see ``baselines_phase``).
 
 Then one JSON line of per-kernel numbers and, last, the result line.
 """
@@ -110,6 +124,9 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 # serve-phase geometry; the kernel phases use the same shapes
 N_STAGES, N_CHUNKS, CHUNK, BATCH, REQUESTS = 8, 8, 512, 2, 4
 RAGGED_CHUNK = 500                 # K1's ragged query edge (not a multiple of 64)
+# the baselines phase: 8 requests; GPipe over M = 8 microbatches of bm rows,
+# K1 held against its plain version on GP_HELD rows of a tick's launch
+GP_REQUESTS, GP_BM, GP_HELD = 8, 1, 2
 K1_KINDS = ("int8", "fp8")         # K1's quantized pages, at every head dim
 
 
@@ -765,8 +782,84 @@ def decode_kernel_phase(results: dict) -> None:
     results["decode_attention"]["max_abs_err"] = err
 
 
+def row_errors(got, want) -> tuple:
+    """Each query row's (row, position, head) largest error over the head
+    dim, as a fraction of that row's own max|ref|, and held at compare's
+    bf16 limit: (the worst such fraction over its limit, the largest
+    absolute error). A row that averages over thousands of keys is some
+    50x smaller than the first rows (whose output is v0), so a limit on
+    max|ref| over the whole output would not see an error there."""
+    g, r = got.float(), want.float()
+    err = (g - r).abs().amax(-1)
+    scale = r.abs().amax(-1).clamp(min=1e-30)
+    return (err / scale).max().item() / tolerance(want.dtype, "bfloat16"), err.max().item()
+
+
+def k1_gpipe_shape(results: dict) -> None:
+    """K1 at the GPipe baseline's shape: one launch a (layer, tick) over the
+    N x bm = 8 rows of a tick, each a whole 4096-token sequence against
+    itself (C = T = 4096, causal offset 0), qwen3-8b's heads, bf16, as
+    ``core.gpipe`` calls it (no state). The plain version materializes
+    [rows, H, 4096, 4096] fp32 scores, so the kernel's first GP_HELD rows
+    are held against it on those rows alone, each query row at its own
+    scale (``row_errors``); each planted K1 fault (``k1_faults``), run on
+    the kernel, must break that limit. Times: ``time_ms``,
+    ``windowed_ms``, ``profiled_ms`` of the 8-row launch, SDPA's causal
+    time at the same shape, the plain version's on the held rows; recorded
+    under ``results["chunk_attention"]["gpipe_shape"]``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows, s, h, kvh, d = N_STAGES * GP_BM, N_CHUNKS * CHUNK, 32, 8, 128
+    log(f"[kernels] K1 chunk_attention at gpipe's shape  q [{rows},{s},{h},{d}], "
+        f"k/v [{rows},{s},{kvh},{d}] bf16, causal offset 0")
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+               for shape in ((rows, s, h, d), (rows, s, kvh, d), (rows, s, kvh, d)))
+    got = ops.chunk_attention(q, k, v, causal_offset=0)
+    held = (q[:GP_HELD], k[:GP_HELD], v[:GP_HELD])
+    want = ref.chunk_attention_plain(*held, causal_offset=0)[0]
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "K1 at gpipe's shape: non-finite output")
+    worst, err = row_errors(got[:GP_HELD], want)
+    log(f"  gpipe shape, rows 0-{GP_HELD - 1} of {rows} out: max abs err {err:.3e}; worst "
+        f"query row {worst:.3f} of its limit ({tolerance(want.dtype, 'bfloat16'):.0e} "
+        f"of the row's max|ref|)")
+    check(worst <= 1.0, f"K1 at gpipe's shape: a query row off by {worst} of its limit")
+    for fault, fn in k1_faults(ops.chunk_attention).items():
+        bad, _ = row_errors(fn(*held, causal_offset=0), want)
+        log(f"  planted fault on the kernel: {fault}: worst query row {bad:.3f} of its limit")
+        check(bad > 1.0, f"K1 at gpipe's shape: planted fault '{fault}' passes ({bad})")
+    del want
+    torch.cuda.empty_cache()
+    call = lambda: ops.chunk_attention(q, k, v, causal_offset=0)
+    ms, win_ms = time_ms(call), windowed_ms(call)
+    prof_ms, seen = profiled_ms(call, "ChunkWalk", calls=10)
+    plain = time_ms(lambda: ref.chunk_attention_plain(*held, causal_offset=0), iters=4,
+                    warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                         enable_gqa=True))
+    pairs = rows * h * s * (s + 1) / 2
+    b_ms, by = bound_ms(nbytes(q, k, v, got), 4.0 * d * pairs, "bfloat16")
+    k1 = results["chunk_attention"]
+    k1["gpipe_shape"] = dict(rows=rows, seq=s, ms=ms, windowed_ms=win_ms,
+                             profiler_ms=prof_ms, plain_ms=plain, plain_rows=GP_HELD,
+                             library_ms=lib, bound_ms=b_ms, bound_by=by)
+    k1["max_abs_err"] = max(k1.get("max_abs_err", 0.0), err)
+    log(f"  torch.profiler: attn_tc_kernel<ChunkWalk> {seen} launches, "
+        + (f"{prof_ms:.4f} ms device time each" if seen else "no device time seen"))
+    log(f"  time: kernel {ms:.4f} ms ({win_ms:.4f} ms a call in windows), plain "
+        f"{plain:.4f} ms on {GP_HELD} rows, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({by})")
+    del q, k, v, qt, kt, vt, got, held
+    torch.cuda.empty_cache()
+
+
 def kernel_phase(results: dict) -> None:
     attention_phase(results, h=32, kvh=8, d=128, full=True)     # qwen3-8b
+    k1_gpipe_shape(results)
     attention_phase(results, h=32, kvh=32, d=112, full=False)   # zamba2-7b
     ssd_phase(results)
     decode_kernel_phase(results)
@@ -1017,8 +1110,9 @@ def wave_split(arch: str, staged=None,
 
     def wave() -> float:
         ex = TorchExecutor(cfg, staged, run, device="cuda")
-        eng = PrefillEngine(EngineConfig(model=cfg, num_stages=N_STAGES, num_chunks=N_CHUNKS,
-                                         max_batch=BATCH, buckets=(seq,)), ex)
+        eng = PrefillEngine(EngineConfig(model=cfg, num_stages=N_STAGES, tp=1,
+                                         num_chunks=N_CHUNKS, max_batch=BATCH,
+                                         buckets=(seq,), partition="uniform"), ex)
         for r in make_requests(BATCH, seq, cfg.vocab_size, seed=0):
             eng.submit(r)
         eng.run_until_drained()
@@ -1143,9 +1237,9 @@ def serve_model(arch: str, results: dict) -> None:
                         attn_backend=attn, pool_backend=pool, kv_dtype=kv,
                         ssm_backend=ssm)
         ex = TorchExecutor(model_cfg, staged, run, device="cuda")
-        eng = PrefillEngine(EngineConfig(model=model_cfg, num_stages=N_STAGES,
+        eng = PrefillEngine(EngineConfig(model=model_cfg, num_stages=N_STAGES, tp=1,
                                          num_chunks=N_CHUNKS, max_batch=BATCH,
-                                         buckets=(seq,)), ex)
+                                         buckets=(seq,), partition="uniform"), ex)
         for r in make_requests(REQUESTS, seq, model_cfg.vocab_size, seed=0):
             eng.submit(r)
         eng.run_until_drained()
@@ -1273,6 +1367,222 @@ def serve_phase(results: dict) -> None:
         t0 = time.perf_counter()
         serve_model(arch, results)
         log(f"[serve] {arch} {time.perf_counter() - t0:.1f} s")
+
+
+# ------------------------------------------------ baselines + continuous
+
+GP_ARRIVAL_RATE, GP_SLO_MS = 2.0, 4000.0
+
+
+def k1_faults(real):
+    """Wrong versions of ``ops.chunk_attention`` (K1) for the GPipe check:
+    a causal block that lets every query see every key, and one that drops
+    the last 64-key tile of the sequence."""
+    def sees_the_future(q, k, v, *, causal_offset=0, **kw):
+        return real(q, k, v, causal_offset=k.shape[1], **kw)
+
+    def last_tile_dropped(q, k, v, **kw):
+        return real(q, k, v, kv_len=k.shape[1] - 64, **kw)
+
+    return {"K1 lets every query see every key": sees_the_future,
+            "K1 drops the last 64-key tile": last_tile_dropped}
+
+
+def baselines_phase(results: dict) -> None:
+    """qwen3-8b at full width and depth (36 layers), bf16, N = 8 stages,
+    S = 4096, random weights from seed 0, the same GP_REQUESTS requests
+    through four paths of the port:
+
+    - MOCAP (``PrefillEngine`` + ``TorchExecutor``, qship/cuda, waves of
+      2) and terapipe (the same without MBKR): the reference logits;
+    - GPipe (``build_plan(mode="gpipe")``, M = 8 microbatches) through
+      ``prefill_pipeline`` in one call, its path: the launch counters are
+      set to 0 just before and read just after, and K1 must have launched
+      exactly layers_per_stage x (M + N - 1) times and nothing else; its
+      logits are held against MOCAP's at the bf16 serve limit
+      (BF16_LOGIT_TOL, fraction of max|logit|), and each planted K1 fault
+      (``k1_faults``) must break that limit. The argmax must equal MOCAP's
+      for every request whose MOCAP top-2 margin (a fraction of max|logit|)
+      is above the spread of two bf16 summation orders, measured in the
+      same run as terapipe's logits against MOCAP's; the argmax of a
+      request with a smaller margin may flip under any summation order
+      (terapipe's does too) and is reported, not held;
+    - ``ContinuousEngine`` + ``TorchExecutor`` (EDF, an SLO, Poisson
+      arrivals, ``max_batch`` 2, qship/cuda), its path with K1 and K2
+      launched: every request answered, its logits against MOCAP's at the
+      same limit with argmax equal, the waves in the scheduler's admission
+      order, two to a wave;
+
+    and the wall time of each path on the same requests beside the card's
+    clocks (recorded, not held: on one card the stage axis is a batch, not
+    a pipeline of chips). The scheduler's TTFT is the analytic model's and
+    is printed under its profile's name. Then fp32 at full depth, where
+    summation order moves the logits by ~1e-5 of max|logit|: GPipe on K1
+    against MOCAP on the ``torch`` backends, every request's argmax equal
+    and the logits within FP32_LOGIT_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import RunConfig, get_config, replace
+    from repro_torch.core import pipeline as pp
+    from repro_torch.core.staging import init_staged
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_requests, measured_completions
+    from repro_torch.runtime.engine import (ContinuousEngine, EngineConfig,
+                                            PrefillEngine, TorchExecutor)
+
+    arch = "qwen3-8b"
+    seq, n, m = N_CHUNKS * CHUNK, N_STAGES, N_CHUNKS
+    failures = []
+
+    def runs(model_cfg, **kw):
+        return {mode: RunConfig(num_chunks=m, num_stages=n, mbkr=mode == "mocap",
+                                remote_attn="qship", **kw)
+                for mode in ("mocap", "terapipe")}
+
+    def engine_run(model_cfg, staged, run, scheduler="batch"):
+        ex = TorchExecutor(model_cfg, staged, run, device="cuda")
+        ec = EngineConfig(model=model_cfg, num_stages=n, tp=1, num_chunks=m,
+                          max_batch=BATCH, buckets=(seq,), partition="uniform",
+                          policy="edf", slo=GP_SLO_MS / 1e3)
+        eng = (ContinuousEngine if scheduler == "continuous" else PrefillEngine)(ec, ex)
+        rate = GP_ARRIVAL_RATE if scheduler == "continuous" else 0.0
+        for r in make_requests(GP_REQUESTS, seq, model_cfg.vocab_size, seed=0,
+                               arrival_rate=rate):
+            eng.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        done = sorted(eng.done, key=lambda r: r.rid)
+        check(len(done) == GP_REQUESTS, f"{scheduler} engine: {len(done)} answered")
+        logits = np.stack([r.result for r in done])
+        check(bool(np.isfinite(logits).all()), f"{scheduler} engine: non-finite logits")
+        return logits, wall, eng, ex
+
+    def gpipe(model_cfg, staged, attn="cuda"):
+        run = RunConfig(num_chunks=GP_REQUESTS // GP_BM, num_stages=n, attn_backend=attn)
+        plan = pp.build_plan(model_cfg, n, seq, run, mode="gpipe")
+        toks = np.stack([r.tokens for r in make_requests(
+            GP_REQUESTS, seq, model_cfg.vocab_size, seed=0)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pp.prefill_pipeline(model_cfg, staged, toks, plan, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        logits = out.cpu().numpy()
+        check(bool(np.isfinite(logits).all()), "gpipe: non-finite logits")
+        return logits, wall, plan
+
+    def against(got, want, what: str):
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        equal = got.argmax(-1) == want.argmax(-1)
+        log(f"    {what}: max abs err {err:.3e} of max|logit|, argmax equal "
+            f"{int(equal.sum())}/{len(want)}, differs for requests "
+            f"{np.flatnonzero(~equal).tolist()}")
+        return err, int(equal.sum()), equal
+
+    cfg = get_config(arch)
+    mocap_plan = pp.build_plan(cfg, n, seq, runs(cfg)["mocap"])
+    lps = mocap_plan.layers_per_stage
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    staged = init_staged(cfg, mocap_plan, gen, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[baselines + continuous] {arch} bf16, {cfg.num_layers} layers (lps {lps}), "
+        f"N={n}, S={seq}, {GP_REQUESTS} requests; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of weights on the card")
+    walls = {}
+    cuda_runs = runs(cfg, attn_backend="cuda", pool_backend="cuda")
+    mocap, walls["mocap"], _, ex = engine_run(cfg, staged, cuda_runs["mocap"])
+    log(f"  mocap (PrefillEngine, {len(ex.waves)} waves of {BATCH}): wave wall s "
+        f"{[round(w['dur'], 4) for w in ex.waves]}; card: {card_clocks()}")
+    tera, walls["terapipe"], _, ex = engine_run(cfg, staged, cuda_runs["terapipe"])
+    log(f"  terapipe (PrefillEngine, {len(ex.waves)} waves of {BATCH}): wave wall s "
+        f"{[round(w['dur'], 4) for w in ex.waves]}; card: {card_clocks()}")
+    top2 = np.sort(mocap, axis=-1)[:, -2:]
+    margin = (top2[:, 1] - top2[:, 0]) / np.abs(mocap).max()
+    spread, _, _ = against(tera, mocap, "terapipe vs mocap")
+    wide = margin > spread
+    log(f"    MOCAP's top-2 margins of max|logit|: {[round(float(x), 5) for x in margin]}; "
+        f"above the bf16 spread {spread:.3e}: requests {np.flatnonzero(wide).tolist()}")
+
+    # ---- GPipe, its path: K1 alone, exactly lps x (M + N - 1) launches
+    ops.reset_launches()
+    gp, wall_first, gplan = gpipe(cfg, staged)
+    launches = dict(ops.LAUNCHES)
+    want_k1 = lps * gplan.num_ticks
+    log(f"  gpipe (M={gplan.num_chunks} microbatches of {GP_BM}, {gplan.num_ticks} "
+        f"ticks): launches {launches} (K1 expected {lps} x {gplan.num_ticks} = {want_k1}); "
+        f"first call {wall_first:.4f} s")
+    check(launches["chunk_attention"] == want_k1 and
+          sum(launches.values()) == want_k1,
+          f"gpipe path: launches {launches}, K1 expected exactly {want_k1}")
+    results["chunk_attention"].setdefault("launches_by_path", {})["gpipe"] = want_k1
+    err, _, equal = against(gp, mocap, "gpipe vs mocap")
+    if err > BF16_LOGIT_TOL[arch] or not equal[wide].all():
+        failures.append(f"gpipe bf16: logits err {err}, argmax differs for requests "
+                        f"{np.flatnonzero(wide & ~equal).tolist()} of margin above "
+                        f"the spread {spread}")
+    for fault, fn in k1_faults(ops.chunk_attention).items():
+        with swapped(ops, "chunk_attention", fn):
+            bad, _, _ = gpipe(cfg, staged)
+        log(f"  planted fault: {fault}")
+        f_err, _, _ = against(bad, mocap, "gpipe vs mocap")
+        if f_err <= BF16_LOGIT_TOL[arch]:
+            failures.append(f"gpipe bf16: planted fault '{fault}' passes ({f_err})")
+    _, walls["gpipe"], _ = gpipe(cfg, staged)
+
+    # ---- ContinuousEngine + TorchExecutor, its path: K1 and K2
+    ops.reset_launches()
+    cont, walls["continuous"], eng, ex = engine_run(cfg, staged, cuda_runs["mocap"],
+                                                    scheduler="continuous")
+    launches = dict(ops.LAUNCHES)
+    log(f"  continuous (EDF, SLO {GP_SLO_MS:.0f} ms, Poisson {GP_ARRIVAL_RATE} req/s, "
+        f"max_batch {BATCH}): launches {launches}")
+    for name in ("chunk_attention", "pool_attention"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the continuous path")
+        results[name].setdefault("launches_by_path", {})["continuous"] = launches[name]
+    order = [r.rid for r in eng.done]
+    waves = [w["rids"] for w in ex.waves]
+    check(sum(waves, []) == order and all(len(w) <= BATCH for w in waves),
+          f"continuous: waves {waves} do not follow the admission order {order}")
+    met = eng.metrics()
+    done_at = measured_completions(ex.waves)
+    log(f"    admission order {order}, waves {waves}, wave wall s "
+        f"{[round(w['dur'], 4) for w in ex.waves]}; measured completion s "
+        f"{[round(done_at[r], 4) for r in order]}")
+    log(f"    analytic ({eng.ec.hw.name}): sched clock {met['makespan']:.4f} s, avg TTFT "
+        f"{met['avg_ttft']:.4f} s, p99 TTFT {met['p99_ttft']:.4f} s, SLO "
+        f"{met['slo_met']}/{met['slo_total']}, completed {met['completed']}, "
+        f"rejected {met['rejected']}")
+    check(met["completed"] == GP_REQUESTS and met["rejected"] == 0,
+          f"continuous: {met['completed']} completed, {met['rejected']} rejected")
+    err, same, _ = against(cont, mocap, "continuous vs mocap")
+    if err > BF16_LOGIT_TOL[arch] or same != GP_REQUESTS:
+        failures.append(f"continuous bf16: logits err {err}, argmax equal {same}")
+    log(f"  wall s of the same {GP_REQUESTS} requests on this card: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in walls.items())
+        + f"; card after them: {card_clocks()}")
+    results["chunk_attention"].setdefault("gpipe_shape", {})["path_walls_s"] = walls
+    del staged
+    torch.cuda.empty_cache()
+
+    # ---- fp32: GPipe on K1 against MOCAP on the torch backends
+    cfg32 = replace(cfg, dtype="float32")
+    plan32 = pp.build_plan(cfg32, n, seq, runs(cfg32)["mocap"])
+    staged = init_staged(cfg32, plan32, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    want, ref32, _, _ = engine_run(cfg32, staged, runs(cfg32, attn_backend="torch",
+                                                        pool_backend="torch")["mocap"])
+    got, wall32, _ = gpipe(cfg32, staged)
+    log(f"  fp32, {cfg32.num_layers} layers: gpipe on K1 {wall32:.4f} s, mocap on the "
+        f"torch backends {ref32:.4f} s")
+    err, same, _ = against(got, want, "gpipe vs mocap (torch backends)")
+    if err >= FP32_LOGIT_TOL[arch] or same != GP_REQUESTS:
+        failures.append(f"gpipe fp32: logits err {err}, argmax equal {same}")
+    del staged
+    torch.cuda.empty_cache()
+    check(not failures, "; ".join(failures))
 
 
 # ------------------------------------------------------------------ decode
@@ -1641,6 +1951,9 @@ def main() -> int:
         t0 = time.perf_counter()
         decode_phase(results)
         log(f"[decode] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        baselines_phase(results)
+        log(f"[baselines + continuous] {time.perf_counter() - t0:.1f} s")
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -1,5 +1,6 @@
 """Model and run configs plus the arch registry (the port's own copy of the
-fields the prefill paths read; mirrors ``repro.configs.base``)."""
+fields the prefill paths and the cost model read; mirrors
+``repro.configs.base``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -65,6 +66,28 @@ class ModelConfig:
     @property
     def attn_free(self) -> bool:
         return self.family == "ssm"
+
+    def param_count(self) -> int:
+        """Analytic parameter count (the cost model's weight bytes and the
+        serving engines' KV capacity)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        attn = (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
+                + self.num_heads * hd * d + (2 * hd if self.qk_norm else 0))
+        block = attn + 3 * d * self.d_ff + 2 * d     # + SwiGLU, two norms
+        if self.family == "dense":
+            return emb + self.num_layers * block + d
+        s = self.ssm
+        d_in = s.expand * d
+        nheads = d_in // s.head_dim
+        ssm = (d * (2 * d_in + 2 * s.n_groups * s.d_state + nheads)   # in_proj
+               + s.conv_kernel * (d_in + 2 * s.n_groups * s.d_state)  # conv
+               + nheads * 2 + d_in + d_in * d + d)   # A_log, dt_bias, gate norm, out, norm
+        if self.family == "ssm":
+            return emb + self.num_layers * ssm + d
+        h = self.hybrid
+        n_ssm = h.num_groups * h.ssm_per_group + h.tail_ssm_layers
+        return emb + n_ssm * ssm + block + d
 
 
 @dataclass(frozen=True)

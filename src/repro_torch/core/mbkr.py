@@ -15,6 +15,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 
+def pair_of(stage: int, num_stages: int) -> int:
+    return (stage + num_stages // 2) % num_stages
+
+
 def peak_slots(num_chunks: int, num_stages: int, p2: int) -> int:
     """Peak (own-local + hosted) chunk slots over the steady-state cycle,
     max over both pairing directions."""

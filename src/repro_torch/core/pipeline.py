@@ -1,6 +1,6 @@
 """Chunked-pipeline prefill driver — MOCAP's execution model on one GPU
 (mirrors ``repro.core.pipeline`` for the dense, ssm and hybrid families,
-modes mocap and terapipe).
+modes mocap and terapipe; mode gpipe dispatches to ``core.gpipe``).
 
 The reference maps the N pipeline stages onto N devices in SPMD lockstep
 (``shard_map`` + ``ppermute``). Here the stage axis is the leading tensor
@@ -19,6 +19,7 @@ import torch
 from repro_torch import device as devices
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import transport as tx
+from repro_torch.core.gpipe import gpipe_prefill
 from repro_torch.core.plan import PipelinePlan, build_plan  # noqa: F401
 from repro_torch.core.stagestep import (StageCtx, hybrid_stage_step,
                                        ssm_stage_step, tfm_stage_step)
@@ -37,9 +38,14 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
     ``staged`` is ``stage_params`` output on ``device`` (default the card;
     ``device="cpu"`` runs on the CPU). ``return_ledger`` also returns the
     CollectiveLedger: per-category wire bytes summed over stages, as the
-    reference's ``return_ledger`` does."""
+    reference's ``return_ledger`` does. A ``gpipe`` plan runs the
+    microbatch baseline (``core.gpipe``, dense only), which has no ledger."""
+    if plan.mode == "gpipe":
+        if return_ledger:
+            raise ValueError("gpipe has no MBKR transport ledger")
+        return gpipe_prefill(cfg, staged, tokens, plan, device=device)
     if plan.mode not in ("mocap", "terapipe"):
-        raise ValueError(f"mode {plan.mode!r} is not ported")
+        raise ValueError(f"unknown mode {plan.mode!r}")
     dev = devices.resolve(device)
     if staged["embed"].device.type != dev.type:
         raise ValueError(f"params on {staged['embed'].device}, run on {dev}")

@@ -1,5 +1,5 @@
 """Static pipeline planning: everything decided before the tick loop runs
-(mirrors ``repro.core.plan``; the TP lowering knob is dropped — this slice
+(mirrors ``repro.core.plan``; the TP lowering knob is dropped — the port
 runs tp = 1).
 
 A ``PipelinePlan`` pins the pipeline geometry (N stages x M chunks x C
@@ -7,7 +7,9 @@ tokens), the MBKR slot plan and its static numpy lookup tables, the KV page
 layout, and the policy knobs every lower layer reads: ``remote_attn``
 (fetch | qship), ``attn_backend`` (torch | cuda) and ``pool_backend``
 (torch | cuda | paged) and ``ssm_backend`` (torch | cuda, the SSD inner
-loop of the ssm / hybrid stage programs).
+loop of the ssm / hybrid stage programs). A ``gpipe`` plan (the
+microbatch baseline, ``core.gpipe``) has no chunks and no pool: chunk_len
+0, num_chunks = the number of microbatches M.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from repro_torch.kvstore import quant as kvquant
 
 @dataclass(frozen=True)
 class PipelinePlan:
-    mode: str                 # mocap | terapipe
+    mode: str                 # mocap | terapipe | gpipe
     num_stages: int           # N
     num_chunks: int           # M
     chunk_len: int            # C
@@ -85,8 +87,8 @@ def build_plan(cfg: ModelConfig, num_stages: int, seq_len: int,
                run: RunConfig, *, mode: Optional[str] = None) -> PipelinePlan:
     """Derive the static pipeline plan for one (arch, shape, run) cell."""
     mode = mode or ("mocap" if run.mbkr else "terapipe")
-    if mode not in ("mocap", "terapipe"):
-        raise ValueError(f"mode {mode!r} is not ported (mocap | terapipe)")
+    if mode not in ("mocap", "terapipe", "gpipe"):
+        raise ValueError(f"unknown mode {mode!r} (mocap | terapipe | gpipe)")
     if run.attn_backend not in ("torch", "cuda"):
         raise ValueError(f"unknown attn_backend {run.attn_backend!r}")
     pool_backend = (run.attn_backend if run.pool_backend in ("auto", "", None)
@@ -96,6 +98,12 @@ def build_plan(cfg: ModelConfig, num_stages: int, seq_len: int,
     if run.ssm_backend not in ("torch", "cuda"):
         raise ValueError(f"unknown ssm_backend {run.ssm_backend!r}")
     m = run.num_chunks
+    if mode == "gpipe":
+        return PipelinePlan(mode, num_stages, m, 0,
+                            _layers_per_stage(cfg, num_stages), 0, m,
+                            attn_backend=run.attn_backend,
+                            pool_backend=pool_backend,
+                            ssm_backend=run.ssm_backend)
     assert seq_len % m == 0, f"seq_len {seq_len} must divide into {m} chunks"
     c = seq_len // m
     use_mbkr = mode == "mocap" and not cfg.attn_free and num_stages >= 2 and m >= 2

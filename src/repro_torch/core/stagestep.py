@@ -105,35 +105,51 @@ def _stack_kv(ks, vs, n: int, b: int):
     return one(ks), one(vs)
 
 
+def stage_qkv(cfg: ModelConfig, lp: Params, x: torch.Tensor, cos, sin):
+    """The attention block's inputs of one layer at every stage: rms_norm,
+    the q/k/v projections, qk-norm and RoPE. ``lp`` leaves are [N, ...];
+    x [N, B, C, d]. Returns q [N*B, C, H, D], k / v [N*B, C, K, D]."""
+    n, b, c, dm = x.shape
+    hd = cfg.resolved_head_dim
+    hn = L.rms_norm(x, _stage_w(lp["ln1"], 4), cfg.norm_eps).reshape(n, b * c, dm)
+    q = torch.matmul(hn, lp["wq"]).reshape(n, b, c, -1, hd)
+    k = torch.matmul(hn, lp["wk"]).reshape(n, b, c, -1, hd)
+    v = torch.matmul(hn, lp["wv"]).reshape(n, b, c, -1, hd)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, _stage_w(lp["q_norm"], 5), cfg.norm_eps)
+        k = L.rms_norm(k, _stage_w(lp["k_norm"], 5), cfg.norm_eps)
+    q = L.apply_rope(q.flatten(0, 1), cos, sin)
+    k = L.apply_rope(k.flatten(0, 1), cos, sin)
+    return q, k, v.flatten(0, 1)
+
+
+def stage_out_ffn(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                  att: torch.Tensor) -> torch.Tensor:
+    """The rest of one layer at every stage: the o-projection of the
+    attention output ``att`` [N*B, C, H, D] into the residual x [N, B, C, d]
+    and the SwiGLU FFN block."""
+    n, b, c, dm = x.shape
+    rm = cfg.residual_multiplier
+    upd = torch.matmul(att.reshape(n, b * c, -1), lp["wo"])
+    x = x + rm * upd.reshape(n, b, c, dm)
+    hn = L.rms_norm(x, _stage_w(lp["ln2"], 4), cfg.norm_eps).reshape(n, b * c, dm)
+    ffn = L.swiglu({"wg": lp["wg"], "wu": lp["wu"], "wd": lp["wd"]}, hn)
+    return x + rm * ffn.reshape(n, b, c, dm)
+
+
 def tfm_stage_step(ctx: StageCtx, layers: Params, x: torch.Tensor, pool,
                    led: Ledger = None):
     """Apply every stage's lps layers to its chunk ``ctx.phase``.
     ``layers`` leaves are [N, lps, ...]; x [N, B, C, d]. Returns
     (x_out, pool, ledger); the pool is updated in place."""
-    cfg, plan = ctx.cfg, ctx.plan
-    n, b, c, dm = x.shape
-    hd = cfg.resolved_head_dim
-    rm = cfg.residual_multiplier
+    n, b = x.shape[:2]
     cos, sin = _rope(ctx, x)
     ks, vs = [], []
-    for li in range(plan.layers_per_stage):
+    for li in range(ctx.plan.layers_per_stage):
         lp = {k: w[:, li] for k, w in layers.items()}
-        hn = L.rms_norm(x, _stage_w(lp["ln1"], 4), cfg.norm_eps).reshape(n, b * c, dm)
-        q = torch.matmul(hn, lp["wq"]).reshape(n, b, c, -1, hd)
-        k = torch.matmul(hn, lp["wk"]).reshape(n, b, c, -1, hd)
-        v = torch.matmul(hn, lp["wv"]).reshape(n, b, c, -1, hd)
-        if cfg.qk_norm:
-            q = L.rms_norm(q, _stage_w(lp["q_norm"], 5), cfg.norm_eps)
-            k = L.rms_norm(k, _stage_w(lp["k_norm"], 5), cfg.norm_eps)
-        q = L.apply_rope(q.flatten(0, 1), cos, sin)
-        k = L.apply_rope(k.flatten(0, 1), cos, sin)
-        v = v.flatten(0, 1)
+        q, k, v = stage_qkv(ctx.cfg, lp, x, cos, sin)
         att, led = attend_chunk(ctx, li, q, k, v, pool, led)
-        upd = torch.matmul(att.reshape(n, b * c, -1), lp["wo"])
-        x = x + rm * upd.reshape(n, b, c, dm)
-        hn = L.rms_norm(x, _stage_w(lp["ln2"], 4), cfg.norm_eps).reshape(n, b * c, dm)
-        ffn = L.swiglu({"wg": lp["wg"], "wu": lp["wu"], "wd": lp["wd"]}, hn)
-        x = x + rm * ffn.reshape(n, b, c, dm)
+        x = stage_out_ffn(ctx.cfg, lp, x, att)
         ks.append(k)
         vs.append(v)
     pool, led = remote.write_pools(ctx, pool, *_stack_kv(ks, vs, n, b), led)

@@ -122,3 +122,16 @@ def decode(payload: torch.Tensor, scale: Optional[torch.Tensor],
         return payload if out_dtype is None else payload.to(out_dtype)
     out = payload.float() * scale
     return out if out_dtype is None else out.to(out_dtype)
+
+
+def kv_compress_factor(codec: KVCodec, *, model_dtype: str = "bfloat16",
+                       page_tokens: int = 0, head_dim: int = 0) -> float:
+    """Stored-bytes ratio vs the model-dtype pool (lease accounting uses
+    this to count quantized bytes). Includes the per-head scale overhead
+    when the page/head geometry is known: one fp32 per (page, head) against
+    ``page_tokens * head_dim`` payload elements."""
+    base = _FLOAT_BYTES.get(model_dtype, 2.0)
+    f = codec.bytes_per_el / base
+    if codec.quantized and page_tokens and head_dim:
+        f += 4.0 / (page_tokens * head_dim * base)
+    return f

@@ -223,8 +223,9 @@ def test_engine_serves_like_direct_pipeline(arch):
     plan = pp.build_plan(cfg, N, seq, run)
     staged = init_staged(cfg, plan, torch.Generator().manual_seed(0), device="cpu")
     ex = TorchExecutor(cfg, staged, run, device="cpu")
-    eng = PrefillEngine(EngineConfig(model=cfg, num_stages=N, num_chunks=M,
-                                     max_batch=2, buckets=(seq,)), ex)
+    eng = PrefillEngine(EngineConfig(model=cfg, num_stages=N, tp=1, num_chunks=M,
+                                     max_batch=2, buckets=(seq,),
+                                     partition="uniform"), ex)
     for r in make_requests(4, seq, cfg.vocab_size, seed=2):
         eng.submit(r)
     eng.run_until_drained()

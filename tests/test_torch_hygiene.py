@@ -60,7 +60,8 @@ def test_kernel_modules_import_without_nvcc():
     code = ("import repro_torch.kernels.ops as ops, repro_torch.core.pipeline, "
             "repro_torch.launch.serve, repro_torch.kernels.build as b, "
             "repro_torch.models.ssm, repro_torch.models.hybrid, "
-            "repro_torch.models.api, repro_torch.bridge; "
+            "repro_torch.models.api, repro_torch.bridge, repro_torch.core.gpipe, "
+            "repro_torch.runtime.engine, repro_torch.sched, repro_torch.sim; "
             "assert callable(ops.ssd) and 'ssd' in ops.LAUNCHES; "
             "assert callable(ops.decode_attention) and 'decode_attention' in ops.LAUNCHES; "
             "assert not b._LIBS and all(v == 0 for v in ops.LAUNCHES.values()); "

@@ -13,7 +13,12 @@ Float cases: max rel err < 2e-3 against the reference logits (the bound of
 ``tests/helpers/pipeline_check.py``) and every ledger key equal at rtol
 1e-6. int8 pages: argmax equal and p99 rel err < 1e-2 against the
 reference's own int8 logits (both sides read the same quantized pages;
-the same holds for the int8 spill wire of a float pool)."""
+the same holds for the int8 spill wire of a float pool).
+
+The same subprocess also runs the GPipe baseline (``mode="gpipe"``, M = 4
+microbatches over B = 8 rows of S = 128); the port's ``gpipe_prefill``
+(K1's plain version on the CPU) is held to it and to ``forward`` at max
+rel err < 2e-3."""
 import os
 import subprocess
 import sys
@@ -28,6 +33,7 @@ from repro_torch.core import pipeline as pp
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 N, M, C, B = 8, 8, 16, 2
+GP_M, GP_B = 4, 8            # gpipe: microbatches, rows (B divisible by M)
 CASES = {   # name: (mode, remote_attn, kv_dtype, kv_spill_dtype)
     "mocap_qship": ("mocap", "qship", "auto", "bfloat16"),
     "mocap_fetch": ("mocap", "fetch", "auto", "bfloat16"),
@@ -72,9 +78,18 @@ for name, (mode, remote, kv, spill) in CASES.items():
     out[name + "/logits"] = np.asarray(logits, np.float32)
     for k, v in tx.ledger_to_dict(led).items():
         out[name + "/ledger/" + k] = np.float64(v)
+gtoks = jax.random.randint(jax.random.key(2), ({GP_B}, M * C), 0, cfg.vocab_size)
+plan = pp.build_plan(cfg, N, M * C, RunConfig(num_chunks={GP_M}, num_stages=N,
+                                              attn_backend="jnp"), mode="gpipe")
+staged = pp.stage_params(cfg, params, plan)
+with compat.set_mesh(mesh):
+    logits = jax.jit(lambda st, tk: pp.prefill_pipeline(cfg, st, tk, plan, topo))(
+        staged, gtoks)
+out["gpipe/tokens"] = np.asarray(gtoks)
+out["gpipe/logits"] = np.asarray(logits, np.float32)
 np.savez(sys.argv[1], **out)
 print("DONE")
-""".format(N=N, M=M, C=C, B=B, CASES=CASES)
+""".format(N=N, M=M, C=C, B=B, CASES=CASES, GP_M=GP_M, GP_B=GP_B)
 
 
 def _unflatten(flat, prefix):
@@ -149,3 +164,51 @@ def test_pipeline_matches_reference(reference, case, pool_backend):
                                    rtol=1e-6, err_msg=key)
     if mode == "mocap":
         assert led["spill"] > 0 and led[{"qship": "qship_q", "fetch": "fetch"}[remote]] > 0
+
+
+@pytest.mark.parametrize("attn_backend", ["torch", "cuda"])
+def test_gpipe_matches_reference_and_forward(reference, attn_backend):
+    """GPipe over M = 4 microbatches of 2 rows: the port's logits against
+    the reference's gpipe (its ``xla_flash`` attention) and against the
+    port's own ``forward`` last-token logits."""
+    from repro_torch.models import transformer as T
+    cfg = replace(get_smoke_config("qwen3-8b"), dtype="float32")
+    plan = pp.build_plan(cfg, N, M * C, RunConfig(num_chunks=GP_M, num_stages=N,
+                                                  attn_backend=attn_backend),
+                         mode="gpipe")
+    assert (plan.mode, plan.num_chunks, plan.chunk_len, plan.num_slots) == \
+        ("gpipe", GP_M, 0, 0)
+    params = bridge.params_from_numpy(_unflatten(reference, "param/"), device="cpu")
+    staged = pp.stage_params(cfg, params, plan)
+    toks = reference["gpipe/tokens"]
+    got = pp.prefill_pipeline(cfg, staged, toks, plan, device="cpu").numpy()
+    want = reference["gpipe/logits"]
+    assert got.shape == want.shape == (GP_B, want.shape[1]) and np.isfinite(got).all()
+    rel = np.abs(got - want) / (np.abs(want) + 1e-3)
+    assert rel.max() < 2e-3, rel.max()
+    fwd = T.forward(cfg, params, torch.as_tensor(toks))[:, -1].numpy()
+    rel = np.abs(got - fwd) / (np.abs(fwd) + 1e-3)
+    assert rel.max() < 2e-3, rel.max()
+
+
+def test_gpipe_refuses_what_it_does_not_run():
+    """A gpipe plan raises for an ssm or hybrid config, for a batch that
+    does not divide into M microbatches, and under ``return_ledger``."""
+    from repro_torch.core.staging import init_staged
+    run = RunConfig(num_chunks=4, num_stages=4)
+    cfg = replace(get_smoke_config("qwen3-8b"), dtype="float32")
+    plan = pp.build_plan(cfg, 4, 32, run, mode="gpipe")
+    staged = init_staged(cfg, plan, torch.Generator().manual_seed(0), device="cpu")
+    toks = np.zeros((8, 32), np.int64)
+    assert pp.prefill_pipeline(cfg, staged, toks, plan, device="cpu").shape[0] == 8
+    with pytest.raises(ValueError):
+        pp.prefill_pipeline(cfg, staged, toks[:6], plan, device="cpu")
+    with pytest.raises(ValueError):
+        pp.prefill_pipeline(cfg, staged, toks, plan, device="cpu", return_ledger=True)
+    for arch in ("mamba2-130m", "zamba2-7b"):
+        scfg = replace(get_smoke_config(arch), dtype="float32")
+        splan = pp.build_plan(scfg, 4, 32, run, mode="gpipe")
+        sstaged = init_staged(scfg, splan, torch.Generator().manual_seed(0),
+                              device="cpu")
+        with pytest.raises(ValueError):
+            pp.prefill_pipeline(scfg, sstaged, toks, splan, device="cpu")
