@@ -1,6 +1,7 @@
 from repro_torch.configs.base import (
     HybridConfig,
     ModelConfig,
+    MoEConfig,
     RunConfig,
     SSMConfig,
     get_config,
@@ -10,6 +11,6 @@ from repro_torch.configs.base import (
     replace,
 )
 
-__all__ = ["HybridConfig", "ModelConfig", "RunConfig", "SSMConfig",
+__all__ = ["HybridConfig", "ModelConfig", "MoEConfig", "RunConfig", "SSMConfig",
            "get_config", "get_smoke_config", "list_archs", "register",
            "replace"]

@@ -9,6 +9,24 @@ from typing import Callable, Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    num_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    # d_ff of each routed expert (may differ from the dense d_ff)
+    d_expert: int = 0
+    router_jitter: float = 0.0
+    # experts [num_real:] are zero-weight and their router logits are
+    # masked: bit-exact with the unpadded model (0 = none)
+    num_real_experts: int = 0
+
+    @property
+    def real_experts(self) -> int:
+        return self.num_real_experts or self.num_experts
+
+
+@dataclass(frozen=True)
 class SSMConfig:
     d_state: int = 128
     head_dim: int = 64
@@ -35,7 +53,7 @@ class HybridConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     arch: str
-    family: str  # dense | ssm | hybrid
+    family: str  # dense | moe | ssm | hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -52,6 +70,7 @@ class ModelConfig:
     logits_scaling: float = 1.0
     residual_multiplier: float = 1.0
     attention_multiplier: float = 0.0  # 0 -> 1/sqrt(head_dim)
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
     dtype: str = "bfloat16"
@@ -77,6 +96,12 @@ class ModelConfig:
         block = attn + 3 * d * self.d_ff + 2 * d     # + SwiGLU, two norms
         if self.family == "dense":
             return emb + self.num_layers * block + d
+        if self.family == "moe":
+            m = self.moe
+            d_e = m.d_expert or self.d_ff
+            per = (attn + d * m.num_experts                       # router
+                   + (m.num_experts + m.num_shared_experts) * 3 * d * d_e + 2 * d)
+            return emb + self.num_layers * per + d
         s = self.ssm
         d_in = s.expand * d
         nheads = d_in // s.head_dim
@@ -125,7 +150,9 @@ def register(name: str, full: Callable[[], ModelConfig],
 
 
 def _ensure_loaded() -> None:
-    from repro_torch.configs import mamba2_130m, qwen3_8b, zamba2_7b  # noqa: F401
+    from repro_torch.configs import (granite_3_2b, granite_moe_3b_a800m,  # noqa: F401
+                                     mamba2_130m, qwen2_moe_a2_7b, qwen3_8b,
+                                     stablelm_3b, zamba2_7b)
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -1,6 +1,6 @@
 """Analytic chunk/pipeline cost model shared by LBCP (Alg. 1), the event
 simulator and the chunk-level scheduler — the port's own copy of
-``repro.core.costmodel`` (numpy only; dense, ssm and hybrid families).
+``repro.core.costmodel`` (numpy only; dense, moe, ssm and hybrid families).
 
 Hardware profiles: the paper's WSC (GR24-class dies, §5.1), an equivalent
 HGX-class GPU system (NVLink-limited; Fig. 1(c)), and the TPU v5e target.
@@ -90,6 +90,11 @@ def layer_linear_flops_per_token(cfg: ModelConfig) -> float:
         d_in, nheads, conv_ch = ssm_dims(cfg)
         s = cfg.ssm
         return 2 * d * (2 * d_in + 2 * s.n_groups * s.d_state + nheads) + 2 * d_in * d
+    if cfg.moe is not None:
+        m = cfg.moe
+        fe = m.d_expert or cfg.d_ff
+        ffn = 2 * 3 * d * fe * (m.top_k + m.num_shared_experts)
+        return qkvo + ffn + 2 * d * m.num_experts
     return qkvo + 2 * 3 * d * cfg.d_ff
 
 

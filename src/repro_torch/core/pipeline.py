@@ -1,5 +1,5 @@
 """Chunked-pipeline prefill driver — MOCAP's execution model on one GPU
-(mirrors ``repro.core.pipeline`` for the dense, ssm and hybrid families,
+(mirrors ``repro.core.pipeline`` for the dense, moe, ssm and hybrid families,
 modes mocap and terapipe; mode gpipe dispatches to ``core.gpipe``).
 
 The reference maps the N pipeline stages onto N devices in SPMD lockstep
@@ -62,7 +62,7 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
     first_half = stages < n // 2
 
     family = cfg.family
-    if family not in ("dense", "ssm", "hybrid"):
+    if family not in ("dense", "moe", "ssm", "hybrid"):
         raise ValueError(f"family {family!r} is not ported")
     pool = alloc_kv_pool(cfg, plan, b, device=dev)          # None for ssm
     state = (alloc_ssm_state(cfg, plan, b, device=dev)

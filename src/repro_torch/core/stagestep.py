@@ -1,6 +1,6 @@
 """The stage programs: what every stage computes in one pipeline tick
-(mirrors ``repro.core.stagestep``): ``tfm_stage_step`` for the dense
-transformer, ``ssm_stage_step`` for Mamba2 (conv/SSD state carried tick to
+(mirrors ``repro.core.stagestep``): ``tfm_stage_step`` for the dense and
+MoE transformers, ``ssm_stage_step`` for Mamba2 (conv/SSD state carried tick to
 tick) and ``hybrid_stage_step`` for Zamba2 (SSM groups plus a shared
 attention block whose KV takes part in MBKR, one pool "layer" per group).
 
@@ -127,14 +127,15 @@ def stage_out_ffn(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                   att: torch.Tensor) -> torch.Tensor:
     """The rest of one layer at every stage: the o-projection of the
     attention output ``att`` [N*B, C, H, D] into the residual x [N, B, C, d]
-    and the SwiGLU FFN block."""
+    and the FFN block (``transformer.ffn_out``: SwiGLU; or, moe, each
+    (stage, row) dispatching its chunk's C tokens to its stage's experts,
+    so capacity is per chunk, as in the reference's stage program)."""
     n, b, c, dm = x.shape
     rm = cfg.residual_multiplier
     upd = torch.matmul(att.reshape(n, b * c, -1), lp["wo"])
     x = x + rm * upd.reshape(n, b, c, dm)
-    hn = L.rms_norm(x, _stage_w(lp["ln2"], 4), cfg.norm_eps).reshape(n, b * c, dm)
-    ffn = L.swiglu({"wg": lp["wg"], "wu": lp["wu"], "wd": lp["wd"]}, hn)
-    return x + rm * ffn.reshape(n, b, c, dm)
+    hn = L.rms_norm(x, _stage_w(lp["ln2"], 4), cfg.norm_eps)
+    return x + rm * T.ffn_out(cfg, lp, hn)
 
 
 def tfm_stage_step(ctx: StageCtx, layers: Params, x: torch.Tensor, pool,

@@ -1,8 +1,9 @@
 """Parameter staging: flat ``[L, ...]`` layer params -> stage-stacked
 ``[N, lps, ...]`` (zero-padded: a zero-parameter transformer or Mamba2
 block is an exact identity through the residual), the stage-stacked paged
-KV pool and the SSM state the stage programs carry (mirrors the dense, ssm
-and hybrid parts of ``repro.core.staging``)."""
+KV pool and the SSM state the stage programs carry (mirrors the dense,
+moe, ssm and hybrid parts of ``repro.core.staging``; expert leaves stage as
+[N, lps, E, ...])."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
@@ -89,7 +90,7 @@ def init_staged(cfg: ModelConfig, plan: PipelinePlan,
     memory once. Padded layers and groups are zero, as ``stage_params``
     makes them."""
     n, lps = plan.num_stages, plan.layers_per_stage
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         p = T.init(cfg, generator, device, dtype, layer_lead=(n, lps))
         out = {"embed": p["embed"], "final_norm": p["final_norm"],
                "stage_layers": p["layers"]}

@@ -22,9 +22,11 @@
 //       stage-stacked page store [G,P,B,pt,KVH,D] through page handles
 //       [S*ppc] (no gathered stack exists anywhere); pages past kv_len are
 //       never visited and a partial last page is masked.
-// Head dims D = 16 (smoke), 112 (zamba2-7b's shared block) and 128
-// (qwen3-8b); D % 8 == 0 is what the float4 halves of a row need.
-// GQA maps query head h to kv head h / (H / KVH). int8 / fp8 K/V are
+// Head dims D = 16 (smoke), 64 (granite-3-2b, granite-moe-3b-a800m), 80
+// (stablelm-3b), 112 (zamba2-7b's shared block) and 128 (qwen3-8b,
+// qwen2-moe-a2.7b); D % 8 == 0 is what the float4 halves of a row need.
+// GQA maps query head h to kv head h / (H / KVH), any group size G (1, 3,
+// 4, ...: nothing assumes a power of two). int8 / fp8 K/V are
 // dequantized inside the kernels: per-token fp32 scales [.., T, KVH] for
 // K1/K2, per-page scales for K3.
 //
@@ -32,7 +34,8 @@
 // launch_pool, launch_paged; K3 also by its page shape; no runtime
 // fallback: a body that fails to build or launch raises):
 //
-// * K1, K2 and K3 with bf16 q and bf16 / int8 / fp8 K/V at D = 112 or 128
+// * K1, K2 and K3 with bf16 q and bf16 / int8 / fp8 K/V at D = 64, 80, 112
+//   or 128 (tc::tc_head_dim)
 //   — every K1, K2 and K3 launch of the bf16 main paths (K3: pages that
 //   fill whole 64-key tiles, tc::paged_tc_fits) — run the tensor-core
 //   body (chunk_attn_tc.cuh), one kernel over three unit walks: a persistent
@@ -431,7 +434,7 @@ template <typename TQ, typename TKV, int D>
 int launch_chunk(const void* q, const void* k, const void* v, const float* ks, const float* vs,
                  void* out, float* m, float* l, float* acc, int B, int C, int H, int T, int KVH,
                  int causal_offset, int kv_len, float scale, cudaStream_t stream) {
-  if constexpr (std::is_same<TQ, __nv_bfloat16>::value && (D == 112 || D == 128)) {
+  if constexpr (std::is_same<TQ, __nv_bfloat16>::value && tc::tc_head_dim(D)) {
     return tc::launch_chunk_tc<TKV, D>(q, k, v, ks, vs, out, m, l, acc, B, C, H, T, KVH,
                                        causal_offset, kv_len, scale, stream);
   } else {
@@ -452,7 +455,7 @@ template <typename TQ, typename TKV, int D>
 int launch_pool(const void* q, const void* k, const void* v, const float* ks, const float* vs,
                 const uint8_t* valid, float* m, float* l, float* acc, int G, int B, int C,
                 int H, int S, int T, int KVH, int kv_len, float scale, cudaStream_t stream) {
-  if constexpr (std::is_same<TQ, __nv_bfloat16>::value && (D == 112 || D == 128)) {
+  if constexpr (std::is_same<TQ, __nv_bfloat16>::value && tc::tc_head_dim(D)) {
     return tc::launch_pool_tc<TKV, D>(q, k, v, ks, vs, valid, m, l, acc, G, B, C, H, S, T,
                                       KVH, kv_len, scale, stream);
   } else {
@@ -475,7 +478,7 @@ int launch_paged(const void* q, const void* k, const void* v, const float* ks,
                  float* acc, int G, int B, int C, int H, int S, int P, int ppc, int pt, int KVH,
                  int kv_len, const long long* st, const long long* sst, float scale,
                  cudaStream_t stream) {
-  if constexpr (std::is_same<TQ, __nv_bfloat16>::value && (D == 112 || D == 128)) {
+  if constexpr (std::is_same<TQ, __nv_bfloat16>::value && tc::tc_head_dim(D)) {
     if (tc::paged_tc_fits(G, P, B, pt, st))
       return tc::launch_paged_tc<TKV, D>(q, k, v, ks, vs, handles, valid, m, l, acc, G, B, C,
                                          H, S, P, ppc, pt, KVH, kv_len, st, sst, scale, stream);
@@ -498,6 +501,8 @@ int launch_paged(const void* q, const void* k, const void* v, const float* ks,
 #define DISPATCH_D(FN, TQ, TKV, ...)                                   \
   switch (D) {                                                         \
     case 16: return FN<TQ, TKV, 16>(__VA_ARGS__);                      \
+    case 64: return FN<TQ, TKV, 64>(__VA_ARGS__);                      \
+    case 80: return FN<TQ, TKV, 80>(__VA_ARGS__);                      \
     case 112: return FN<TQ, TKV, 112>(__VA_ARGS__);                    \
     case 128: return FN<TQ, TKV, 128>(__VA_ARGS__);                    \
     default: return (int)cudaErrorInvalidValue;                        \
@@ -563,7 +568,7 @@ int pool_attention_launch(const void* q, const void* k, const void* v, const voi
 // K3. Page store k/v [G, P, B, pt, KVH, D] given by 5 element strides
 // (group, page, batch, token, head; the head dim is contiguous); scales
 // [G, P, B, KVH] by 4 strides; handles [S*ppc] int32 and valid [G, S] bool.
-// bf16 q at D 112 / 128 runs the tensor-core body when tc::paged_tc_fits
+// bf16 q at D 64 / 80 / 112 / 128 runs the tensor-core body when tc::paged_tc_fits
 // (pages that fill whole 64-key tiles, strides one 5-D map can hold);
 // other page shapes run flash_block.
 int pool_attention_paged_launch(const void* q, const void* k, const void* v, const void* ks,

@@ -36,16 +36,18 @@
 //                 first, with their tile counts and cursors, and what a
 //                 unit stores (K1: out, acc, m, l; K2, K3: acc, m, l).
 //
-// Shared-memory layout of a bf16 operand tile: 64 rows x 128 bytes per box
-// (8 KB, the 128-byte swizzle of TMA and of the wgmma descriptors), two
-// boxes for the head dim (columns 0-63 and 64-127). At D = 112 the second
-// box's columns 112-127 lie past the tensor's inner dimension, so TMA fills
-// them with zeros: Q·K^T stays exact (the zero columns of Q meet K's), and
-// columns 112-127 of acc come out zero and are never stored (out's TMA
-// store clips them; acc is stored up to D). A 32-byte swizzle in 16-column
-// slabs would avoid the padding but needs 7 descriptors and boxes per tile
-// instead of 2; the padding costs only shared memory, never device-memory
-// bytes.
+// Head dims D = 64, 80, 112 and 128. Shared-memory layout of a bf16
+// operand tile: 64 rows x 128 bytes per box (8 KB, the 128-byte swizzle of
+// TMA and of the wgmma descriptors), ceil(D / 64) boxes for the head dim
+// (one at D = 64; columns 0-63 and 64-127 at D = 80, 112 and 128). At D =
+// 80 and 112 the second box's columns past D lie past the tensor's inner
+// dimension, so TMA fills them with zeros (the widened 1-byte tiles zero
+// them too); no product reads them: Q·K^T runs D / 16 k-steps, and P·V is
+// a wgmma of N = D columns (n80, n112), whose accumulators end at D (out's
+// TMA store clips the box at D; acc is stored up to D). A 32-byte swizzle
+// in 16-column slabs would avoid the padding but needs D / 16 descriptors
+// and boxes per tile instead of 2; the padding costs only shared memory,
+// never device-memory bytes.
 #pragma once
 
 #include <cuda_fp8.h>
@@ -71,16 +73,27 @@ constexpr float NEG_INF = -1e30f;
 
 // ---------------------------------------------------------- tile layouts
 
+// The head dims the tensor-core body is built for (chunk_attn.cu routes
+// bf16 q at these to it, statically).
+__host__ __device__ constexpr bool tc_head_dim(int d) {
+  return d == 64 || d == 80 || d == 112 || d == 128;
+}
+
+// 64-column swizzled boxes of a bf16 row of D columns: a Q tile, a bf16 K
+// or V tile, a widened 1-byte one.
+template <int D>
+constexpr int NBOX = (D + 63) / 64;
+
 // How one 64-key tile of K (or V) of storage type TKV lands: 16-bit tiles
-// as two swizzled boxes that the wgmma reads in place; 1-byte tiles as one
-// dense [64][D] box, widened to bf16 before use.
+// as NBOX<D> swizzled boxes that the wgmma reads in place; 1-byte tiles
+// as one dense [64][D] box, widened to bf16 before use.
 template <typename TKV, int D>
 struct KVBox {
   static constexpr bool WIDE = sizeof(TKV) == 2;
-  static constexpr int BOXES = WIDE ? 2 : 1;
+  static constexpr int BOXES = WIDE ? NBOX<D> : 1;
   static constexpr int COLS = WIDE ? 64 : D;           // box width (elements)
   static constexpr uint32_t BYTES = BK * COLS * sizeof(TKV);
-  static constexpr int TILE = WIDE ? 2 * BOX : BOX;    // bytes a K (or V) tile takes
+  static constexpr int TILE = WIDE ? BOXES * BOX : BOX;   // bytes a K (or V) tile takes
 };
 
 // K and V tiles have barriers of their own, so that a K tile's stage is
@@ -242,15 +255,17 @@ __device__ __forceinline__ float byte_to_f32<__nv_fp8_e4m3>(uint32_t x) {
   return static_cast<float>(f);
 }
 
-// A landed [64][D] byte tile -> two swizzled bf16 boxes (exact: int8 and
-// e4m3 values are bf16 values); columns D..127 become zeros. tid: the
-// thread's index in its warpgroup.
+// A landed [64][D] byte tile -> NBOX<D> swizzled bf16 boxes (exact:
+// int8 and e4m3 values are bf16 values); the columns past D of the last
+// box become zeros, as TMA fills a bf16 tile's. tid: the thread's index in
+// its warpgroup.
 template <typename TKV, int D>
 __device__ __forceinline__ void widen_tile(const unsigned char* raw, unsigned char* dst,
                                            int tid) {
+  constexpr int UNITS = 8 * NBOX<D>;               // 16-byte units of a bf16 row
 #pragma unroll 2
-  for (int i = tid; i < BK * 16; i += WG) {
-    const int r = i >> 4, u = i & 15;                  // row, 16-byte unit of the bf16 row
+  for (int i = tid; i < BK * UNITS; i += WG) {
+    const int r = i / UNITS, u = i % UNITS;            // row, 16-byte unit of the bf16 row
     uint4 w = make_uint4(0, 0, 0, 0);
     if (u * 8 < D) {
       const uint2 x = *reinterpret_cast<const uint2*>(raw + r * D + u * 8);
@@ -380,7 +395,8 @@ __device__ __forceinline__ void softmax_p(TileState<D>& st, const float (&s)[32]
 
 // 3. acc += hi·V + lo·V, issued as one wgmma commit group: four k-steps of
 // 16 keys, V [64 keys][D] bf16 read MN-major (LBO: the next 64 head-dim
-// columns, one box on; SBO: the next 8 keys). The caller waits for it.
+// columns, one box on; SBO: the next 8 keys), N = D columns. The caller
+// waits for it.
 template <int D>
 __device__ __forceinline__ void issue_pv(TileState<D>& st, uint32_t (&hi)[16],
                                          uint32_t (&lo)[16], const unsigned char* v) {
@@ -398,9 +414,16 @@ __device__ __forceinline__ void issue_pv(TileState<D>& st, uint32_t (&hi)[16],
     if constexpr (D == 128) {
       wgmma_rs_n128(st.o, hi[a], hi[a + 1], hi[a + 2], hi[a + 3], dv[ks]);
       wgmma_rs_n128(st.o, lo[a], lo[a + 1], lo[a + 2], lo[a + 3], dv[ks]);
-    } else {
+    } else if constexpr (D == 112) {
       wgmma_rs_n112(st.o, hi[a], hi[a + 1], hi[a + 2], hi[a + 3], dv[ks]);
       wgmma_rs_n112(st.o, lo[a], lo[a + 1], lo[a + 2], lo[a + 3], dv[ks]);
+    } else if constexpr (D == 80) {
+      wgmma_rs_n80(st.o, hi[a], hi[a + 1], hi[a + 2], hi[a + 3], dv[ks]);
+      wgmma_rs_n80(st.o, lo[a], lo[a + 1], lo[a + 2], lo[a + 3], dv[ks]);
+    } else {
+      static_assert(D == 64, "the tensor-core body takes D 64, 80, 112, 128");
+      wgmma_rs_n64(st.o, hi[a], hi[a + 1], hi[a + 2], hi[a + 3], dv[ks]);
+      wgmma_rs_n64(st.o, lo[a], lo[a + 1], lo[a + 2], lo[a + 3], dv[ks]);
     }
   }
   wgmma_commit();
@@ -547,12 +570,13 @@ struct PagedWalk : StackWalk {
 template <typename TKV, int D, int QBUFS, int TABLE>
 struct TcSmem {   // byte offsets from a 1024-aligned base
   static constexpr bool QUANT = !KVBox<TKV, D>::WIDE;
+  static constexpr int QTILE = NBOX<D> * BOX;  // a Q tile; a widened K (or V) tile
   // one consumer warpgroup's part (two parts, then both warpgroups' scales,
   // barriers and the walk's table)
   static constexpr int Q = 0;                     // QBUFS Q tiles (K1: then their out staging)
-  static constexpr int RING = Q + QBUFS * 2 * BOX;
+  static constexpr int RING = Q + QBUFS * QTILE;
   static constexpr int WIDE = RING + STAGES * 2 * KVBox<TKV, D>::TILE;   // widened K | V
-  static constexpr int PART = WIDE + (QUANT ? 4 * BOX : 0);
+  static constexpr int PART = WIDE + (QUANT ? 2 * QTILE : 0);
   static constexpr int SCALES = 2 * PART;         // per warpgroup: k | v scales
   static constexpr int BARS = SCALES + (QUANT ? 2 * 2 * BK * 4 : 0);
   static constexpr int NBARS = 4 * STAGES + 2 * QBUFS;   // the ring's, qfull, qempty
@@ -563,7 +587,8 @@ struct TcSmem {   // byte offsets from a 1024-aligned base
 
 // ------------------------------------------------- the tensor-core body
 
-// K1 and K2 for bf16 q and bf16 / int8 / fp8 K/V at D = 112 or 128: a
+// K1, K2 and K3 for bf16 q and bf16 / int8 / fp8 K/V at D = 64, 80, 112 or
+// 128 (tc_head_dim): a
 // persistent grid of one block an SM. Each block has two consumer
 // warpgroups that walk their own units of the Walk (ChunkWalk: K1,
 // StackWalk: K2), round robin over the grid's 2 x gridDim.x warpgroups in
@@ -621,10 +646,11 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
         const Unit x = walk.at(u);
         const int qb = n % QBUFS;
         if (n >= QBUFS) mbar_wait(&qempty[qb], ((n / QBUFS) + 1) & 1);
-        unsigned char* qt = smem + L::Q + qb * 2 * BOX;
-        mbar_expect_tx(&qfull[qb], 2 * BOX);
-        tma_load_4d(qt, &qmap, &qfull[qb], 0, x.h, x.q0, x.row);
-        tma_load_4d(qt + BOX, &qmap, &qfull[qb], 64, x.h, x.q0, x.row);
+        unsigned char* qt = smem + L::Q + qb * L::QTILE;
+        mbar_expect_tx(&qfull[qb], L::QTILE);
+#pragma unroll
+        for (int c = 0; c < NBOX<D>; ++c)
+          tma_load_4d(qt + c * BOX, &qmap, &qfull[qb], 64 * c, x.h, x.q0, x.row);
         using Src = Tiles<TKV, D, decltype(walk.tiles(x))>;
         done = produce(Src{&kmap, &vmap, x.hk, x.ntiles, walk.tiles(x)}, ring, done);
       }
@@ -653,7 +679,7 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
     const int causal_offset = walk.causal_offset, kv_len = walk.kv_len;
     auto cur = walk.tiles(x);
     const int qb = n % QBUFS;
-    unsigned char* qt = smem + L::Q + qb * 2 * BOX;
+    unsigned char* qt = smem + L::Q + qb * L::QTILE;
     const int lim[2] = {min(q0 + row[0] + causal_offset, kv_len - 1),
                         min(q0 + row[1] + causal_offset, kv_len - 1)};
     TileState<D> st;
@@ -667,7 +693,7 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
         mbar_wait(ring.vfull(stage), (w / STAGES) & 1);
         wg_sync(wg);                     // the previous tile's wgmmas are done
         widen_tile<TKV, D>(ring.k(stage), smem + L::WIDE, wtid);
-        widen_tile<TKV, D>(ring.v(stage), smem + L::WIDE + 2 * BOX, wtid);
+        widen_tile<TKV, D>(ring.v(stage), smem + L::WIDE + L::QTILE, wtid);
         {
           const int key = key0 + (wtid & (BK - 1));
           const float* src = wtid < BK ? ks : vs;
@@ -685,7 +711,7 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
         uint32_t hi[16], lo[16];
         softmax_max<D, true>(st, sa, sc, msafe, corr);
         softmax_p<D, true>(st, sa, sc, msafe, corr, hi, lo);
-        issue_pv<D>(st, hi, lo, smem + L::WIDE + 2 * BOX);
+        issue_pv<D>(st, hi, lo, smem + L::WIDE + L::QTILE);
         wgmma_wait0();
         keep(st.o);
         keep(hi);
@@ -762,8 +788,8 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
       fence_async_smem();
       wg_sync(wg);
       if (wtid == 0) {
-        tma_store_4d(&omap, qt, 0, h, q0, x.row);
-        tma_store_4d(&omap, qt + BOX, 64, h, q0, x.row);
+#pragma unroll
+        for (int c = 0; c < NBOX<D>; ++c) tma_store_4d(&omap, qt + c * BOX, 64 * c, h, q0, x.row);
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         // the previous unit's stores have read their Q tile: it may be reloaded
         asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");

@@ -212,6 +212,23 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0, uint32
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+// O += A·B, A (64 x 16 bf16) from registers (a0-a3: the fragment), B an MN-major bf16 tile in shared
+// memory (128-byte swizzle, transpose bit set): N = 80, the first 80 columns of two boxes
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
 // D += A·B, A an MN-major bf16 tile in shared memory (transpose bit set: A^T
 // of a [K][64] tile), B a K-major bf16 tile (128-byte swizzle both)
 __device__ __forceinline__ void wgmma_ss_n32_ta(float (&d)[16], uint64_t da, uint64_t db) {
@@ -254,7 +271,8 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 a, __nv_bfloat16 b) 
 
 // S = A·B^T of two 64-row K-major bf16 tiles a [64][D] and b [64][D] (K1:
 // Q·K^T of one 64-key tile; K4: C·B^T and C·S^T), issued into s as one
-// wgmma commit group: D/16 k-steps over the boxes of 64 columns (s needs
+// wgmma commit group: D/16 k-steps over the boxes of 64 columns, so the
+// columns past D of a padded last box are never read (s needs
 // no zeros: the first k-step's scale-d = 0 writes over it). The caller
 // waits for it.
 template <int D>

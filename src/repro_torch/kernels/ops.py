@@ -32,11 +32,13 @@ _COMBOS = {(torch.float32, torch.float32): 0, (torch.float32, torch.int8): 1,
            (torch.float32, torch.float8_e4m3fn): 2,
            (torch.bfloat16, torch.bfloat16): 3, (torch.bfloat16, torch.int8): 4,
            (torch.bfloat16, torch.float8_e4m3fn): 5}
-_HEAD_DIMS = (16, 112, 128)   # smoke; zamba2-7b's shared block; qwen3-8b
+# K1-K3's head dims: smoke; granite-3-2b and granite-moe-3b-a800m;
+# stablelm-3b; zamba2-7b's shared block; qwen3-8b and qwen2-moe-a2.7b
+_HEAD_DIMS = (16, 64, 80, 112, 128)
 _MAX_SLOTS = 1024
 # the tensor-core body of K1-K3 (bf16 q at these head dims) and K2's and K3's
 # limits on valid [G, S] there (MAX_GROUPS, MAX_WORDS in csrc/chunk_attn_tc.cuh)
-_TC_HEAD_DIMS, _TC_MAX_GROUPS, _TC_MAX_WORDS = (112, 128), 64, 1024
+_TC_HEAD_DIMS, _TC_MAX_GROUPS, _TC_MAX_WORDS = (64, 80, 112, 128), 64, 1024
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -111,7 +113,7 @@ def _check_types(q, k, v, k_scale, v_scale) -> None:
             raise TypeError("scales must be float32")
     d = q.shape[-1]
     if d not in _HEAD_DIMS or k.shape[-1] != d:
-        raise ValueError(f"head dim {d} (k: {k.shape[-1]}) not in {_HEAD_DIMS}")
+        raise ValueError(f"head dim {d} (k: {k.shape[-1]}) not in K1-K3's {_HEAD_DIMS}")
     if q.shape[2] % k.shape[-2]:
         raise ValueError(f"{q.shape[2]} query heads do not group over {k.shape[-2]} kv heads")
 
@@ -123,7 +125,7 @@ def _check_dense(*ts) -> None:
 
 
 def _check_tc_groups(q: torch.Tensor, ng: int, s: int) -> None:
-    """K2 and K3 with bf16 q at head dim 112 / 128 (the tensor-core body)
+    """K2 and K3 with bf16 q at head dim 64, 80, 112 or 128 (the tensor-core body)
     take at most 64 groups and G x ceil(S / 32) <= 1024 words of valid
     bits (``MAX_GROUPS``, ``MAX_WORDS`` in ``csrc/chunk_attn_tc.cuh``)."""
     if q.dtype == torch.bfloat16 and q.shape[-1] in _TC_HEAD_DIMS and (
@@ -156,7 +158,7 @@ def chunk_attention(q, k, v, *, causal_offset: int = 0,
     ``return_state``, also (m, l) [B,H,C] and acc [B,C,H,D] fp32.
 
     On the card the route is static: bf16 q with bf16, int8 or fp8 K/V at
-    head dim 112 or 128 runs the tensor-core body (``csrc/
+    head dim 64, 80, 112 or 128 runs the tensor-core body (``csrc/
     chunk_attn_tc.cuh``: wgmma on TMA-fed tiles, P·V split hi + lo); fp32
     q and head dim 16 run the CUDA-core body (``flash_block``). Neither
     falls back on the other."""
@@ -205,7 +207,7 @@ def pool_attention(q, k, v, valid, *, scale: Optional[float] = None,
     (m, l) [G*B,H,C] and acc [G*B,C,H,D].
 
     On the card the route is static: bf16 q with bf16, int8 or fp8 K/V at
-    head dim 112 or 128 runs the tensor-core body (``csrc/
+    head dim 64, 80, 112 or 128 runs the tensor-core body (``csrc/
     chunk_attn_tc.cuh``, K1's kernel over K2's unit walk: wgmma on TMA-fed
     tiles of the valid slots, P·V split hi + lo; there at most 64 groups and
     G x ceil(S / 32) <= 1024); fp32 q and head dim 16 run the CUDA-core
@@ -256,7 +258,7 @@ def pool_attention_paged(q, k_pages, v_pages, handles, valid, *, ppc: int,
     state like ``pool_attention``.
 
     On the card the route is static: bf16 q with bf16, int8 or fp8 pages at
-    head dim 112 or 128 runs the tensor-core body of K1 / K2 over the pages
+    head dim 64, 80, 112 or 128 runs the tensor-core body of K1 / K2 over the pages
     in place (``PagedWalk`` in ``csrc/chunk_attn_tc.cuh``: TMA boxes of
     whole pages through a 5-D map of the strided store) when the pages fill
     whole 64-key tiles (pt a multiple of 64, or a multiple of 8 dividing 64)
@@ -396,6 +398,7 @@ def ssd(x, dt, a_log, b, c, d_skip, *, chunk: int = 128, init_state=None):
 # -------------------------------------------------------------------- K5
 
 _DECODE_GROUPS = (1, 2, 4, 8)     # G = H / KVH the kernel is built for
+_DECODE_HEAD_DIMS = (16, 112, 128)   # K5's own head dims (not K1-K3's 64 and 80)
 # csrc/decode_attn.cu: threads a block, keys a row group takes from a tile
 _DECODE_THREADS, _DECODE_U = 128, 4
 _DECODE_CAP_PER_SM = 4            # the grid's most blocks an SM (the scratch is sized for it)
@@ -498,11 +501,11 @@ def decode_attention(q, k, v, kv_len, *, scale: Optional[float] = None):
                         f"{list(_Q_CODES)} for all three")
     if kv_len.dtype != torch.int32:
         raise TypeError(f"kv_len must be int32, got {kv_len.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
+    if d not in _DECODE_HEAD_DIMS:
+        raise ValueError(f"K5 decode attention: head dim {d} not in {_DECODE_HEAD_DIMS}")
     if h // kvh not in _DECODE_GROUPS:
-        raise ValueError(f"{h} query heads over {kvh} kv heads: group "
-                         f"{h // kvh} not in {_DECODE_GROUPS}")
+        raise ValueError(f"K5 decode attention: {h} query heads over {kvh} kv heads: "
+                         f"group {h // kvh} not in {_DECODE_GROUPS}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if not _on_card(q, k, v, kv_len):
         return ref.decode_attention_plain(q, k, v, kv_len, scale=scale)

@@ -1,5 +1,5 @@
 """Model facade, the counterpart of ``repro.models.api`` for the families the
-port registers (dense, ssm, hybrid): ``build_model(cfg)`` returns a `Model`
+port registers (dense, moe, ssm, hybrid): ``build_model(cfg)`` returns a `Model`
 whose methods are plain functions over parameter dicts. Entry points run on
 the card unless the caller passes ``device="cpu"``.
 """
@@ -14,7 +14,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import hybrid, ssm, transformer
 from repro_torch.models import layers as L
 
-_FAMILIES = {"dense": transformer, "ssm": ssm, "hybrid": hybrid}
+_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": ssm, "hybrid": hybrid}
 
 
 @dataclass(frozen=True)

@@ -1,5 +1,6 @@
-"""Dense decoder-only transformer (GQA, qk_norm, granite scalars), mirroring
-the dense subset of ``repro.models.transformer``. Params are a dict with the
+"""Decoder-only transformer (GQA, qk_norm, granite scalars; a SwiGLU FFN
+or, for the moe family, routed plus shared experts), mirroring the dense
+and MoE parts of ``repro.models.transformer``. Params are a dict with the
 reference's key names; layer params are stacked on a leading layer axis.
 
 Decode (``decode_step``) runs the reference's local path: one token per
@@ -56,9 +57,22 @@ def init_layers(cfg: ModelConfig, generator: torch.Generator, device=None,
     if cfg.qk_norm:
         lp["q_norm"] = ones(hd)
         lp["k_norm"] = ones(hd)
-    lp["wg"] = nrm(d, cfg.d_ff)
-    lp["wu"] = nrm(d, cfg.d_ff)
-    lp["wd"] = nrm(cfg.d_ff, d, std=out_std)
+    if cfg.moe is None:
+        lp["wg"] = nrm(d, cfg.d_ff)
+        lp["wu"] = nrm(d, cfg.d_ff)
+        lp["wd"] = nrm(cfg.d_ff, d, std=out_std)
+    else:
+        m = cfg.moe
+        fe = m.d_expert or cfg.d_ff
+        lp["router"] = nrm(d, m.num_experts)
+        lp["e_wg"] = nrm(m.num_experts, d, fe)
+        lp["e_wu"] = nrm(m.num_experts, d, fe)
+        lp["e_wd"] = nrm(m.num_experts, fe, d, std=out_std)
+        if m.num_shared_experts:
+            fs = fe * m.num_shared_experts
+            lp["s_wg"] = nrm(d, fs)
+            lp["s_wu"] = nrm(d, fs)
+            lp["s_wd"] = nrm(fs, d, std=out_std)
     if lead:
         for w in lp.values():
             w.view(-1, *w.shape[len(lead):])[nl:] = 0
@@ -112,10 +126,30 @@ def attn_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
     return x + cfg.residual_multiplier * out, k, v
 
 
+def ffn_out(cfg: ModelConfig, lp: Params, hn: torch.Tensor) -> torch.Tensor:
+    """The FFN of the normed input ``hn`` [B, S, d] (or stage-stacked
+    [G, B, S, d] with ``lp`` leaves [G, ...]): SwiGLU, or the routed
+    experts (``moe_layer``, each row dispatching over its own S tokens)
+    plus the shared experts' SwiGLU."""
+    def swiglu(prefix: str) -> torch.Tensor:
+        w = {n: lp[prefix + n] for n in ("wg", "wu", "wd")}
+        if hn.ndim == 3:
+            return L.swiglu(w, hn)
+        g, b, s, d = hn.shape                 # stage-stacked: [G, B*S, d] products
+        return L.swiglu(w, hn.reshape(g, b * s, d)).reshape(g, b, s, d)
+
+    if cfg.moe is None:
+        return swiglu("")
+    m = cfg.moe
+    out = L.moe_layer({"router": lp["router"], "wg": lp["e_wg"], "wu": lp["e_wu"],
+                       "wd": lp["e_wd"]}, hn, num_experts=m.num_experts, top_k=m.top_k,
+                      capacity_factor=m.capacity_factor, num_real=m.real_experts)
+    return out + swiglu("s_") if m.num_shared_experts else out
+
+
 def ffn_block(cfg: ModelConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
     hn = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    out = L.swiglu({"wg": lp["wg"], "wu": lp["wu"], "wd": lp["wd"]}, hn)
-    return x + cfg.residual_multiplier * out
+    return x + cfg.residual_multiplier * ffn_out(cfg, lp, hn)
 
 
 def layer_apply(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,

@@ -23,6 +23,10 @@ from repro_torch.kvstore import quant as kvquant
 
 B, C, H, KVH, D = 2, 16, 4, 2, 16          # GQA g = 2
 NEG_INF = -1e30
+# (H, KVH, D) of the plain-vs-Pallas cases: the smoke head shape (G 2,
+# D 16); D 64 with G 3 (granite-moe-3b-a800m's grouping); D 80, MHA
+# (stablelm-3b)
+HEAD_SHAPES = {"d16": (H, KVH, D), "d64_g3": (6, 2, 64), "d80": (2, 2, 80)}
 
 
 def _randn(*shape, seed=0):
@@ -43,24 +47,31 @@ def _quant(x: np.ndarray, kind: str, axes):
         sc.astype(np.float32)
 
 
-def _close(got, want, atol):
+def _close(got, want, atol, scaled=False):
+    """Each output within ``atol``; ``scaled``: within ``atol`` of its own
+    max|ref| when that exceeds 1 (the HEAD_SHAPES cases past the smoke
+    one, whose l reaches ~15 at D 80, where fp32 summation order alone
+    moves it by more than 1e-5)."""
     for g, w in zip(got, want):
-        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32),
-                                   rtol=0, atol=atol)
+        w = np.asarray(w, np.float32)
+        tol = atol * max(1.0, float(np.abs(w).max())) if scaled else atol
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=0, atol=tol)
 
 
 # ------------------------------------------------------------------ K1
 
+@pytest.mark.parametrize("heads", list(HEAD_SHAPES))
 @pytest.mark.parametrize("offset,t,kv_len", [(0, C, C), (C, 2 * C, 2 * C),
                                              (C, 2 * C, 2 * C - 5), (0, C, C - 3)])
-def test_chunk_attention_plain_matches_pallas(offset, t, kv_len):
-    q, k, v = _randn(B, C, H, D), _randn(B, t, KVH, D, seed=1), _randn(B, t, KVH, D, seed=2)
+def test_chunk_attention_plain_matches_pallas(offset, t, kv_len, heads):
+    h, kvh, d = HEAD_SHAPES[heads]
+    q, k, v = _randn(B, C, h, d), _randn(B, t, kvh, d, seed=1), _randn(B, t, kvh, d, seed=2)
     want = ref_ca.chunk_attention_pallas(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal_offset=offset,
         kv_len=kv_len, block_q=C, block_k=min(t, 16), interpret=True, return_state=True)
     got = ops.chunk_attention(*map(torch.from_numpy, (q, k, v)), causal_offset=offset,
                               kv_len=kv_len, return_state=True)
-    _close(got, want, 1e-5)
+    _close(got, want, 1e-5, scaled=heads != "d16")
     assert ops.LAUNCHES["chunk_attention"] == 0      # the CPU never launches
 
 
@@ -207,19 +218,26 @@ K1_MASKS = {"causal": lambda c: (0, c, c), "full": lambda c: (c, c, c),
 # plain tensor-core P·V), which must miss the card's 1e-3 check
 K1_CASES = [(mask, kind, True) for mask in K1_MASKS for kind in ("bf16", "int8", "fp8")] \
     + [("causal", "bf16", False)]
+# (H, KVH, D) of the models whose K1 runs the tensor-core body: qwen3-8b
+# (and qwen2-moe-a2.7b's D 128), granite-3-2b, granite-moe-3b-a800m (G 3),
+# stablelm-3b (D 80, MHA)
+K1_HEADS = {"qwen3-8b": (32, 8, 128), "granite-3-2b": (32, 8, 64),
+            "granite-moe-3b-a800m": (24, 8, 64), "stablelm-3b": (32, 32, 80)}
 
 
+@pytest.mark.parametrize("heads", list(K1_HEADS))
 @pytest.mark.parametrize("mask,kind,split", K1_CASES)
-def test_k1_tile_algorithm_matches_plain(mask, kind, split):
+def test_k1_tile_algorithm_matches_plain(mask, kind, split, heads):
     """K1's tensor-core tile algorithm (hi/lo P·V, k scale on the scores, v
-    scale in p) against ``chunk_attention_plain`` at qwen3-8b's head shape
-    (H 32, KVH 8, D 128; B and C cut to 1 and 128): acc, m and l within
-    1e-5 of their max|ref| — 100x inside the card's 1e-3 check. Without the
-    split (``split=False``) acc is off by more than that 1e-3 of max|acc|:
-    the split is what keeps K1 inside the check."""
+    scale in p) against ``chunk_attention_plain`` at each model's head
+    shape (B and C cut to 1 and 128): acc, m and l within 1e-5 of their
+    max|ref| — 100x inside the card's 1e-3 check. Without the split
+    (``split=False``) acc is off by more than that 1e-3 of max|acc|: the
+    split is what keeps K1 inside the check."""
     c = 128
+    h, kvh, d = K1_HEADS[heads]
     off, t, kv_len = K1_MASKS[mask](c)
-    q, k, v, ks, vs = _k1_inputs(kind, 1, c, 32, 8, 128, t)
+    q, k, v, ks, vs = _k1_inputs(kind, 1, c, h, kvh, d, t)
     got = _tile_emulation(q, k, v, ks, vs, causal_offset=off, kv_len=kv_len, split=split)
     _, *want = ref.chunk_attention_plain(q, k, v, causal_offset=off, kv_len=kv_len,
                                          k_scale=ks, v_scale=vs)
@@ -397,12 +415,14 @@ def test_k3_tile_algorithm_matches_plain(pt, kind):
 VALIDS = [np.array([1, 0, 1]), np.array([0, 0, 0]), np.array([1, 1, 1])]
 
 
+@pytest.mark.parametrize("heads", list(HEAD_SHAPES))
 @pytest.mark.parametrize("valid", VALIDS, ids=["mixed", "none", "all"])
 @pytest.mark.parametrize("kind", ["float32", "int8", "fp8"])
-def test_pool_attention_plain_matches_pallas(valid, kind):
+def test_pool_attention_plain_matches_pallas(valid, kind, heads):
     s = valid.shape[0]
-    q = _randn(B, C, H, D)
-    k, v = _randn(s, B, C, KVH, D, seed=5), _randn(s, B, C, KVH, D, seed=6)
+    h, kvh, d = HEAD_SHAPES[heads]
+    q = _randn(B, C, h, d)
+    k, v = _randn(s, B, C, kvh, d, seed=5), _randn(s, B, C, kvh, d, seed=6)
     if kind == "float32":
         args, rargs, kw, rkw, tol = (k, v), (k, v), {}, {}, 1e-5
         args = tuple(map(torch.from_numpy, args))
@@ -410,14 +430,14 @@ def test_pool_attention_plain_matches_pallas(valid, kind):
     else:
         kq, rkq, ks = _quant(k, kind, (2, 4))
         vq, rvq, vs = _quant(v, kind, (2, 4))
-        ks = np.broadcast_to(ks, (s, B, C, KVH, 1))[..., 0].copy()
-        vs = np.broadcast_to(vs, (s, B, C, KVH, 1))[..., 0].copy()
+        ks = np.broadcast_to(ks, (s, B, C, kvh, 1))[..., 0].copy()
+        vs = np.broadcast_to(vs, (s, B, C, kvh, 1))[..., 0].copy()
         args, rargs, tol = (kq, vq), (rkq, rvq), 1e-4
         kw = dict(k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
         rkw = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
     want = ref_ops.pool_attention(jnp.asarray(q), *rargs, jnp.asarray(valid), **rkw)
     got = ops.pool_attention(torch.from_numpy(q), *args, torch.from_numpy(valid), **kw)
-    _close(got, want, tol)
+    _close(got, want, tol, scaled=heads != "d16")
     if not valid.any():
         m, l, acc = got
         assert bool((m == NEG_INF).all() and (l == 0).all() and (acc == 0).all())
@@ -440,25 +460,27 @@ def test_pool_attention_group_axis():
 
 # ------------------------------------------------------------------ K3
 
-def _page_store(npages, pt, g=None, seed=11):
+def _page_store(npages, pt, g=None, seed=11, kvh=KVH, d=D):
     lead = () if g is None else (g,)
-    k = _randn(*lead, npages, 2, B, pt, KVH, D, seed=seed)     # [.., P, lps, B, pt, K, D]
-    v = _randn(*lead, npages, 2, B, pt, KVH, D, seed=seed + 1)
+    k = _randn(*lead, npages, 2, B, pt, kvh, d, seed=seed)     # [.., P, lps, B, pt, K, D]
+    v = _randn(*lead, npages, 2, B, pt, kvh, d, seed=seed + 1)
     return k, v
 
 
+@pytest.mark.parametrize("heads", list(HEAD_SHAPES))
 @pytest.mark.parametrize("ppc", [1, 2])
 @pytest.mark.parametrize("kind", ["float32", "int8", "fp8"])
-def test_paged_plain_matches_pallas(ppc, kind):
+def test_paged_plain_matches_pallas(ppc, kind, heads):
     """Shuffled handles, a partial last page (kv_len < ppc*pt), a mixed
     valid row; the port reads a strided layer view of a 2-layer store."""
     s, pt = 3, C // ppc
+    h, kvh, d = HEAD_SHAPES[heads]
     npages = (s + 1) * ppc
     handles = np.random.default_rng(2).permutation(npages)[: s * ppc].astype(np.int32)
     valid = np.array([1, 0, 1], np.int32)
     kv_len = C - 5
-    q = _randn(B, C, H, D)
-    k, v = _page_store(npages, pt)
+    q = _randn(B, C, h, d)
+    k, v = _page_store(npages, pt, kvh=kvh, d=d)
     kw, rkw, tol = {}, {}, 1e-5
     if kind == "float32":
         kt, vt = torch.from_numpy(k), torch.from_numpy(v)
@@ -478,7 +500,7 @@ def test_paged_plain_matches_pallas(ppc, kind):
     got = ops.pool_attention_paged(torch.from_numpy(q), k_l, v_l,
                                    torch.from_numpy(handles), torch.from_numpy(valid),
                                    ppc=ppc, kv_len=kv_len, **kw)
-    _close(got, want, tol)
+    _close(got, want, tol, scaled=heads != "d16")
 
 
 def test_paged_invalid_slots_are_exact_identity():
@@ -528,6 +550,20 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         ops.chunk_attention(q, k, k, kv_len=C + 1)
     with pytest.raises(ValueError):
         ops.pool_attention(q, k[None], k[None], torch.ones(2))      # 2 valid, 1 slot
+
+
+@pytest.mark.parametrize("h,kvh,d", [(4, 2, 64), (4, 2, 80), (6, 2, 16), (24, 8, 64)],
+                         ids=["d64", "d80", "g3", "d64_g3"])
+def test_k5_refuses_head_dims_and_groups_of_k1_to_k3_alone(h, kvh, d):
+    """K1-K3 take head dims 64 and 80 and G = 3; K5 does not, and says so
+    with its own message on the CPU already (never reaching the CUDA side's
+    cudaErrorInvalidValue), while K1 takes the same q / k / v."""
+    q = torch.zeros(2, h, d)
+    k = torch.zeros(2, 8, kvh, d)
+    with pytest.raises(ValueError, match="K5 decode attention"):
+        ops.decode_attention(q, k, k, torch.tensor([3, 8], dtype=torch.int32))
+    out = ops.chunk_attention(q[:, None], k, k, causal_offset=7)
+    assert out.shape == (2, 1, h, d)
 
 
 # ------------------------------------------------------ traversal orders

@@ -106,16 +106,19 @@ def test_dense_forward_matches_reference(granite):
     assert rel.max() < 1e-4, rel.max()
 
 
-def test_init_shapes_and_stds_match_reference():
-    """``init`` draws the reference's shapes and stds; padded stage rows
+@pytest.mark.parametrize("arch", ["qwen3-8b", "qwen2-moe-a2.7b", "granite-moe-3b-a800m"])
+def test_init_shapes_and_stds_match_reference(arch):
+    """``init`` draws the reference's shapes and stds (the MoE leaves
+    router, e_wg / e_wu / e_wd and the shared experts' s_wg / s_wu / s_wd
+    included; no lm_head under tied embeddings); padded stage rows
     (``layer_lead`` past L) are exact zeros."""
-    cfg = replace(get_smoke_config("qwen3-8b"), dtype="float32", num_layers=3)
-    rcfg = ref_replace(ref_smoke("qwen3-8b"), dtype="float32", num_layers=3)
+    cfg = replace(get_smoke_config(arch), dtype="float32", num_layers=3)
+    rcfg = ref_replace(ref_smoke(arch), dtype="float32", num_layers=3)
     tree = _ref_params(rcfg)
     p = T.init(cfg, torch.Generator().manual_seed(0), "cpu")
     flat_ref = {"/".join(str(k.key) for k in path): v for path, v in
                 jax.tree_util.tree_flatten_with_path(tree)[0]}
-    flat = {"embed": p["embed"], "final_norm": p["final_norm"], "lm_head": p["lm_head"],
+    flat = {**{k: v for k, v in p.items() if k != "layers"},
             **{f"layers/{k}": v for k, v in p["layers"].items()}}
     assert set(flat) == set(flat_ref)
     for name, want in flat_ref.items():
@@ -125,5 +128,5 @@ def test_init_shapes_and_stds_match_reference():
             assert abs(got.std().item() / want.std() - 1) < 0.15, name
     staged = T.init(cfg, torch.Generator().manual_seed(0), "cpu", layer_lead=(2, 2))
     assert staged["layers"]["wq"].shape[:2] == (2, 2)
-    assert bool((staged["layers"]["wq"][1, 1] == 0).all())
-    assert bool((staged["layers"]["ln1"][1, 1] == 0).all())
+    for leaf in staged["layers"].values():
+        assert bool((leaf[1, 1] == 0).all())
