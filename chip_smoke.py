@@ -107,7 +107,16 @@ prints no result line):
    K1 and K2): logits against MOCAP's (GPipe's argmax held where MOCAP's
    top-2 margin is above the measured bf16 spread), planted K1 faults, the waves in
    admission order, the four paths' wall times; then GPipe in fp32 against
-   the ``torch`` backends (see ``baselines_phase``).
+   the ``torch`` backends (see ``baselines_phase``);
+8. prefix: cross-request prefix KV reuse on qwen3-8b at full width and
+   depth in bf16 (k = 6 shared chunks of 512): ``prefill_pipeline`` seeded
+   from a ``return_kv`` pool with garbage in the hit region, bit-identical
+   to the unseeded run under qship/cuda, fetch/paged and int8 pages (K1-K3
+   held per launch), ``prefix_hit`` against its closed form, a witness
+   that the garbage shows without the seed; ``ContinuousEngine`` +
+   ``TorchExecutor`` with the prefix cache off and on (logits bit-identical,
+   every wave after the first seeded); a ``HostOffloadStager`` round trip
+   (see ``prefix_phase``).
 
 Then one JSON line of per-kernel numbers and, last, the result line.
 """
@@ -1872,6 +1881,258 @@ def baselines_phase(results: dict) -> None:
     check(not failures, "; ".join(failures))
 
 
+# ------------------------------------------------------------------ prefix
+
+PREFIX_K = 6               # shared chunks: min(p2, M - 1) at N = M = 8
+PREFIX_REQUESTS = 6
+PREFIX_COMBOS = (("qship", "cuda", "auto"), ("fetch", "paged", "auto"),
+                 ("qship", "cuda", "int8"))
+PREFIX_WITNESS_RATIO = 10.0   # the unseeded garbage run against the bf16 spread
+
+
+def prefix_phase(results: dict) -> None:
+    """Cross-request prefix KV reuse on qwen3-8b at full width and depth
+    (36 layers), bf16, the serve geometry (N = M = 8, C = 512, S = 4096,
+    p2 = 6, so k <= 6: 3072 shared tokens), random weights from seed 0.
+
+    - Pipeline leg, for qship/``cuda``, fetch/``paged`` and qship/``cuda``
+      on int8 pages: ``prefill_pipeline`` on 2 requests, once plain and
+      once with ``return_kv=True`` (the logits of the two must be
+      bit-identical: two unseeded runs); then the same requests with the
+      first k·C tokens replaced by a garbage token, ``prefix_chunks = k``
+      and that pool as the seed, every K1-K3 launch held against its plain
+      version (``shadowed``): the logits must be bit-identical to the
+      unseeded run's, the ``prefix_hit`` ledger bytes equal to
+      ``prefix_saved_model``, and the seed unchanged. The witness: the same
+      garbage with ``prefix_chunks = 0`` must move the logits by more than
+      PREFIX_WITNESS_RATIO x the bf16 spread (the p32 witness backend
+      against the kernels on the unseeded requests, as in ``serve_model``).
+    - Engine leg: ``ContinuousEngine`` + ``TorchExecutor`` (qship/``cuda``,
+      ``max_batch`` 2) on PREFIX_REQUESTS requests sharing their first k
+      chunks, ``prefix_cache`` "off" and "on": the first wave cold and every
+      later one seeded with k; each request's logits bit-identical between
+      off and on; ``prefix_hits`` >= 4 and equal to the analytic executor's
+      scheduler on the same stream. Prints the untraced wave walls and the
+      seed / snapshot copy seconds and GB/s.
+    - Cold tier: a ``HostOffloadStager`` round trip of one stage's pool
+      (every page, k and v), byte-equal, with the measured D2H / H2D rates
+      beside a plain pinned-memory copy of the same bytes.
+
+    The K1-K3 launches of the pipeline and engine legs go into the kernels
+    line under "prefix"."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core import attention
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core import pipeline as pp
+    from repro_torch.core.staging import init_staged
+    from repro_torch.kernels import ops
+    from repro_torch.kvstore.pages import POOL_FIELDS as fields
+    from repro_torch.kvstore.pages import PagedPool
+    from repro_torch.kvstore.tiers import HostOffloadStager
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.obs.telemetry import prefix_saved_model
+    from repro_torch.runtime.engine import (ContinuousEngine, EngineConfig,
+                                            SimExecutor, TorchExecutor)
+
+    arch, k = "qwen3-8b", PREFIX_K
+    seq, n, m = N_CHUNKS * CHUNK, N_STAGES, N_CHUNKS
+    cfg = get_config(arch)
+
+    def run_cfg(remote, pool, kv, attn="cuda"):
+        return RunConfig(num_chunks=m, num_stages=n, remote_attn=remote,
+                         attn_backend=attn, pool_backend=pool, kv_dtype=kv)
+
+    plan0 = pp.build_plan(cfg, n, seq, run_cfg("qship", "cuda", "auto"))
+    check(plan0.p2 == k and min(plan0.p2, m - 1) == k, f"p2 {plan0.p2}, expected {k}")
+    staged = init_staged(cfg, plan0, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    toks = np.stack([r.tokens for r in make_requests(BATCH, seq, cfg.vocab_size, seed=0)])
+    garb = toks.copy()
+    garb[:, :k * CHUNK] = 7
+    log(f"[prefix] {arch} bf16, {cfg.num_layers} layers, N={n} M={m} C={CHUNK} "
+        f"p2={plan0.p2}: k = {k} ({k * CHUNK} shared tokens), {BATCH} requests a wave")
+
+    def call(plan, tk, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pp.prefill_pipeline(cfg, staged, tk, plan, device="cuda", **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def frac(got, want) -> float:
+        return float((got - want).abs().max() / want.abs().max())
+
+    def pool_gb(pool) -> float:
+        return sum(x.numel() * x.element_size() for x in (getattr(pool, f) for f in fields)
+                   if x is not None) / 1e9
+
+    # the bf16 spread: the p32 witness backend against the kernels
+    with swapped(attention, "_BACKENDS", dict(attention._BACKENDS, torch=p32_witness())):
+        wit, _ = call(pp.build_plan(cfg, n, seq, run_cfg("qship", "torch", "auto", "torch")),
+                      toks)
+    ops.reset_launches()
+    failures = []
+    spread = None
+    last_kv = first_kv = None
+    for remote, pool, kv in PREFIX_COMBOS:
+        name = f"{remote}/{pool}/{kv}"
+        plan = pp.build_plan(cfg, n, seq, run_cfg(remote, pool, kv))
+        base0, t_plain = call(plan, toks)
+        (base, kvp), t_kv = call(plan, toks, return_kv=True)
+        if spread is None:
+            spread = frac(base, wit)
+            log(f"  bf16 spread (p32 witness vs the kernels, unseeded): {spread:.3e} "
+                "of max|logit|")
+        seed = PagedPool(*(None if getattr(kvp, f) is None else getattr(kvp, f).clone()
+                           for f in fields))
+        worst = [0.0]
+        with contextlib.ExitStack() as stack:
+            for kind in ATTN_KERNELS:
+                stack.enter_context(swapped(ops, kind, shadowed(getattr(ops, kind), kind,
+                                                               worst)))
+            (seeded, led), t_seed = call(plan, garb, prefix_chunks=k, prefix_pool=kvp,
+                                         return_ledger=True)
+        unseeded_garb, t_garb = call(plan, garb, prefix_chunks=0, prefix_pool=kvp)
+        model = prefix_saved_model(plan, plan.layers_per_stage, BATCH, CHUNK,
+                                   cfg.num_kv_heads, cfg.resolved_head_dim, k)
+        same_runs = torch.equal(base0, base)
+        bit = torch.equal(seeded, base)
+        kept = all(getattr(seed, f) is None or torch.equal(getattr(seed, f), getattr(kvp, f))
+                   for f in fields)
+        moved = frac(unseeded_garb, base)
+        ratio = moved / max(spread, 1e-30)
+        log(f"  {name}: two unseeded runs bit-identical {same_runs}; seeded (garbage "
+            f"hit region, k={k}) bit-identical {bit}, max abs diff "
+            f"{float((seeded - base).abs().max()):.3e}; every K1-K3 launch vs its plain "
+            f"version: worst {worst[0]:.3e} of its tolerance; prefix_hit "
+            f"{led['prefix_hit']:.0f} B, model {model['ledger_bytes']:.0f} B; seed "
+            f"unchanged {kept}; witness (garbage, k=0) moves the logits {moved:.3e} of "
+            f"max|logit| = {ratio:.1f}x the bf16 spread")
+        log(f"    walls s: plain {t_plain:.4f}, return_kv {t_kv:.4f}, seeded (shadowed) "
+            f"{t_seed:.4f}, witness {t_garb:.4f}; pool {pool_gb(kvp):.3f} GB")
+        if not (same_runs and bit and kept and worst[0] <= 1.0
+                and led["prefix_hit"] == model["ledger_bytes"] > 0
+                and ratio > PREFIX_WITNESS_RATIO):
+            failures.append(f"prefix {name}: unseeded runs equal {same_runs}, seeded "
+                            f"bit-identical {bit}, seed kept {kept}, per-launch worst "
+                            f"{worst[0]}, prefix_hit {led['prefix_hit']} vs "
+                            f"{model['ledger_bytes']}, witness {ratio}x the spread")
+        last_kv = (plan, kvp)
+        if first_kv is None:
+            first_kv = kvp
+        del seed, seeded, base0, base, unseeded_garb
+    del wit
+
+    # ---- engine leg: ContinuousEngine + TorchExecutor, off and on
+    run = run_cfg("qship", "cuda", "auto")
+    reqs = lambda: make_requests(PREFIX_REQUESTS, seq, cfg.vocab_size, seed=0,
+                                 shared_prefix=k * CHUNK)
+
+    def engine(mode, executor):
+        ec = EngineConfig(model=cfg, num_stages=n, tp=1, num_chunks=m, max_batch=BATCH,
+                          buckets=(seq,), partition="uniform", prefix_cache=mode)
+        eng = ContinuousEngine(ec, executor)
+        for r in reqs():
+            eng.submit(r)
+        eng.run_until_drained()
+        return eng
+
+    served = {}
+    for mode in ("off", "on"):
+        ex = TorchExecutor(cfg, staged, run, device="cuda")
+        eng = engine(mode, ex)
+        check(len(eng.done) == PREFIX_REQUESTS, f"prefix engine {mode}: {len(eng.done)} done")
+        served[mode] = (eng, ex, {r.rid: r.result for r in eng.done})
+    eng, ex, on = served["on"]
+    off = served["off"][2]
+    ks = [w["prefix_chunks"] for w in ex.waves]
+    same = [rid for rid in on if np.array_equal(on[rid], off[rid])]
+    stats = eng.prefix_stats()
+    sim = engine("on", SimExecutor(cfg, cm.TPU_V5E)).prefix_stats()
+    gbs = lambda b, s: b / s / 1e9 if s else float("nan")
+    log(f"  engine (ContinuousEngine + TorchExecutor, qship/cuda, {PREFIX_REQUESTS} "
+        f"requests sharing {k} chunks, max_batch {BATCH}): seeded k per wave {ks}; logits "
+        f"off vs on bit-identical for {len(same)}/{len(on)} requests; prefix_hits "
+        f"{stats['prefix_hits']} (the analytic executor's scheduler: "
+        f"{sim['prefix_hits']}); stats {stats}")
+    log(f"    untraced wave walls s, off {[round(w['dur'], 4) for w in served['off'][1].waves]}"
+        f", on {[round(w['dur'], 4) for w in ex.waves]}; card: {card_clocks()}")
+    for i, w in enumerate(ex.waves):
+        log(f"    on wave {i}: seed H2D {w.get('seed_h2d_s', 0.0):.4f} s for "
+            f"{w.get('seed_bytes', 0.0) / 1e9:.3f} GB "
+            f"({gbs(w.get('seed_bytes', 0.0), w.get('seed_h2d_s', 0.0)):.2f} GB/s, "
+            f"includes the stack on the card); snapshot D2H {w['snap_d2h_s']:.4f} s for "
+            f"{w['snap_bytes'] / 1e9:.3f} GB ({gbs(w['snap_bytes'], w['snap_d2h_s']):.2f} "
+            "GB/s, includes the pinned allocation)")
+    # the executor's snapshot again, once its first pinned blocks are freed:
+    # the rate once the seed cache is full and evicted snapshots recycle
+    snap_bytes = 0.0
+    for rep in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snaps = [ex._snapshot(first_kv, i) for i in range(BATCH)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        snap_bytes = sum(x.numel() * x.element_size() for e in snaps for x in e.values()
+                         if x is not None)
+        log(f"    snapshot of a wave's {BATCH} requests again (#{rep}; pinned blocks "
+            f"recycled from #1 on): {dt:.4f} s for {snap_bytes / 1e9:.3f} GB "
+            f"({gbs(snap_bytes, dt):.2f} GB/s)")
+        del snaps
+    if not (ks == [0] + [k] * (len(ks) - 1) and len(same) == len(on)
+            and stats["prefix_hits"] >= 4 and stats["prefix_hits"] == sim["prefix_hits"]):
+        failures.append(f"prefix engine: k per wave {ks}, bit-identical {len(same)}/"
+                        f"{len(on)}, hits {stats['prefix_hits']} (sim {sim['prefix_hits']})")
+    launches = dict(ops.LAUNCHES)
+    log(f"  launches on the prefix path (pipeline and engine legs): {launches}")
+    for name in ATTN_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the prefix path")
+        results[name].setdefault("launches_by_path", {})["prefix"] = launches[name]
+    del served, eng, ex
+
+    # ---- cold tier: one stage's pool to pinned host memory and back
+    plan, kvp = last_kv
+    stage = [getattr(kvp, f)[0] for f in fields if getattr(kvp, f) is not None]
+    want = [x.clone() for x in stage]
+    nbytes_ = sum(x.numel() * x.element_size() for x in stage)
+    stager = HostOffloadStager(device="cuda")
+    ids = list(range(stage[0].shape[0]))
+    trips = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, x in enumerate(stage):
+            stager.offload(f"pool{i}", x, ids)
+        t1 = time.perf_counter()
+        zeroed = all(int(torch.count_nonzero(x.view(torch.uint8) if x.element_size() == 1
+                                             else x)) == 0 for x in stage)
+        t2 = time.perf_counter()
+        for i, x in enumerate(stage):
+            stager.restore(f"pool{i}", x)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        trips.append((t1 - t0, t3 - t2, zeroed))
+    equal = all(torch.equal(x.view(torch.uint8), w.view(torch.uint8))
+                for x, w in zip(stage, want))
+    dev = torch.empty(nbytes_, dtype=torch.uint8, device="cuda")
+    host = torch.empty(nbytes_, dtype=torch.uint8, pin_memory=True)
+    d2h = time_ms(lambda: host.copy_(dev, non_blocking=True), iters=5, warmup=1)
+    h2d = time_ms(lambda: dev.copy_(host, non_blocking=True), iters=5, warmup=1)
+    log(f"  cold tier: HostOffloadStager round trip of stage 0's pool ({plan.codec.name}, "
+        f"{len(ids)} pages x {len(stage)} tensors, {nbytes_ / 1e9:.4f} GB): byte-equal "
+        f"{equal}; offload (gather + D2H + zero) / restore (H2D + scatter) GB/s "
+        + ", ".join(f"{gbs(nbytes_, a):.2f} / {gbs(nbytes_, b):.2f}" for a, b, _ in trips)
+        + f"; zeroed between {all(z for _, _, z in trips)}; plain pinned copy of the same "
+        f"bytes: D2H {gbs(nbytes_, d2h / 1e3):.2f} GB/s, H2D {gbs(nbytes_, h2d / 1e3):.2f} GB/s")
+    if not (equal and all(z for _, _, z in trips)):
+        failures.append(f"cold tier: byte-equal {equal}, zeroed {[z for _, _, z in trips]}")
+    del staged, last_kv, first_kv, kvp, stage, want, dev, host, stager
+    torch.cuda.empty_cache()
+    check(not failures, "; ".join(failures))
+
+
 # ------------------------------------------------------------------ decode
 
 # K5 launches a decode step: one per attention layer (qwen3-8b 36 layers,
@@ -2242,6 +2503,9 @@ def main() -> int:
         t0 = time.perf_counter()
         baselines_phase(results)
         log(f"[baselines + continuous] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        prefix_phase(results)
+        log(f"[prefix] {time.perf_counter() - t0:.1f} s")
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

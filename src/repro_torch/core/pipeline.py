@@ -12,6 +12,7 @@ the reference, and the ring shift is a roll by one on the stage axis.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -25,13 +26,18 @@ from repro_torch.core.stagestep import (StageCtx, hybrid_stage_step,
                                        ssm_stage_step, tfm_stage_step)
 from repro_torch.core.staging import (Params, alloc_kv_pool,  # noqa: F401
                                       alloc_ssm_state, stage_params)
+from repro_torch.kvstore import pages as kvpages
+from repro_torch.kvstore.pages import POOL_FIELDS, PagedPool
 from repro_torch.kvstore.quant import torch_dtype
 from repro_torch.models import layers as L
 
 
 @torch.no_grad()
 def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePlan,
-                     *, device=None, return_ledger: bool = False):
+                     *, device=None, return_ledger: bool = False,
+                     prefix_chunks: int = 0,
+                     prefix_pool: Optional[PagedPool] = None,
+                     return_kv: bool = False):
     """Chunked-pipeline prefill of ``tokens`` [B, S]; returns the fp32
     next-token logits [B, Vpad] (prefill only: one output token).
 
@@ -39,13 +45,47 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
     ``device="cpu"`` runs on the CPU). ``return_ledger`` also returns the
     CollectiveLedger: per-category wire bytes summed over stages, as the
     reference's ``return_ledger`` does. A ``gpipe`` plan runs the
-    microbatch baseline (``core.gpipe``, dense only), which has no ledger."""
+    microbatch baseline (``core.gpipe``, dense only), which has no ledger.
+
+    ``prefix_chunks`` / ``prefix_pool`` / ``return_kv``: the device half of
+    the prefix KV cache (``kvstore.prefix``; dense and MoE only). The first
+    ``prefix_chunks`` chunks of every sequence read cached KV from
+    ``prefix_pool`` (a stage-stacked ``PagedPool`` snapshot [N, P, lps, B,
+    ...], as ``return_kv`` gives it) instead of the KV they just computed:
+    ``core.remote.write_pools`` sends those chunks' writes to the scratch
+    slot, charges the ``prefix_hit`` ledger key, and copies the chunks' own
+    pages from the snapshot into the freshly allocated pool. The snapshot
+    is read, never aliased or written. ``return_kv`` also returns the
+    final stage-stacked pool (scales included when quantized), with every
+    own chunk (index < p2) in its own slot: where MBKR lent that slot to the
+    pair's spill after the chunk's last read (the first half of the
+    stages), the chunk's pages are put back, so that any hit length up to
+    ``min(p2, M - 1)`` can be seeded from it. (The reference returns the
+    pool as it ends and seeds it whole at the start; its seeded logits then
+    differ from the unseeded run's once ``prefix_chunks`` reaches a lent
+    slot, chunk 4 at N = M = 8.) Return order is
+    ``logits[, ledger][, kv]``: the reference's telemetry slot between
+    ledger and kv is absent, because ``return_telemetry`` is not ported
+    yet."""
+    armed = bool(prefix_chunks) or prefix_pool is not None or return_kv
     if plan.mode == "gpipe":
         if return_ledger:
             raise ValueError("gpipe has no MBKR transport ledger")
+        if armed:
+            raise ValueError("the prefix KV cache rides the chunked-pipeline "
+                             "paged pool only, not gpipe")
         return gpipe_prefill(cfg, staged, tokens, plan, device=device)
     if plan.mode not in ("mocap", "terapipe"):
         raise ValueError(f"unknown mode {plan.mode!r}")
+    if armed and cfg.family not in ("dense", "moe"):
+        raise ValueError("the prefix KV cache needs the pure paged-pool "
+                         f"families (dense / moe), not {cfg.family!r}")
+    if prefix_chunks and prefix_pool is None:
+        raise ValueError("prefix_chunks > 0 requires a seeded prefix_pool")
+    if not 0 <= prefix_chunks <= min(plan.p2, plan.num_chunks - 1):
+        raise ValueError(f"prefix_chunks {prefix_chunks}: prefix hits must stay "
+                         "within own-resident, non-final chunks "
+                         f"(<= min(p2 {plan.p2}, M - 1))")
     dev = devices.resolve(device)
     if staged["embed"].device.type != dev.type:
         raise ValueError(f"params on {staged['embed'].device}, run on {dev}")
@@ -65,6 +105,9 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
     if family not in ("dense", "moe", "ssm", "hybrid"):
         raise ValueError(f"family {family!r} is not ported")
     pool = alloc_kv_pool(cfg, plan, b, device=dev)          # None for ssm
+    if prefix_pool is not None:
+        _check_seed(pool, prefix_pool)
+    lent = []      # own chunks in slots the pair's spill overwrites later
     state = (alloc_ssm_state(cfg, plan, b, device=dev)
              if family in ("ssm", "hybrid") else None)
     x = torch.zeros((n, b, c, cfg.d_model), dtype=dt, device=dev)
@@ -73,7 +116,8 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
     for t in range(plan.num_ticks):
         phase = t - stages
         ctx = StageCtx(cfg=cfg, plan=plan, stage=stages, phase=phase,
-                       first_half=first_half, scale=scale, transport=transport)
+                       first_half=first_half, scale=scale, transport=transport,
+                       prefix_chunks=prefix_chunks, prefix_pool=prefix_pool)
         # stage 0 embeds chunk clip(t); the others take the ring buffer
         tc = min(max(t, 0), m - 1)
         x_emb = L.embed_lookup(staged["embed"], tokens[:, tc * c:(tc + 1) * c])
@@ -89,6 +133,14 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
         else:
             x_out, pool, led = tfm_stage_step(ctx, staged["stage_layers"], x,
                                               pool, led)
+        if return_kv:
+            own = ((phase >= 0) & (phase < plan.p2)
+                   & np.isin(plan.own_slot[np.clip(phase, 0, m - 1)],
+                             plan.host_slots_used))
+            if own.any():
+                hs = np.flatnonzero(own)
+                pages = plan.slot_pages[plan.own_slot[phase[hs]]]
+                lent.append((hs, pages, kvpages.take_pages(pool, hs, pages)))
         # the last token's hidden state, at the last stage's last chunk
         for s in np.flatnonzero((stages == n - 1) & (phase == m - 1)):
             x_last[s] = x_out[s, :, -1].float()
@@ -99,6 +151,25 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
     h = L.rms_norm(x_last[0][:, None, :].to(dt), staged["final_norm"], cfg.norm_eps)
     w = staged["lm_head"] if "lm_head" in staged else staged["embed"].T
     logits = L.unembed_logits(h, w, scale=cfg.logits_scaling)[:, 0]
+    out = [logits]
     if return_ledger:
-        return logits, tx.ledger_to_dict(led)
-    return logits
+        out.append(tx.ledger_to_dict(led))
+    if return_kv:
+        for hs, pages, taken in lent:
+            kvpages.put_pages(pool, hs, pages, taken)
+        out.append(pool)
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+def _check_seed(pool: PagedPool, seed: PagedPool) -> None:
+    """The snapshot ``seed`` has the fresh ``pool``'s layout and device."""
+    for name in POOL_FIELDS:
+        dst, src = getattr(pool, name), getattr(seed, name)
+        if (dst is None) != (src is None):
+            raise ValueError(f"prefix_pool.{name}: the snapshot's codec differs "
+                             "from the plan's")
+        if dst is not None and (tuple(src.shape) != tuple(dst.shape)
+                                or src.dtype != dst.dtype or src.device != dst.device):
+            raise ValueError(
+                f"prefix_pool.{name} {tuple(src.shape)} {src.dtype} on {src.device} "
+                f"vs the plan's pool {tuple(dst.shape)} {dst.dtype} on {dst.device}")

@@ -22,10 +22,11 @@ import torch
 
 from repro_torch.core.attention import (AttentionBackend, State, attn_combine,
                                         attn_init, pool_scan)
-from repro_torch.core.transport import Ledger
+from repro_torch.core.transport import Ledger, charge
 from repro_torch.kvstore import pages as kvpages
 from repro_torch.kvstore import quant as kvquant
 from repro_torch.kvstore.quant import torch_dtype
+from repro_torch.obs.telemetry import chunk_stored_bytes
 
 
 def pair_phase(ctx) -> np.ndarray:
@@ -156,7 +157,17 @@ def write_pools(ctx, pool: kvpages.PagedPool, stage_k: torch.Tensor,
     [N, lps, B, C, K, D]. Each stage encodes its fresh chunk once and
     scatters it to its own slot (phase < p2) or, under mocap, ships it
     cross-half to the pair, which scatters it under its host table.
-    Inactive phases write the scratch slot. The own write comes first."""
+    Inactive phases write the scratch slot. The own write comes first.
+
+    With the prefix path on (``ctx.prefix_chunks = k > 0``) the first ``k``
+    phases write their recomputed KV to the scratch slot, as in the
+    reference, and each such stage charges the ``prefix_hit`` ledger key the
+    chunk's stored bytes (``obs.telemetry.prefix_saved_model`` is its
+    closed form). Their own slot then takes the chunk's pages from the seed
+    (``ctx.prefix_pool``, the cached prefix KV): copied at the phase the
+    chunk is written, not at the start of the run, because MBKR lends an
+    own slot to the pair's spill earlier in the cycle on the second half
+    of the stages, which would overwrite a seed copied at the start."""
     plan = ctx.plan
     codec = plan.codec
     n, m = plan.num_stages, plan.num_chunks
@@ -165,9 +176,20 @@ def write_pools(ctx, pool: kvpages.PagedPool, stage_k: torch.Tensor,
     pidx = np.clip(phase, 0, m - 1)
     own_slot = np.where(active & (phase < plan.p2), plan.own_slot[pidx],
                         plan.scratch)
+    if ctx.prefix_chunks > 0:
+        hit = active & (phase < ctx.prefix_chunks)
+        own_slot = np.where(hit, plan.scratch, own_slot)
+        _, lps, b, c, kvh, hd = stage_k.shape
+        led = charge(led, "prefix_hit",
+                     chunk_stored_bytes(plan, lps, b, c, kvh, hd), hit)
     kq, ksc = kvquant.encode(codec, stage_k, pages=plan.pages_per_chunk)
     vq, vsc = kvquant.encode(codec, stage_v, pages=plan.pages_per_chunk)
     kvpages.scatter_chunk_raw(pool, plan.slot_pages[own_slot], kq, vq, ksc, vsc)
+    if ctx.prefix_chunks > 0 and hit.any():
+        hs = np.flatnonzero(hit)
+        pages = plan.slot_pages[plan.own_slot[phase[hs]]]
+        kvpages.put_pages(pool, hs, pages,
+                          kvpages.take_pages(ctx.prefix_pool, hs, pages))
 
     if plan.p2 < m and plan.mode == "mocap":
         pp = pair_phase(ctx)                 # the chunk my pair just computed

@@ -15,7 +15,7 @@ host before a tick runs, so gating needs no device round trip.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -26,6 +26,7 @@ from repro_torch.core.attention import (attn_finish, attn_init, get_backend,
                                         group_queries, pool_scan)
 from repro_torch.core.plan import PipelinePlan
 from repro_torch.core.transport import Ledger, StageAxisTransport
+from repro_torch.kvstore.pages import PagedPool
 from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -44,6 +45,11 @@ class StageCtx:
     first_half: np.ndarray    # [N] bool: stage < N/2
     scale: float
     transport: StageAxisTransport
+    # hit-prefix length (chunks): the first k chunks' own pages come from
+    # ``prefix_pool``, the cached prefix KV (``kvstore.prefix``), and their
+    # recomputed KV goes to the scratch slot. 0 = the prefix path is off
+    prefix_chunks: int = 0
+    prefix_pool: Optional[PagedPool] = None
 
     @property
     def active(self) -> np.ndarray:

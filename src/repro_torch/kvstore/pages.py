@@ -89,6 +89,9 @@ class PagedPool:
     v_scale: Optional[torch.Tensor] = None
 
 
+POOL_FIELDS = ("k", "v", "k_scale", "v_scale")
+
+
 def alloc_pool(geom: PageGeometry, codec: Q.KVCodec, lps: int, b: int,
                kvh: int, hd: int, *, stages: Optional[int] = None,
                device=None) -> PagedPool:
@@ -221,3 +224,28 @@ def gather_chunks(k_l: torch.Tensor, v_l: torch.Tensor,
     if ks_l is not None:
         ks, vs = sc(ks_l), sc(vs_l)
     return pay(k_l), pay(v_l), ks, vs
+
+
+# ------------------------------------------------------- whole-page copies
+
+def take_pages(pool: PagedPool, stages, pages) -> PagedPool:
+    """Copies of the pages ``pages`` [n, ppc] of the stages ``stages`` [n]
+    of a stage-stacked pool, every layer and batch row, scales included:
+    payloads [n, ppc, lps, B, pt, K, D]."""
+    st = _index(stages, pool.k.device)[:, None]
+    pg = _index(pages, pool.k.device)
+    return PagedPool(*(None if getattr(pool, f) is None
+                       else Q.as_bytes(getattr(pool, f))[st, pg] for f in POOL_FIELDS))
+
+
+def put_pages(pool: PagedPool, stages, pages, taken: PagedPool) -> PagedPool:
+    """Inverse of ``take_pages``: writes ``taken`` back to the pages
+    ``pages`` [n, ppc] of the stages ``stages`` [n], in place. ``taken``
+    may come from another pool of the same layout (on any device)."""
+    st = _index(stages, pool.k.device)[:, None]
+    pg = _index(pages, pool.k.device)
+    for f in POOL_FIELDS:
+        dst, src = getattr(pool, f), getattr(taken, f)
+        if dst is not None:
+            Q.as_bytes(dst)[st, pg] = src.to(dst.device)
+    return pool

@@ -32,6 +32,10 @@ class KVCodec:
     def torch_dtype(self) -> torch.dtype:
         return torch_dtype(self.storage_dtype)
 
+    def scale_bytes_per_page(self, lps: int, b: int, kvh: int) -> float:
+        """fp32 scale entries per page (k + v handled per-tensor by caller)."""
+        return 4.0 * lps * b * kvh if self.quantized else 0.0
+
 
 _FLOAT_BYTES = {"float32": 4.0, "bfloat16": 2.0, "float16": 2.0}
 

@@ -27,6 +27,14 @@ production geometry (N 16, tp 16, M 16, LBCP partitions; no card needed):
 
     python -m repro_torch.launch.serve --executor sim --scheduler continuous \\
         --policy edf --arrival-rate 4 --slo-ms 3000 --requests 12 --seq 30000
+
+``--prefix-cache on`` (continuous scheduler) arms cross-request prefix KV
+reuse (``kvstore.prefix``): the radix index prices a resident prefix with a
+suffix-only lease, and the torch executor seeds each wave whose requests
+share a cached prefix from pool snapshots; ``prefix_stats()`` is printed
+after the run. ``--kv-offload`` prints the analytic hot / warm / cold page
+placement of the largest bucket (``kvstore.tiers.plan_tiers``) under the
+cost-model profile, with the reference's TPU host-link rate.
 """
 from __future__ import annotations
 
@@ -51,6 +59,10 @@ from repro_torch.runtime.engine import (ContinuousEngine, EngineConfig,
 from repro_torch.sched import poisson_arrivals
 
 SIM_BUCKETS = (8192, 32768, 131072)
+# the reference's host<->device staging rate for the cold tier (B/s): an
+# assumption it made for a TPU host link (``repro.launch.serve.H2D_BW``),
+# carried as reference data; it is not the H100's link
+REF_TPU_H2D_BW = 16e9
 
 
 def _csv_ints(text: str):
@@ -87,6 +99,19 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--ssm-backend", choices=SSM_BACKENDS, default="cuda",
                     help="SSD inner loop of mamba2 / zamba2 layers")
     ap.add_argument("--kv-dtype", choices=("auto", "int8", "fp8"), default="auto")
+    ap.add_argument("--kv-offload", action="store_true",
+                    help="plan the cold KV tier (kvstore.tiers) and print the "
+                         "analytic tier summary")
+    ap.add_argument("--prefix-cache", choices=("off", "on"), default="off",
+                    help="radix prefix KV index (kvstore.prefix): admitted "
+                         "requests whose leading chunks are already resident "
+                         "lease only their novel suffix, and the torch "
+                         "executor seeds their pools (continuous scheduler)")
+    ap.add_argument("--prefix-min-pages", type=int, default=1,
+                    help="ignore prefix hits smaller than this many pages")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="the first this many tokens are the same in every "
+                         "request (a shared system prompt)")
     ap.add_argument("--smoke", action="store_true", help="the small config")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
@@ -98,7 +123,8 @@ def build(args: argparse.Namespace):
     hw = cm.resolve_profile(args.profile)
     slo = args.slo_ms / 1e3 if args.slo_ms else None
     knobs = dict(max_batch=args.max_batch, kv_dtype=args.kv_dtype,
-                 policy=args.policy, slo=slo, hw=hw)
+                 policy=args.policy, slo=slo, hw=hw, prefix_cache=args.prefix_cache,
+                 prefix_min_pages=args.prefix_min_pages)
     if args.executor == "sim":
         cfg = get_config(args.arch)
         ec = EngineConfig(model=cfg, num_stages=16, tp=16, num_chunks=16,
@@ -126,17 +152,67 @@ def build(args: argparse.Namespace):
     return cfg, engine, executor
 
 
+def print_tier_summary(cfg, ec: EngineConfig) -> None:
+    """``--kv-offload``: plan the hot / warm / cold page placement for the
+    engine's largest bucket and print it (``kvstore.tiers``; analytic
+    prefetch scheduled off the same chunk-cost vectors the scheduler uses).
+    The budget and tick times are the cost-model profile's and the link
+    rate is the reference's TPU assumption, so the line is analytic, under
+    the profile's name: no number in it is the card's."""
+    from repro_torch.core import mbkr
+    from repro_torch.kvstore import pages as kvp
+    from repro_torch.kvstore import quant as kvq
+    from repro_torch.kvstore import tiers as kvt
+    m, n = ec.num_chunks, ec.num_stages
+    bucket = max(ec.buckets)
+    c = -(-bucket // m)
+    mplan = mbkr.plan(m, n, mbkr=ec.mbkr and not cfg.attn_free)
+    geom = kvp.page_geometry(c, mplan.num_slots, ec.kv_page_tokens)
+    tbl = kvp.build_slot_pages(geom)
+    codec = kvq.get_codec(ec.kv_dtype, cfg.dtype)
+    sm = cm.StageModel.build(cfg, n, ec.tp)
+    dur, _, _, _, _ = cm.chunk_cost_arrays(sm, [c] * m, ec.hw, mbkr_plan=mplan)
+    # per-STAGE budget: tp chips' memory minus the stage's weight slice
+    tp = max(ec.tp, 1)
+    hot = max(ec.hw.hbm_cap * tp - cfg.param_count() * 2 / n, 0.0) * 0.5
+    host_slots = (np.unique(np.concatenate(
+        [mplan.host_slot_a[mplan.p2:], mplan.host_slot_b[mplan.p2:]]))
+        if mplan.p2 < m else None)
+    plan = kvt.plan_tiers(
+        geom, codec, tbl, mplan.own_slot, mplan.p2, m,
+        kvt.TierSpec(hot_bytes=hot, cold_bw=REF_TPU_H2D_BW),
+        lps=sm.attn_layers, b=1, kvh=cfg.num_kv_heads,
+        hd=cfg.resolved_head_dim, tick_s=dur, host_slots=host_slots)
+    s = plan.summary()
+    print(f"[kv-offload] analytic ({ec.hw.name}; cold link REF_TPU_H2D_BW, the "
+          f"reference's TPU host-link assumption): bucket {bucket} "
+          f"kv_dtype={codec.name} page_tokens={geom.page_tokens}: pages {s['pages']} | "
+          f"hot {s['hot_bytes']/1e9:.2f} GB | warm {s['warm_bytes']/1e9:.2f} GB"
+          f" | cold {s['cold_bytes']/1e9:.2f} GB | "
+          f"prefetch ops {s['prefetch_ops']} "
+          f"(peak {s['worst_tick_bw']/1e9:.2f} GB/s vs {REF_TPU_H2D_BW/1e9:.0f}) | "
+          f"{'FEASIBLE' if s['feasible'] else 'INFEASIBLE'}")
+
+
 def make_requests(n: int, seq: int, vocab: int, seed: int, *,
-                  arrival_rate: float = 0.0, tokens: bool = True) -> List[Request]:
+                  arrival_rate: float = 0.0, tokens: bool = True,
+                  shared_prefix: int = 0) -> List[Request]:
     """``n`` requests of ``seq`` random tokens from ``seed``, arriving as a
     Poisson stream at ``arrival_rate`` (0: all at time 0); ``tokens=False``
-    leaves the tokens out (the analytic executor needs none)."""
+    leaves the tokens out (the analytic executor needs none). The first
+    ``shared_prefix`` tokens of every request are one common draw (from
+    ``seed + 1``)."""
     arrivals = poisson_arrivals(arrival_rate, n, seed=seed)
     rng = np.random.default_rng(seed)
-    return [Request(rid=i, arrival=float(arrivals[i]), seq_len=seq,
-                    tokens=(rng.integers(0, vocab, size=seq).astype(np.int64)
-                            if tokens else None))
-            for i in range(n)]
+    common = np.random.default_rng(seed + 1).integers(0, vocab, size=shared_prefix)
+    out = []
+    for i in range(n):
+        toks = None
+        if tokens:
+            toks = rng.integers(0, vocab, size=seq).astype(np.int64)
+            toks[:shared_prefix] = common
+        out.append(Request(rid=i, arrival=float(arrivals[i]), seq_len=seq, tokens=toks))
+    return out
 
 
 def measured_completions(waves) -> dict:
@@ -156,10 +232,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print("note: --arrival-rate requires --scheduler continuous; running "
               "the batch engine as a closed loop (arrivals at t=0)")
         args.arrival_rate = 0.0
+    if args.prefix_cache == "on" and args.scheduler != "continuous":
+        print("note: --prefix-cache on needs --scheduler continuous; the batch "
+              "engine serves without it")
     cfg, eng, ex = build(args)
+    if args.kv_offload:
+        print_tier_summary(cfg, eng.ec)
     for r in make_requests(args.requests, args.seq, cfg.vocab_size, args.seed,
                            arrival_rate=args.arrival_rate,
-                           tokens=args.executor == "torch"):
+                           tokens=args.executor == "torch",
+                           shared_prefix=args.shared_prefix):
         eng.submit(r)
     t0 = time.perf_counter()
     eng.run_until_drained()
@@ -182,6 +264,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
               f"{m['throughput']:.3f} req/s, bubble {m['bubble_frac'] * 100:.1f}%"
               f"{slo_txt}")
         print("admission order: " + " ".join(str(r.rid) for r in eng.done))
+        if args.prefix_cache == "on":
+            print(f"[prefix] {eng.prefix_stats()}")
+            if args.executor == "torch":
+                print("[prefix] seeded chunks per wave: "
+                      + " ".join(str(w["prefix_chunks"]) for w in ex.waves))
     else:
         print(f"completed {m['completed']} requests in {wall:.2f} s wall | engine "
               f"clock ({'measured' if args.executor == 'torch' else 'analytic, ' + hw}) "

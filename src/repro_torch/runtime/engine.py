@@ -44,6 +44,14 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import costmodel as cm
 from repro_torch.core import lbcp, mbkr
 from repro_torch.core import pipeline as pp
+from repro_torch.kvstore import quant as kvquant
+from repro_torch.kvstore.pages import POOL_FIELDS, PagedPool
+from repro_torch.kvstore.prefix import (DeviceSeedCache, PrefixPageCache,
+                                        chunk_hashes)
+
+
+def _nbytes(tensors) -> float:
+    return float(sum(x.numel() * x.element_size() for x in tensors if x is not None))
 
 
 @dataclass
@@ -58,6 +66,10 @@ class Request:
     replays: int = 0
     result: Any = None
     deadline: float = math.inf     # absolute SLO deadline (continuous mode)
+    # chained chunk-content hashes (kvstore.prefix.chunk_hashes): the radix
+    # index key; ContinuousEngine fills them from the tokens when the
+    # prefix cache is on; () = never shared
+    prefix_hashes: Tuple[int, ...] = ()
 
 
 def bucket_of(buckets: Sequence[int], seq_len: int) -> int:
@@ -91,12 +103,16 @@ class EngineConfig:
     slo: Optional[float] = None        # seconds; deadline = arrival + slo
     inflight: int = 2                  # MBKR slot pools provisioned
     trace: bool = False                # record the scheduler trace
-    prefix_cache: str = "off"          # the prefix KV cache is not ported
+    # cross-request prefix KV reuse (kvstore.prefix): "on" arms the radix
+    # index (ContinuousEngine: an admitted request whose leading chunks are
+    # resident leases only its novel suffix and is priced against the
+    # shorter effective sequence) and the TorchExecutor's seeded pools
+    prefix_cache: str = "off"          # off | on
+    prefix_min_pages: int = 1          # ignore hits smaller than this
 
     def __post_init__(self):
-        if self.prefix_cache != "off":
-            raise ValueError(f"prefix_cache={self.prefix_cache!r}: the prefix KV "
-                             "cache is not ported (off only)")
+        if self.prefix_cache not in ("off", "on"):
+            raise ValueError(f"unknown prefix_cache {self.prefix_cache!r} (off | on)")
         if self.partition not in ("uniform", "lbcp"):
             raise ValueError(f"unknown partition {self.partition!r}")
 
@@ -115,8 +131,7 @@ class CellHandle(Protocol):
     serve CLI; the reference's fleet router). ``ContinuousEngine`` is the
     implementation. Lifecycle: ``submit`` -> ``run_until_drained``
     (re-entrant) -> ``poll``; ``drain`` closes admission for good. The
-    observability and prefix-cache methods of the reference's protocol are
-    not ported yet."""
+    observability methods of the reference's protocol are not ported yet."""
 
     draining: bool
 
@@ -126,8 +141,11 @@ class CellHandle(Protocol):
     def drain(self) -> List["Request"]: ...
     def queue_depth(self) -> int: ...
     def free_lease_bytes(self) -> float: ...
-    def estimate_admission(self, seq_len: int, arrival: float = 0.0
+    def estimate_admission(self, seq_len: int, arrival: float = 0.0,
+                           prefix_hashes: Optional[Sequence[int]] = None
                            ) -> Tuple[float, bool]: ...
+    def prefix_stats(self) -> Dict[str, Any]: ...
+    def prefix_hit_pages(self, prefix_hashes: Sequence[int]) -> int: ...
     def metrics(self) -> Dict[str, Any]: ...
     def records(self) -> List[Any]: ...
     def recalibrate(self, hw: Any) -> Any: ...
@@ -190,7 +208,21 @@ class TorchExecutor:
     ``device`` (default the card). One plan per (seq, chunk count, N) is
     built on first use. Each wave's wall time, taken around work that ends
     in a device synchronise, lands in ``self.waves`` (start relative to the
-    executor's construction)."""
+    executor's construction).
+
+    ``prefix_enabled`` (set by ``ContinuousEngine`` when
+    ``EngineConfig.prefix_cache == "on"``) arms the device half of the
+    prefix cache, as in the reference's ``JaxExecutor``: every wave runs
+    with ``return_kv=True``, and each request's batch element of the final
+    pool is copied to host memory (pinned when on the card) into a
+    per-(seq, M) ``kvstore.prefix.DeviceSeedCache``, keyed by its hash
+    chain. A later wave whose requests all share a cached prefix runs with
+    ``prefix_chunks=k`` (the wave's least match, clamped to ``min(p2,
+    M - 1)``) on a seed stacked from those snapshots on the device. Each
+    wave records ``prefix_chunks``; an armed one also records the seed's
+    and the snapshots' copy times and bytes (``seed_h2d_s``, ``seed_bytes``,
+    ``snap_d2h_s``, ``snap_bytes``), taken outside ``dur``, which stays the
+    pipeline's wall time."""
 
     def __init__(self, cfg: ModelConfig, staged_params, run: RunConfig, *,
                  device=None):
@@ -200,6 +232,10 @@ class TorchExecutor:
         self._plans: Dict[Tuple[int, int, int], pp.PipelinePlan] = {}
         self.waves: List[Dict[str, Any]] = []
         self._epoch = time.perf_counter()
+        self.prefix_enabled = False
+        self.prefix_seed_entries = 8       # DeviceSeedCache LRU bound
+        self._seed_caches: Dict[Tuple[int, int], DeviceSeedCache] = {}
+        self.prefix_device_hit_chunks = 0  # sum of seeded k over waves
 
     def plan_for(self, seq: int, num_chunks: int, num_stages: int) -> pp.PipelinePlan:
         key = (seq, num_chunks, num_stages)
@@ -213,6 +249,44 @@ class TorchExecutor:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # ----------------------------------------------------- device prefix
+    def _seed_cache(self, seq: int, m: int) -> DeviceSeedCache:
+        key = (seq, m)
+        if key not in self._seed_caches:
+            self._seed_caches[key] = DeviceSeedCache(self.prefix_seed_entries)
+        return self._seed_caches[key]
+
+    def _assemble_seed(self, cache: DeviceSeedCache,
+                       chains: List[Tuple[int, ...]], k: int) -> Optional[PagedPool]:
+        """Stack each request's cached batch element on axis 3 into one
+        stage-stacked ``PagedPool`` [N, P, lps, B, ...] on the device, the
+        ``prefix_pool`` input of ``prefill_pipeline``. None if any element
+        is missing."""
+        elems = [cache.lookup(ch, k) for ch in chains]
+        if any(e is None for e in elems):
+            return None
+
+        def stack(f):
+            if elems[0][f] is None:
+                return None
+            return kvquant.stack([e[f].to(self.device, non_blocking=True)
+                                  for e in elems], dim=3)
+        return PagedPool(*(stack(f) for f in POOL_FIELDS))
+
+    def _snapshot(self, kv: PagedPool, i: int) -> Dict[str, Optional[torch.Tensor]]:
+        """Batch element ``i`` of the final pool, copied to host memory."""
+        pin = self.device.type == "cuda"
+        out: Dict[str, Optional[torch.Tensor]] = {}
+        for f in POOL_FIELDS:
+            x = getattr(kv, f)
+            if x is None:
+                out[f] = None
+                continue
+            src = kvquant.as_bytes(x)[:, :, :, i]
+            host = torch.empty(src.shape, dtype=src.dtype, pin_memory=pin)
+            out[f] = host.copy_(src, non_blocking=True).view(x.dtype)
+        return out
+
     def run(self, requests: Sequence[Request], chunks: Sequence[int],
             num_stages: int, tp: int) -> Tuple[float, np.ndarray]:
         """Returns (wave wall seconds, per-stage average chunk time [N])."""
@@ -224,18 +298,49 @@ class TorchExecutor:
         plan = self.plan_for(seq, len(chunks), num_stages)
         toks = np.stack([np.pad(r.tokens, (0, seq - len(r.tokens)))
                          for r in requests]).astype(np.int64)
+        armed = bool(self.prefix_enabled)
+        prefix: Dict[str, Any] = {}
+        k, seed, chains, cache = 0, None, [], None
+        if armed:
+            cache = self._seed_cache(seq, len(chunks))
+            chains = [tuple(r.prefix_hashes or ()) for r in requests]
+            if all(chains):
+                k = min(min(cache.match(ch) for ch in chains),
+                        plan.p2, len(chunks) - 1)
+            if k > 0:
+                self._sync()
+                t = time.perf_counter()
+                seed = self._assemble_seed(cache, chains, k)
+                self._sync()
+                prefix["seed_h2d_s"] = time.perf_counter() - t
+                if seed is None:
+                    k = 0
+                else:
+                    prefix["seed_bytes"] = _nbytes(getattr(seed, f) for f in POOL_FIELDS)
+            self.prefix_device_hit_chunks += k
         self._sync()
         t0 = time.perf_counter()
         out = pp.prefill_pipeline(self.cfg, self.staged, toks, plan,
-                                  device=self.device)
+                                  device=self.device, prefix_chunks=k,
+                                  prefix_pool=seed, return_kv=armed)
+        out, kv = out if armed else (out, None)
         self._sync()
         dt = time.perf_counter() - t0
+        if kv is not None:
+            t = time.perf_counter()
+            snaps = [(ch, self._snapshot(kv, i)) for i, ch in enumerate(chains) if ch]
+            self._sync()
+            prefix["snap_d2h_s"] = time.perf_counter() - t
+            prefix["snap_bytes"] = _nbytes(x for _, e in snaps for x in e.values())
+            for ch, e in snaps:
+                cache.put(ch, e)
         for r, row in zip(requests, out.cpu().numpy()):
             r.result = row
         self.waves.append({
             "start": t0 - self._epoch, "dur": dt, "seq": seq,
             "num_ticks": int(plan.num_ticks), "num_stages": num_stages,
-            "chunks": list(chunks), "rids": [r.rid for r in requests]})
+            "chunks": list(chunks), "rids": [r.rid for r in requests],
+            "prefix_chunks": k, **prefix})
         return dt, np.full(num_stages, dt / max(len(chunks), 1))
 
 
@@ -420,6 +525,12 @@ class ContinuousEngine:
     ``EngineConfig.inflight`` concurrent requests (clamped to the KV
     capacity). ``EngineConfig.slo`` (seconds) stamps each submitted
     request's deadline = arrival + slo; EDF orders by it.
+
+    ``EngineConfig.prefix_cache == "on"`` builds the radix prefix index
+    (``kvstore.prefix.PrefixPageCache``, its pages sized by the largest
+    bucket's chunk), hashes each submitted request's tokens by its bucket's
+    chunks, prices a hit with ``_chunk_plan_prefix`` and a suffix-only
+    lease, and arms the executor's device seed cache where it has one.
     """
 
     def __init__(self, ec: EngineConfig, executor):
@@ -437,6 +548,8 @@ class ContinuousEngine:
         self._consumed = 0        # scheduler.admitted prefix already drained
         self._plan_cls = ChunkPlan
         self._plans: Dict[int, Any] = {}
+        self._mplans: Dict[int, Any] = {}      # bucket -> MBKR plan
+        self._pplans: Dict[Tuple[int, int], Any] = {}  # (bucket, k) plans
         self._sm = cm.StageModel.build(ec.model, ec.num_stages, ec.tp)
 
         # MBKR slot budget for `inflight` concurrent requests, <= capacity
@@ -458,10 +571,26 @@ class ContinuousEngine:
             codec, model_dtype=ec.model.dtype,
             page_tokens=ec.kv_page_tokens or cmax,
             head_dim=ec.model.resolved_head_dim)
+        # radix prefix index: page geometry from the LARGEST bucket's chunk;
+        # per-bucket plans with smaller chunks clamp their shared-page
+        # subtraction in chunk_page_bytes
+        self.prefix_cache = None
+        if ec.prefix_cache == "on":
+            pt = ec.kv_page_tokens or cmax
+            ppc = max(-(-cmax // pt), 1)
+            self.prefix_cache = PrefixPageCache(
+                pages_per_chunk=ppc,
+                page_bytes=max(cm.kv_chunk_bytes(self._sm, cmax), 1.0)
+                * kv_compress / ppc)
+            if hasattr(executor, "prefix_enabled"):
+                executor.prefix_enabled = True   # arm the device seed cache
         self.scheduler = ChunkScheduler(
             ec.num_stages, self._chunk_plan, policy=ec.policy, lease=self.lease,
             trace=self.trace, compress=ec.compress, kv_compress=kv_compress,
-            stage_scale=scale, page_tokens=ec.kv_page_tokens)
+            stage_scale=scale, page_tokens=ec.kv_page_tokens,
+            prefix_cache=self.prefix_cache,
+            prefix_min_pages=ec.prefix_min_pages,
+            plan_for_prefix=self._chunk_plan_prefix)
 
     # ---------------------------------------------------------- admission
     def submit(self, req: Request) -> None:
@@ -470,6 +599,11 @@ class ContinuousEngine:
         req.bucket = bucket_of(self.ec.buckets, req.seq_len)
         if self.slo is not None and not math.isfinite(req.deadline):
             req.deadline = req.arrival + self.slo
+        if (self.prefix_cache is not None and not req.prefix_hashes
+                and req.tokens is not None):
+            req.prefix_hashes = chunk_hashes(
+                np.asarray(req.tokens)[: req.seq_len],
+                self._chunk_plan(req.bucket).chunks)
         self.queue.append(req)
 
     def _chunk_plan(self, bucket: int):
@@ -486,10 +620,26 @@ class ContinuousEngine:
                 chunks = lbcp.uniform_partition(bucket, ec.num_chunks)
                 mplan = (mbkr.plan(ec.num_chunks, ec.num_stages)
                          if ec.mbkr and not ec.model.attn_free else None)
+            self._mplans[bucket] = mplan
             self._plans[bucket] = self._plan_cls.build(
                 bucket, chunks, self._sm, ec.hw, mbkr_plan=mplan,
                 compress=ec.compress)
         return self._plans[bucket]
+
+    def _chunk_plan_prefix(self, bucket: int, k: int):
+        """The bucket's plan re-priced for a resident prefix of ``k``
+        chunks (``costmodel.chunk_cost_arrays(prefix_hit_chunks=k)``):
+        zero compute/wire rows for served chunks, same chunk partition."""
+        if k <= 0:
+            return self._chunk_plan(bucket)
+        key = (bucket, int(k))
+        if key not in self._pplans:
+            base = self._chunk_plan(bucket)    # populates _mplans[bucket]
+            self._pplans[key] = self._plan_cls.build(
+                bucket, list(base.chunks), self._sm, self.ec.hw,
+                mbkr_plan=self._mplans.get(bucket), compress=self.ec.compress,
+                prefix_hit_chunks=int(k))
+        return self._pplans[key]
 
     # ---------------------------------------------------------- main loop
     def run_until_drained(self) -> None:
@@ -499,7 +649,8 @@ class ContinuousEngine:
                 continue
             self.scheduler.submit(SchedRequest(
                 rid=r.rid, arrival=r.arrival, seq_len=r.seq_len,
-                bucket=r.bucket, deadline=r.deadline, payload=r))
+                bucket=r.bucket, deadline=r.deadline, payload=r,
+                prefix_hashes=tuple(r.prefix_hashes)))
         # scheduler.admitted is cumulative across calls — drain only the new
         # suffix so run_until_drained stays re-entrant
         order = self.scheduler.run()[self._consumed:]
@@ -561,12 +712,31 @@ class ContinuousEngine:
         now = float(self.scheduler.stage_free[0])
         return float(self.lease.headroom(after=now).min())
 
-    def estimate_admission(self, seq_len: int, arrival: float = 0.0
+    def estimate_admission(self, seq_len: int, arrival: float = 0.0,
+                           prefix_hashes: Optional[Sequence[int]] = None
                            ) -> Tuple[float, bool]:
         """(predicted finish time, lease-fits-now) for a hypothetical
-        request against the live frontier (``ChunkScheduler.preview``)."""
+        request against the live frontier (``ChunkScheduler.preview``).
+        ``prefix_hashes`` folds the radix index into the quote: a cell
+        already holding the prefix quotes an earlier ETA and a smaller
+        lease. Pure."""
         bucket = bucket_of(self.ec.buckets, seq_len)
-        return self.scheduler.preview(bucket, seq_len, release=arrival)
+        return self.scheduler.preview(
+            bucket, seq_len, release=arrival,
+            prefix_hashes=tuple(prefix_hashes or ()))
+
+    def prefix_stats(self) -> Dict[str, Any]:
+        """Radix-index counters (``PrefixPageCache.stats``); {} when the
+        prefix cache is off."""
+        return self.scheduler.prefix_stats()
+
+    def prefix_hit_pages(self, prefix_hashes: Sequence[int]) -> int:
+        """Pages of ``prefix_hashes`` already resident in this cell's radix
+        index (the reference fleet router's prefix-affinity tiebreak); 0
+        when off."""
+        if self.prefix_cache is None or not prefix_hashes:
+            return 0
+        return int(self.prefix_cache.hit_pages(tuple(prefix_hashes)))
 
     def records(self) -> List[Any]:
         """Per-request ``RequestRecord`` rows (``sched.metrics``)."""

@@ -25,11 +25,12 @@ Mechanics:
   would push any stage's occupancy over the MBKR slot budget, and rejected
   only if it cannot fit an empty pool;
 - TTFT/queueing/SLO metrics (``SchedMetrics``) and a Chrome-format JSON
-  trace (``TraceRecorder``) are produced for offline analysis.
+  trace (``TraceRecorder``) are produced for offline analysis;
+- a radix prefix index (``kvstore.prefix.PrefixPageCache``, optional): a
+  request whose leading chunks are resident leases only its novel suffix
+  and is priced against the shorter effective sequence.
 
-The port's own copy of ``repro.sched.scheduler``. Its prefix-cache
-arguments stay in ``ChunkScheduler``'s signature and take ``None`` only:
-the prefix KV cache (the reference's ``kvstore.prefix``) is not ported yet.
+The port's own copy of ``repro.sched.scheduler``.
 """
 from __future__ import annotations
 
@@ -72,9 +73,11 @@ class ChunkPlan:
     @staticmethod
     def build(bucket: int, chunks: Sequence[int], sm: cm.StageModel,
               hw: cm.ProfileSpec, *, mbkr_plan: Optional[mb.MBKRPlan] = None,
-              compress: float = 1.0) -> "ChunkPlan":
+              compress: float = 1.0, prefix_hit_chunks: int = 0
+              ) -> "ChunkPlan":
         dur, comm, kvb, spill_t, fetch_t = cm.chunk_cost_arrays(
-            sm, chunks, hw, mbkr_plan=mbkr_plan, compress=compress)
+            sm, chunks, hw, mbkr_plan=mbkr_plan, compress=compress,
+            prefix_hit_chunks=prefix_hit_chunks)
         m = len(chunks)
         p2 = m if mbkr_plan is None else mbkr_plan.p2
         # creditor serve time: while my pair (N/2 phases away) spills/fetches,
@@ -101,6 +104,9 @@ class SchedRequest:
     admit_time: float = math.inf
     finish_time: float = math.inf
     payload: object = None          # opaque engine-side handle (e.g. Request)
+    # chained chunk-content hashes (kvstore.prefix.chunk_hashes): the radix
+    # index key for cross-request prefix KV reuse; () = never shared
+    prefix_hashes: Tuple[int, ...] = ()
 
 
 # -------------------------------------------------------------- policies
@@ -150,13 +156,10 @@ class ChunkScheduler:
         kv_compress: float = 1.0,
         stage_scale: Optional[Sequence[float]] = None,
         page_tokens: int = 0,
-        prefix_cache: Optional[object] = None,   # not ported: None only
+        prefix_cache: Optional[object] = None,   # kvstore.prefix.PrefixPageCache
         prefix_min_pages: int = 1,
         plan_for_prefix: Optional[Callable[[int, int], ChunkPlan]] = None,
     ):
-        if prefix_cache is not None or plan_for_prefix is not None:
-            raise ValueError("the prefix KV cache is not ported: "
-                             "prefix_cache and plan_for_prefix take None only")
         if policy not in POLICIES:
             raise ValueError(f"unknown policy {policy!r}; "
                              f"choose from {sorted(POLICIES)}")
@@ -178,6 +181,13 @@ class ChunkScheduler:
         self.page_tokens = page_tokens
         self.stage_scale = (np.asarray(stage_scale, float)
                             if stage_scale is not None else None)
+        # radix prefix index (kvstore.prefix): requests whose leading chunks
+        # are resident lease only their novel suffix and are priced against
+        # the shorter effective sequence via plan_for_prefix(bucket, k)
+        self.prefix_cache = prefix_cache
+        self.prefix_min_pages = prefix_min_pages
+        self.plan_for_prefix = plan_for_prefix
+        self._prefix_leases: Dict[int, object] = {}
         self.pair = [mb.pair_of(s, num_stages) for s in range(num_stages)]
         self.stage_free = np.zeros(num_stages)
         self.requests: List[SchedRequest] = []
@@ -197,9 +207,59 @@ class ChunkScheduler:
         mid-stream recalibration never reorders history."""
         self.plan_for = plan_for
 
+    # ------------------------------------------------------------- prefix
+    def _prefix_hit(self, plan: ChunkPlan, prefix_hashes: Sequence[int],
+                    seq_len: int) -> int:
+        """Clamped hit length, in chunks: what the radix index serves of
+        this request.  Clamps: only chunks fully inside ``seq_len`` can be
+        shared, the tail chunk always runs (it produces the logits), hit
+        chunks never exceed ``p2`` (spilled chunks are pair-hosted, not
+        index-addressed), and hits below ``prefix_min_pages`` are ignored
+        (tiny prefixes aren't worth the indexing churn)."""
+        if self.prefix_cache is None or not prefix_hashes:
+            return 0
+        k = self.prefix_cache.match(prefix_hashes)
+        covered, start = 0, 0
+        for c in plan.chunks:
+            if start + int(c) > seq_len:
+                break
+            covered += 1
+            start += int(c)
+        k = min(k, covered, plan.p2, len(plan.chunks) - 1)
+        if k * self.prefix_cache.pages_per_chunk < self.prefix_min_pages:
+            return 0
+        return k
+
+    def _effective(self, bucket: int, plan: ChunkPlan, k: int
+                   ) -> Tuple[ChunkPlan, Optional[List[int]]]:
+        """The plan + per-chunk shared-page vector a hit of ``k`` chunks is
+        priced with: zero compute/wire rows for served chunks, zero lease
+        bytes for their pages."""
+        if k <= 0:
+            return plan, None
+        if self.plan_for_prefix is not None:
+            plan = self.plan_for_prefix(bucket, k)
+        ppc = self.prefix_cache.pages_per_chunk
+        shared = [ppc] * k + [0] * (len(plan.chunks) - k)
+        return plan, shared
+
+    def _prune_prefix(self) -> None:
+        """Release radix references of requests whose KV lease was pruned
+        (drained): their shared pages drop to the cache's LRU pool."""
+        if self.prefix_cache is None or not self._prefix_leases:
+            return
+        live = set(self.lease.leases) if self.lease is not None else set()
+        for rid in [r for r in self._prefix_leases if r not in live]:
+            self.prefix_cache.release(self._prefix_leases.pop(rid))
+
+    def prefix_stats(self) -> Dict:
+        return (dict(self.prefix_cache.stats())
+                if self.prefix_cache is not None else {})
+
     # ------------------------------------------------------------ preview
     def preview(self, bucket: int, seq_len: int,
-                release: float = 0.0) -> Tuple[float, bool]:
+                release: float = 0.0,
+                prefix_hashes: Sequence[int] = ()) -> Tuple[float, bool]:
         """Placement signal (for the reference's ``repro.fleet`` router):
         the finish time a request of
         ``seq_len`` in ``bucket`` WOULD get if admitted against the current
@@ -209,8 +269,15 @@ class ChunkScheduler:
         committed release (the earliest instant a deferred admission could
         retry), so a lease-packed "hot" cell quotes an honestly later finish
         than an idle "cold" one; a request that can NEVER fit (empty pool
-        and still refused) quotes ``inf``."""
+        and still refused) quotes ``inf``.
+
+        ``prefix_hashes`` folds the radix index into the quote: a resident
+        prefix prices the shorter effective sequence AND a suffix-only
+        lease, so a cell already holding the prefix quotes an earlier ETA
+        (the fleet's prefix-affinity signal)."""
         plan = self.plan_for(bucket)
+        k = self._prefix_hit(plan, prefix_hashes, seq_len)
+        plan, shared = self._effective(bucket, plan, k)
         frontier = self.stage_free.copy()
         finish = schedule_request(plan.task_cost, plan.comm, self.num_stages,
                                   frontier, release=release,
@@ -222,7 +289,8 @@ class ChunkScheduler:
                                          self.pair, self.compress,
                                          self.kv_compress, seq_len=seq_len,
                                          chunks=plan.chunks,
-                                         page_tokens=self.page_tokens)
+                                         page_tokens=self.page_tokens,
+                                         shared_pages=shared)
             fits = self.lease.would_fit(lease)
             if not fits:
                 t_now = max(float(self.stage_free[0]), release)
@@ -236,6 +304,8 @@ class ChunkScheduler:
         """Tentatively schedule ``r`` from ``release``; commit if its KV
         lease fits every stage budget. Mutates scheduler state on success."""
         plan = self.plan_for(r.bucket)
+        k = self._prefix_hit(plan, r.prefix_hashes, r.seq_len)
+        plan, shared = self._effective(r.bucket, plan, k)
         frontier = self.stage_free.copy()
         finish = schedule_request(plan.task_cost, plan.comm, self.num_stages,
                                   frontier, release=release,
@@ -246,9 +316,14 @@ class ChunkScheduler:
                                          self.kv_compress,
                                          seq_len=r.seq_len,
                                          chunks=plan.chunks,
-                                         page_tokens=self.page_tokens)
+                                         page_tokens=self.page_tokens,
+                                         shared_pages=shared)
             if not self.lease.admit(lease):
                 return False
+        # commit: reference the hit prefix + index the novel suffix
+        if self.prefix_cache is not None and r.prefix_hashes:
+            self._prefix_leases[r.rid] = self.prefix_cache.acquire(
+                r.rid, r.prefix_hashes)
         # commit: replay for the hooks (busy accounting + trace)
         self.stage_free = frontier
         m = len(plan.chunks)
@@ -307,6 +382,7 @@ class ChunkScheduler:
             if admitted_one:
                 if self.lease is not None:
                     self.lease.prune(before=t_now)
+                self._prune_prefix()
                 continue
             # every arrived candidate was lease-refused: wait for the next
             # release or arrival; reject candidates that can never fit
@@ -337,4 +413,5 @@ class ChunkScheduler:
             out["lease_refusals"] = self.lease.refusals
             out["lease_hwm_frac"] = float(
                 (self.lease.hwm / np.maximum(self.lease.budget, 1e-12)).max())
+        out.update(self.prefix_stats())
         return out

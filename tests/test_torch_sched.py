@@ -261,11 +261,7 @@ def test_trace_export_is_the_reference_chrome_json(tmp_path):
 def test_unported_options_raise():
     cfg = get_config("qwen3-8b")
     with pytest.raises(ValueError):
-        engine.EngineConfig(model=cfg, prefix_cache="on")
-    with pytest.raises(ValueError):
         engine.EngineConfig(model=cfg, partition="balanced")
     from repro_torch.sched import ChunkScheduler
-    with pytest.raises(ValueError):
-        ChunkScheduler(4, lambda b: None, prefix_cache=object())
     with pytest.raises(ValueError):
         ChunkScheduler(4, lambda b: None, policy="lifo")
