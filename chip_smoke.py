@@ -116,7 +116,17 @@ prints no result line):
    that the garbage shows without the seed; ``ContinuousEngine`` +
    ``TorchExecutor`` with the prefix cache off and on (logits bit-identical,
    every wave after the first seeded); a ``HostOffloadStager`` round trip
-   (see ``prefix_phase``).
+   (see ``prefix_phase``);
+9. obs: the device half of observability on qwen3-8b at full width and
+   depth in bf16, qship/``cuda``: stage telemetry on against off
+   (bit-identical logits, equal launches and profiler device activities,
+   occupancy and wire bytes against their closed forms), each stage's
+   peak KV bytes under MBKR against terapipe, tick spans from CUDA events
+   against the wave's wall time, a timed launch frame, the health
+   sentinel armed (healthy: no alert) and on one stage's NaN weights, a
+   calibration of the cost model from ``hgx-b200`` to the measured spans,
+   and the serve CLI once with ``--trace-out --metrics-out --health
+   --calibrate`` (see ``obs_phase``).
 
 Then one JSON line of per-kernel numbers and, last, the result line.
 """
@@ -125,6 +135,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -2150,6 +2161,341 @@ LONG_CAP, LONG_STEPS = 32768, 16
 LONG_POS = (8192, 15001, 24577, LONG_CAP - LONG_STEPS)
 
 
+OBS_POISON_STAGE = 3       # the stage whose weights the health check sets to NaN
+OBS_TAGS = ("chunk_attention", "pool_attention")   # the qship/cuda path's kernels
+
+
+def activities_by_call(*fns) -> tuple:
+    """Device activities (kernels, copies, sets) that torch.profiler sees
+    in one call of each of ``fns``, by (category, name), from one session.
+
+    A session can lose device activities at its edges: after the earlier
+    phases, a session opened for one pipeline call lost 62 of that call's
+    first activities (the token copy, the pools' fills) while the session
+    before it lost none, and a session can also lose its last activities;
+    idle host time at the window's start did not bring them back. So the
+    session runs ``fns[0]`` once more first, as a primer, and ``fns[-1]``
+    once more last, as a tail, which take any such loss, and ends the
+    primer and every counted call with a marker kernel
+    (``torch.cuda._sleep``): a call's activities are those between its
+    marker and the one before. Returns the primer's and the tail's
+    counts, then one Counter a call."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in (fns[0],) + fns:
+            fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        fns[-1]()
+        torch.cuda.synchronize()
+    path = ROOT / "build" / "obs_count_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    acts = sorted((e["ts"], e["cat"], e["name"]) for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    marks = [i for i, (_, _, name) in enumerate(acts) if "spin_kernel" in name]
+    check(len(marks) == len(fns) + 1,
+          f"obs: {len(marks)} marker kernels in the trace, not {len(fns) + 1}")
+    return (marks[0], len(acts) - 1 - marks[-1],
+            [collections.Counter((cat, name) for _, cat, name in acts[lo + 1:hi])
+             for lo, hi in zip(marks, marks[1:])])
+
+
+def obs_phase(results: dict) -> None:
+    """The device half of observability on qwen3-8b at full width and depth
+    (36 layers), bf16, the serve geometry (N = M = 8, C = 512, B = 2),
+    qship/``cuda``, random weights from seed 0:
+
+    - telemetry on against off (``prefill_pipeline(return_telemetry=
+      True)``): bit-identical logits, equal ``ops.LAUNCHES``, equal device
+      activities by (category, name) in one torch.profiler session over a
+      call of each (``activities_by_call``); the
+      occupancy equal to ``analytic_occupancy`` and its peak to the plan's
+      ``num_slots``; events x ``per_event_wire_bytes`` equal to the ledger;
+      the stages' logical ``launches`` equal to N x the K1 + K2 launches;
+      the untraced wave wall time (``TorchExecutor``) with telemetry off,
+      on, on, off;
+    - the MBKR imbalance: each stage's peak ``kv_bytes`` under MBKR against
+      terapipe (the terapipe peak M chunks, MBKR's p2 = 6);
+    - measured spans (``collect_measured``, CUDA events): every tick's span
+      positive and their sum within 0.9-1.01x of the wave's untraced wall
+      time; ``measure_prefill``'s loop total within 10 % of that sum and
+      the per-tag totals of its ``timed_launches`` frame covering that loop
+      (0.9-1.01x), printed beside ``wave_split``'s K1 / K2 device time;
+    - health: armed on the healthy weights, no alert and bit-identical
+      logits, the wave time disarmed, armed, armed, disarmed; then stage
+      OBS_POISON_STAGE's weights set to NaN: ``nonfinite`` alerts whose
+      first (stage, tick) is that stage's first active tick, none before;
+    - calibration: the cost model fitted from ``hgx-b200`` to the last
+      measured wave's spans (an effective "8 stages on one H100" profile,
+      written to ``build/obs_calibrated.json``): its L2 residual no more
+      than the nominal one (1.5x where a rate was clamped), the span MAPE
+      nominal -> calibrated, and ``lbcp.plan_partition``'s chunks for S =
+      4096, N = 8 under both profiles;
+    - the serve CLI once (``launch.serve.main``, in this process, its own
+      weights): torch executor, continuous scheduler, ``--trace-out
+      --metrics-out --health --calibrate``, every output under ``build/``:
+      the trace loads as Chrome JSON with its engine, measured and health
+      rows and ``kv_resident_bytes`` tracks, the metrics parse.
+
+    The K1 / K2 launches of the telemetry-on pipeline call and of the serve
+    run go into the kernels line under "obs" and "obs serve"."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core import lbcp, mbkr
+    from repro_torch.core import pipeline as pp
+    from repro_torch.core.staging import init_staged
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.obs import calibrate as cal
+    from repro_torch.obs import telemetry as obs_t
+    from repro_torch.obs.health import HealthMonitor
+    from repro_torch.obs.profile import measure_prefill
+    from repro_torch.runtime.engine import EngineConfig, PrefillEngine, TorchExecutor
+
+    arch = "qwen3-8b"
+    seq, n, m = N_CHUNKS * CHUNK, N_STAGES, N_CHUNKS
+    cfg = get_config(arch)
+    run = RunConfig(num_chunks=m, num_stages=n, remote_attn="qship",
+                    attn_backend="cuda", pool_backend="cuda")
+    plan = pp.build_plan(cfg, n, seq, run)
+    staged = init_staged(cfg, plan, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    toks = np.stack([r.tokens for r in make_requests(BATCH, seq, cfg.vocab_size, seed=0)])
+    log(f"[obs] {arch} bf16, {cfg.num_layers} layers, N={n} M={m} C={CHUNK} "
+        f"p2={plan.p2} slots={plan.num_slots}, {BATCH} requests a wave, qship/cuda")
+
+    def call(p=plan, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pp.prefill_pipeline(cfg, staged, toks, p, device="cuda", **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def waves(n_req: int, **obs) -> list:
+        """``n_req`` requests through PrefillEngine + TorchExecutor in waves of
+        BATCH with ``configure_obs(**obs)``; returns the executor's waves."""
+        ex = TorchExecutor(cfg, staged, run, device="cuda")
+        eng = PrefillEngine(EngineConfig(model=cfg, num_stages=n, tp=1, num_chunks=m,
+                                         max_batch=BATCH, buckets=(seq,),
+                                         partition="uniform"), ex)
+        eng.configure_obs(**obs)
+        for r in make_requests(n_req, seq, cfg.vocab_size, seed=0):
+            eng.submit(r)
+        eng.run_until_drained()
+        check(len(ex.waves) == n_req // BATCH, f"obs: {len(ex.waves)} waves")
+        return ex.waves
+
+    # ---- telemetry on against off
+    call()                                                   # warm-up
+    ops.reset_launches()
+    (base, led0), _ = call(return_ledger=True)
+    off_launches = dict(ops.LAUNCHES)
+    ops.reset_launches()
+    (logits, led, tel), _ = call(return_ledger=True, return_telemetry=True)
+    on_launches = dict(ops.LAUNCHES)
+    check(torch.equal(logits, base), "obs: telemetry changed the logits")
+    check(on_launches == off_launches, f"obs: launches {on_launches} vs {off_launches}")
+    check(led == led0, "obs: telemetry changed the ledger")
+    for name in OBS_TAGS:
+        check(on_launches[name] > 0, f"obs: {name} never launched")
+        results[name].setdefault("launches_by_path", {})["obs"] = on_launches[name]
+    k_primer, k_tail, (acts_off, acts_on) = activities_by_call(
+        lambda: call(), lambda: call(return_telemetry=True))
+    k_off, k_on = sum(acts_off.values()), sum(acts_on.values())
+    differ = {key: acts_on[key] - acts_off[key] for key in set(acts_on) | set(acts_off)
+              if acts_on[key] != acts_off[key]}
+    check(not differ, f"obs: {k_on} device activities with telemetry, {k_off} without; "
+                      f"on - off by (category, name): {sorted(differ.items())[:6]}")
+    prof = obs_t.TelemetryProfile.from_run(tel)
+    own, hosted = obs_t.analytic_occupancy(m, n, plan.p2)
+    check(np.array_equal(prof.data["own_chunks"], own)
+          and np.array_equal(prof.data["hosted_chunks"], hosted),
+          "obs: occupancy differs from analytic_occupancy")
+    check(prof.peak() == plan.num_slots, f"obs: peak {prof.peak()} vs {plan.num_slots}")
+    pe = obs_t.per_event_wire_bytes(plan, cfg, BATCH)
+    tot = prof.totals()
+    wire = {"spill": (tot["spill_events"] * pe["spill"], led["spill"]),
+            "qship": (tot["qship_events"] * pe["qship"], led["qship_q"] + led["qship_state"])}
+    for key, (got, want) in wire.items():
+        check(want > 0 and abs(got - want) <= 1e-9 * want,
+              f"obs: {key} events x per-event {got} vs ledger {want}")
+    logical = tel["launches"][:, -1].sum()
+    check(logical == n * sum(on_launches[t] for t in OBS_TAGS),
+          f"obs: logical launches {logical} vs N x {on_launches}")
+    times = {}
+    for flag in (False, True, True, False):
+        times.setdefault(flag, []).extend(w["dur"] for w in waves(BATCH, telemetry=flag))
+    log(f"  telemetry on vs off: logits bit-identical, LAUNCHES equal {on_launches}, "
+        f"device activities {k_on} = {k_off} (the session's primer / tail calls "
+        f"{k_primer} / {k_tail}); occupancy = analytic, peak {prof.peak():.0f} = "
+        f"num_slots; spill {wire['spill'][1]:.0f} B, qship "
+        f"{wire['qship'][1]:.0f} B = events x per-event; logical launches {logical:.0f} "
+        f"= {n} x {sum(on_launches[t] for t in OBS_TAGS)}")
+    log(f"  untraced wave s, telemetry off {times[False][0]:.4f} / {times[False][1]:.4f}, "
+        f"on {times[True][0]:.4f} / {times[True][1]:.4f} "
+        f"({(np.mean(times[True]) / np.mean(times[False]) - 1) * 100:+.2f} %)")
+
+    # ---- the MBKR imbalance on the card
+    plan_t = pp.build_plan(cfg, n, seq, RunConfig(num_chunks=m, num_stages=n, mbkr=False,
+                                                   attn_backend="cuda", pool_backend="cuda"),
+                           mode="terapipe")
+    (_, tel_t), _ = call(plan_t, return_telemetry=True)
+    prof_t = obs_t.TelemetryProfile.from_run(tel_t)
+    cb = obs_t.chunk_stored_bytes(plan, plan.layers_per_stage, BATCH, CHUNK,
+                                  cfg.num_kv_heads, cfg.resolved_head_dim)
+    pk, pk_t = prof.per_stage_peak("kv_bytes"), prof_t.per_stage_peak("kv_bytes")
+    check(prof_t.peak() == m and prof.peak() == plan.p2 == 6,
+          f"obs: peaks terapipe {prof_t.peak()}, MBKR {prof.peak()} (p2 {plan.p2})")
+    check(np.allclose(pk, plan.p2 * cb) and np.allclose(pk_t, m * cb),
+          "obs: per-stage peak kv_bytes off the chunk price")
+    log(f"  MBKR vs terapipe, each stage's peak kv_bytes GB (chunk {cb / 1e9:.4f} GB): "
+        f"MBKR {' '.join(f'{v / 1e9:.4f}' for v in pk)}; terapipe "
+        f"{' '.join(f'{v / 1e9:.4f}' for v in pk_t)}; skew {prof.skew():.3f} / "
+        f"{prof_t.skew():.3f}")
+
+    # ---- measured spans
+    meas_waves = waves(2 * BATCH, measured=True)
+    w = meas_waves[-1]
+    tick_s = w["measured"].max(axis=0)
+    span_sum = float(tick_s.sum())
+    check(w["measured"].shape == (n, m + n - 1) and bool((tick_s > 0).all()),
+          f"obs: tick spans {tick_s} (every tick must have a positive span)")
+    check(0.9 * w["dur"] <= span_sum <= 1.01 * w["dur"],
+          f"obs: tick spans {span_sum} s against the wave's {w['dur']} s")
+    log(f"  tick spans (CUDA events) sum {span_sum:.4f} s against the wave's untraced "
+        f"wall {w['dur']:.4f} s ({span_sum / w['dur'] * 100:.1f} %); first wave "
+        f"{float(meas_waves[0]['measured'].max(axis=0).sum()):.4f} / "
+        f"{meas_waves[0]['dur']:.4f} s; per tick s "
+        f"{' '.join(f'{v:.4f}' for v in w['measured'].max(axis=0))}")
+    logits_k, meas_k = measure_prefill(cfg, staged, toks, plan, device="cuda", warmup=0,
+                                       timed_kernels=True)
+    check(torch.equal(logits_k, base), "obs: the timed frame changed the logits")
+    # the same call's loop timed by measure_prefill agrees with the engine's
+    # tick spans, and the timed frame's tags cover that loop
+    tag_sum = sum(meas_k.kernel_s.values())
+    check(0.9 * span_sum <= meas_k.total() <= 1.1 * span_sum
+          and 0.9 * meas_k.total() <= tag_sum <= 1.01 * meas_k.total(),
+          f"obs: measure_prefill total {meas_k.total()} s, tags {tag_sum} s, "
+          f"against the tick spans' {span_sum} s")
+    split = wave_split(arch, staged=staged)["split"]
+    log(f"  timed frame per tag s (each gap charged to the next launch's tag): "
+        f"{ {k: round(v, 4) for k, v in meas_k.kernel_s.items()} }, sum "
+        f"{sum(meas_k.kernel_s.values()):.4f} of the loop's {meas_k.total():.4f}; "
+        f"wave_split's device time K1 {split.get('K1 chunk_attention', 0.0):.4f}, "
+        f"K2 {split.get('K2 pool_attention', 0.0):.4f}")
+
+    # ---- health
+    mon = HealthMonitor()
+    armed, _ = call(health=mon)
+    check(torch.equal(armed, base) and mon.alerts == [],
+          f"obs: armed health on healthy weights: {mon.summary()}")
+    cost = {}
+    for flag in (False, True, True, False):
+        kw = {"health": HealthMonitor()} if flag else {}
+        cost.setdefault(flag, []).append(call(**kw)[1])
+    # one tick's count alone (CUDA events), beside the four-pass isfinite form
+    x_tick = torch.randn(n, BATCH, CHUNK, cfg.d_model, device="cuda", dtype=torch.bfloat16)
+    count_ms = time_ms(lambda: pp.nonfinite_per_stage(x_tick))
+    isfinite_ms = time_ms(lambda: torch.isfinite(x_tick).logical_not_().reshape(n, -1).sum(1))
+    del x_tick
+    lay = staged["stage_layers"]
+    saved = {k: w_[OBS_POISON_STAGE].clone() for k, w_ in lay.items() if w_.is_floating_point()}
+    for k in saved:
+        lay[k][OBS_POISON_STAGE] = float("nan")
+    bad = HealthMonitor()
+    try:
+        call(health=bad)
+    finally:
+        for k, v in saved.items():
+            lay[k][OBS_POISON_STAGE] = v
+    cells = sorted((a.tick, a.stage) for a in bad.alerts)
+    check(bool(cells) and {a.kind for a in bad.alerts} == {"nonfinite"}
+          and cells[0] == (OBS_POISON_STAGE, OBS_POISON_STAGE)
+          and all(t >= OBS_POISON_STAGE for t, _ in cells),
+          f"obs: poisoned stage {OBS_POISON_STAGE}: alerts at {cells[:4]}")
+    log(f"  health: armed on healthy weights no alert, logits bit-identical; call s "
+        f"disarmed {cost[False][0]:.4f} / {cost[False][1]:.4f}, armed {cost[True][0]:.4f} / "
+        f"{cost[True][1]:.4f} ({(np.mean(cost[True]) - np.mean(cost[False])) * 1e3:+.2f} ms); "
+        f"one tick's count {count_ms:.4f} ms (isfinite form {isfinite_ms:.4f}) x "
+        f"{plan.num_ticks} ticks; "
+        f"stage {OBS_POISON_STAGE} NaN: {len(cells)} nonfinite alerts, first (stage, tick) "
+        f"({cells[0][1]}, {cells[0][0]}), stages {sorted({s for _, s in cells})}")
+
+    # ---- calibration
+    sm = cm.StageModel.build(cfg, n, 1)
+    chunks = list(w["chunks"])
+    mplan = mbkr.plan(m, n)
+    fit = cal.fit_profile(sm, chunks, w["measured"], cm.GPU_HGX, mbkr_plan=mplan,
+                          name="h100-8stages")
+    x, y, _ = cal.design_matrix(sm, chunks, cm.GPU_HGX, w["measured"], mbkr_plan=mplan)
+    r_cal = float(np.linalg.norm(fit.residual_s))
+    r_nom = float(np.linalg.norm(y - x @ fit.theta_nominal))
+    clamped = fit.theta == fit.theta_nominal
+    check(r_cal <= r_nom * (1.5 if clamped.any() else 1 + 1e-9),
+          f"obs: calibrated L2 residual {r_cal} vs nominal {r_nom} (clamped {clamped})")
+    path = cal.save_profile(str(ROOT / "build" / "obs_calibrated.json"), fit.profile,
+                            fit=fit, meta={"arch": arch, "seq": seq, "num_stages": n,
+                                           "one_card": True, "card": card_line(),
+                                           "source": "chip_smoke.obs_phase"})
+    check(cal.load_profile(path)[0] == fit.profile, "obs: the profile JSON does not round-trip")
+    nom_chunks = lbcp.plan_partition(cfg, seq, m, n, cm.GPU_HGX, sa_iters=60).chunks
+    cal_chunks = lbcp.plan_partition(cfg, seq, m, n, path, sa_iters=60).chunks
+    eff = cm.profile_to_dict(fit.profile)
+    log(f"  calibration hgx-b200 -> {fit.profile.name} ({len(fit.rows)} spans): MAPE "
+        f"{fit.mape_nominal:.4f} -> {fit.mape_calibrated:.4f}, L2 residual {r_nom:.4f} -> "
+        f"{r_cal:.4f} s, clamped {clamped.tolist()}; effective gemm_eff "
+        f"{eff['gemm_eff']:.4g} attn_eff {eff['attn_eff']:.4g} hbm_bw {eff['hbm_bw']:.4g} "
+        f"link_bw {eff['link_bw']:.4g} (of {cm.GPU_HGX.flops:.3g} FLOP/s nominal) -> {path}")
+    log(f"  plan_partition S={seq} N={n}: hgx-b200 {nom_chunks}, calibrated {cal_chunks}")
+
+    # ---- the serve CLI, once
+    del staged, lay, saved
+    torch.cuda.empty_cache()
+    out = ROOT / "build"
+    argv = ["--executor", "torch", "--scheduler", "continuous", "--requests",
+            str(2 * BATCH), "--max-batch", str(BATCH), "--seq", str(seq),
+            "--num-chunks", str(m), "--num-stages", str(n), "--trace-out",
+            str(out / "obs_serve_trace.json"), "--metrics-out",
+            str(out / "obs_serve_metrics.prom"), "--health", "--calibrate",
+            str(out / "obs_serve_cal.json")]
+    log(f"  serve: python -m repro_torch.launch.serve {' '.join(argv)}")
+    ops.reset_launches()
+    rc = serve.main(argv)
+    serve_launches = dict(ops.LAUNCHES)
+    check(rc == 0, f"obs: serve returned {rc}")
+    for name in OBS_TAGS:
+        check(serve_launches[name] > 0, f"obs serve: {name} never launched")
+        results[name]["launches_by_path"]["obs serve"] = serve_launches[name]
+    evs = json.loads((out / "obs_serve_trace.json").read_text())["traceEvents"]
+    rows = {e["pid"] for e in evs if e["ph"] == "M"}
+    tracks = {e["name"] for e in evs if e["ph"] == "C"}
+    check({"engine", "measured", "health"} <= rows and "kv_resident_bytes" in tracks,
+          f"obs serve: trace rows {sorted(map(str, rows))}, tracks {sorted(tracks)}")
+    prom = (out / "obs_serve_metrics.prom").read_text().splitlines()
+    samples = [ln for ln in prom if ln and not ln.startswith("#")]
+    try:
+        values = {ln.split()[0]: float(ln.split()[1]) for ln in samples if len(ln.split()) == 2}
+    except ValueError as e:
+        raise SmokeFailure(f"obs serve: the metrics do not parse: {e}") from e
+    check(bool(values) and len(values) == len(samples)
+          and values.get("repro_completed") == 2 * BATCH,
+          f"obs serve: metrics {len(values)} of {len(samples)} samples parse")
+    blob = json.loads((out / "obs_serve_cal.json").read_text())
+    check(blob["meta"]["one_card"] is True, "obs serve: the profile's meta")
+    log(f"  serve: trace {len(evs)} events, rows {sorted(map(str, rows))}, counter tracks "
+        f"{sorted(tracks)}; metrics {len(values)} samples; calibrated profile "
+        f"{blob['profile']['name']} (MAPE {blob['fit']['mape_nominal']:.4f} -> "
+        f"{blob['fit']['mape_calibrated']:.4f})")
+
+
 def decode_faults(real):
     """Wrong versions of the K5 wrapper ``real``, for showing that the
     decode checks fail a wrong kernel."""
@@ -2506,6 +2852,9 @@ def main() -> int:
         t0 = time.perf_counter()
         prefix_phase(results)
         log(f"[prefix] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        obs_phase(results)
+        log(f"[obs] {time.perf_counter() - t0:.1f} s")
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -6,7 +6,9 @@ Hardware profiles: the paper's WSC (GR24-class dies, §5.1), an equivalent
 HGX-class GPU system (NVLink-limited; Fig. 1(c)), and the TPU v5e target.
 They are the model's data, copied unchanged so that plans equal the
 reference's; none of them describes the H100 the port runs on, and no time
-this model gives is a time measured on a card.
+this model gives is a time measured on a card. ``obs.calibrate`` fits the
+four effective rates (``FEATURE_TERMS``) to measured tick spans: on one
+card that gives an effective profile of N stages on that card.
 """
 from __future__ import annotations
 
@@ -238,10 +240,13 @@ def chunk_cost_arrays(
 #                                 | B / bw                [bandwidth-bound]
 #           + W / (link_bw*link_eff)
 #
-# so the time is a per-chunk vector of pure WORK quantities (flops, bytes)
-# times the rate vector theta = profile_theta(hw); ``profile_from_theta``
-# folds a fitted theta back into a profile (the reference's calibration
-# fit, which is not ported yet, produces one).
+# so a per-chunk feature matrix X [M, 4] of pure WORK quantities (flops,
+# bytes) and a rate vector theta = profile_theta(hw) satisfy
+# X @ theta == dur + comm + spill_t + fetch_t exactly — the identity
+# ``obs.calibrate`` inverts by least squares to fit an effective profile
+# from measured spans; ``profile_from_theta`` folds the fit back in.
+
+FEATURE_TERMS = ("gemm_flops", "attn_flops", "attn_bytes", "link_bytes")
 
 
 def profile_theta(hw: HardwareProfile, tp: int = 1) -> np.ndarray:
@@ -270,6 +275,58 @@ def profile_from_theta(hw: HardwareProfile, theta: np.ndarray,
         hbm_bw=1.0 / (float(theta[2]) * tp),
         link_bw=1.0 / (float(theta[3]) * hw.link_eff),
     )
+
+
+def chunk_cost_features(
+    sm: StageModel,
+    chunks: Sequence[int],
+    hw: ProfileSpec,
+    *,
+    mbkr_plan: Optional["object"] = None,
+    compress: float = 1.0,
+    prefix_hit_chunks: int = 0,
+) -> np.ndarray:
+    """Per-chunk work-quantity matrix ``X [M, 4]`` (FEATURE_TERMS columns)
+    such that ``X @ profile_theta(hw, sm.tp)`` equals the analytic per-chunk
+    total ``dur + comm + spill_t + fetch_t`` from ``chunk_cost_arrays``.
+
+    The attention regime (compute- vs bandwidth-bound) is chosen under the
+    GIVEN profile: the inactive branch's column is zero for that chunk, so
+    the fit stays linear. A calibration that flips a chunk's regime shows up
+    as residual, not as a fit failure.
+
+    ``prefix_hit_chunks=k`` zeroes the feature rows of index-served chunks —
+    the same effective-sequence discipline as ``chunk_cost_arrays``, so the
+    LBCP partition and the calibration identity both price the shorter
+    suffix (prefix accumulation for later chunks is unchanged: they still
+    attend over the cached prefix)."""
+    hw = resolve_profile(hw)
+    cfg = sm.cfg
+    m = len(chunks)
+    x = np.zeros((m, 4))
+    theta = profile_theta(hw, sm.tp)
+    p2 = m if mbkr_plan is None else mbkr_plan.p2
+    k = min(max(int(prefix_hit_chunks), 0), m - 1 if m else 0)
+    kvb = np.array([kv_chunk_bytes(sm, c) for c in chunks])
+    prefix = 0
+    for i, c in enumerate(chunks):
+        if i < k:
+            prefix += c
+            continue
+        x[i, 0] = sm.layers * c * layer_linear_flops_per_token(cfg)
+        afl = sm.attn_layers * attn_flops(cfg, c, prefix)
+        abytes = sm.attn_layers * (prefix + c) * kv_bytes_per_token_layer(cfg)
+        if afl * theta[1] >= abytes * theta[2]:
+            x[i, 1] = afl
+        else:
+            x[i, 2] = abytes
+        x[i, 3] = c * cfg.d_model * 2    # boundary activation hop
+        if i >= p2:
+            x[i, 3] += kvb[i] * compress            # MBKR spill
+        if i > p2:
+            x[i, 3] += kvb[p2:i].sum() * compress   # MBKR remote re-read
+        prefix += c
+    return x
 
 
 # ------------------------------------------------- analytic pipeline schedule

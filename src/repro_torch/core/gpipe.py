@@ -25,19 +25,27 @@ import torch
 
 from repro_torch import device as devices
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import costmodel as cm
 from repro_torch.core.plan import PipelinePlan
 from repro_torch.core.stagestep import stage_out_ffn, stage_qkv
 from repro_torch.kernels import ops, ref
 from repro_torch.kvstore.quant import torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.obs import telemetry as obs_t
 
 
 @torch.no_grad()
 def gpipe_prefill(cfg: ModelConfig, staged, tokens, plan: PipelinePlan, *,
-                  device=None) -> torch.Tensor:
+                  device=None, return_telemetry: bool = False):
     """GPipe prefill of ``tokens`` [B, S], B divisible by the plan's M
     microbatches; returns the fp32 next-token logits [B, Vpad]. Dense
-    family only (the reference's stage body is the transformer layer)."""
+    family only (the reference's stage body is the transformer layer).
+
+    ``return_telemetry``: also return the ``[N, T]`` stage telemetry
+    (``obs.telemetry``). GPipe has no KV pool or MBKR wire, so only
+    ``attn_work`` (full-sequence causal attention per microbatch tick) and
+    ``launches`` (lps a stage a tick, as the reference charges them; one K1
+    launch a (layer, tick) serves all N stages on the card) are non-zero."""
     if cfg.family != "dense":
         raise ValueError(f"gpipe runs the dense family only, not {cfg.family!r}")
     dev = devices.resolve(device)
@@ -58,6 +66,8 @@ def gpipe_prefill(cfg: ModelConfig, staged, tokens, plan: PipelinePlan, *,
     layers = staged["stage_layers"]
     x = torch.zeros((n, bm, s_full, cfg.d_model), dtype=dt, device=dev)
     out = torch.zeros((b, cfg.d_model), dtype=torch.float32, device=dev)
+    rec = obs_t.TelemetryRecorder(n) if return_telemetry else None
+    stages = np.arange(n)
     for t in range(m + n - 1):
         # stage 0 embeds microbatch clip(t); the others take the ring buffer
         mb = min(max(t, 0), m - 1)
@@ -74,10 +84,17 @@ def gpipe_prefill(cfg: ModelConfig, staged, tokens, plan: PipelinePlan, *,
         phase = t - (n - 1)
         if 0 <= phase < m:
             out[phase * bm:(phase + 1) * bm] = x[n - 1, :, -1].float()
+        if rec is not None:
+            active = (t - stages >= 0) & (t - stages < m)
+            obs_t.charge(rec.tel, "attn_work", lps * cm.attn_flops(cfg, s_full, 0),
+                         active)
+            obs_t.charge(rec.tel, "launches", float(lps))
+            rec.snapshot()
         x = torch.roll(x, 1, dims=0)
     h = L.rms_norm(out[:, None, :].to(dt), staged["final_norm"], cfg.norm_eps)
     w = staged["lm_head"] if "lm_head" in staged else staged["embed"].T
-    return L.unembed_logits(h, w, scale=cfg.logits_scaling)[:, 0]
+    logits = L.unembed_logits(h, w, scale=cfg.logits_scaling)[:, 0]
+    return (logits, rec.profile()) if return_telemetry else logits
 
 
 def _plain(q, k, v, **kw) -> torch.Tensor:

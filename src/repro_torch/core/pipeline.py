@@ -30,14 +30,16 @@ from repro_torch.kvstore import pages as kvpages
 from repro_torch.kvstore.pages import POOL_FIELDS, PagedPool
 from repro_torch.kvstore.quant import torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.obs import telemetry as obs_t
 
 
 @torch.no_grad()
 def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePlan,
                      *, device=None, return_ledger: bool = False,
+                     return_telemetry: bool = False,
                      prefix_chunks: int = 0,
                      prefix_pool: Optional[PagedPool] = None,
-                     return_kv: bool = False):
+                     return_kv: bool = False, tick_hook=None, health=None):
     """Chunked-pipeline prefill of ``tokens`` [B, S]; returns the fp32
     next-token logits [B, Vpad] (prefill only: one output token).
 
@@ -46,6 +48,26 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
     CollectiveLedger: per-category wire bytes summed over stages, as the
     reference's ``return_ledger`` does. A ``gpipe`` plan runs the
     microbatch baseline (``core.gpipe``, dense only), which has no ledger.
+
+    ``return_telemetry``: also return the stage telemetry
+    (``obs.telemetry``): one float64 ``[N, T]`` numpy array per key (pool
+    occupancy, resident KV bytes, spill / fetch / qship events, attention
+    work, the reference's logical launches, prefix hits). It is host
+    arithmetic on the host-side stage predicates, charged where the ledger
+    is, snapshotted once a tick: no device op, no synchronize, and the
+    logits are bit-identical with it off.
+
+    ``tick_hook``: a zero-arg callable called at the END of every tick,
+    after the tick's work is enqueued (``obs.profile.TickSpanCollector.
+    note``: a CUDA event on the stream, the measured spans).
+
+    ``health``: an ``obs.health.HealthMonitor``; arms the non-finite
+    sentinel. Each tick counts the non-finite values of every stage's
+    output on the device into column t of one ``[N, T]`` int32 tensor;
+    after the loop the tensor is masked to the active (stage, tick) cells
+    (bubble garbage pages no one) and read ONCE into
+    ``health.note_nonfinite_profile``: no per-tick ``.item()`` or
+    synchronize. With ``health=None`` nothing extra is launched.
 
     ``prefix_chunks`` / ``prefix_pool`` / ``return_kv``: the device half of
     the prefix KV cache (``kvstore.prefix``; dense and MoE only). The first
@@ -63,10 +85,9 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
     ``min(p2, M - 1)`` can be seeded from it. (The reference returns the
     pool as it ends and seeds it whole at the start; its seeded logits then
     differ from the unseeded run's once ``prefix_chunks`` reaches a lent
-    slot, chunk 4 at N = M = 8.) Return order is
-    ``logits[, ledger][, kv]``: the reference's telemetry slot between
-    ledger and kv is absent, because ``return_telemetry`` is not ported
-    yet."""
+    slot, chunk 4 at N = M = 8.) The put-back moves no telemetry residency:
+    that follows the plan's lifecycle. Return order is
+    ``logits[, ledger][, telemetry][, kv]``, as the reference's."""
     armed = bool(prefix_chunks) or prefix_pool is not None or return_kv
     if plan.mode == "gpipe":
         if return_ledger:
@@ -74,7 +95,10 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
         if armed:
             raise ValueError("the prefix KV cache rides the chunked-pipeline "
                              "paged pool only, not gpipe")
-        return gpipe_prefill(cfg, staged, tokens, plan, device=device)
+        if tick_hook is not None or health is not None:
+            raise ValueError("tick_hook / health probe only the chunked pipeline, not gpipe")
+        return gpipe_prefill(cfg, staged, tokens, plan, device=device,
+                             return_telemetry=return_telemetry)
     if plan.mode not in ("mocap", "terapipe"):
         raise ValueError(f"unknown mode {plan.mode!r}")
     if armed and cfg.family not in ("dense", "moe"):
@@ -113,6 +137,13 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
     x = torch.zeros((n, b, c, cfg.d_model), dtype=dt, device=dev)
     x_last = torch.zeros((n, b, cfg.d_model), dtype=torch.float32, device=dev)
     led = tx.ledger_init()
+    rec = obs_t.TelemetryRecorder(n) if return_telemetry else None
+    tel = None if rec is None else rec.tel
+    # one chunk's STORED pool bytes (the telemetry's residency price)
+    chunk_bytes = 0.0 if family == "ssm" else obs_t.chunk_stored_bytes(
+        plan, plan.layers_per_stage, b, c, cfg.num_kv_heads, cfg.resolved_head_dim)
+    bad = (torch.zeros((n, plan.num_ticks), dtype=torch.int32, device=dev)
+           if health is not None else None)
     for t in range(plan.num_ticks):
         phase = t - stages
         ctx = StageCtx(cfg=cfg, plan=plan, stage=stages, phase=phase,
@@ -125,14 +156,21 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
             x_emb = x_emb * cfg.embedding_multiplier
         x[0] = x_emb.to(dt)
         if family == "ssm":
-            x_out, state, led = ssm_stage_step(ctx, staged["stage_layers"], x,
-                                               state, led)
+            x_out, state, led, tel = ssm_stage_step(
+                ctx, staged["stage_layers"], x, state, led, tel)
         elif family == "hybrid":
-            x_out, state, pool, led = hybrid_stage_step(
-                ctx, staged["stage_layers"], staged["shared"], x, state, pool, led)
+            x_out, state, pool, led, tel = hybrid_stage_step(
+                ctx, staged["stage_layers"], staged["shared"], x, state, pool,
+                led, tel)
         else:
-            x_out, pool, led = tfm_stage_step(ctx, staged["stage_layers"], x,
-                                              pool, led)
+            x_out, pool, led, tel = tfm_stage_step(
+                ctx, staged["stage_layers"], x, pool, led, tel)
+        if rec is not None:
+            if family != "ssm":
+                tel = obs_t.charge_tick_residency(tel, ctx, chunk_bytes)
+            rec.snapshot()
+        if bad is not None:
+            bad[:, t] = nonfinite_per_stage(x_out)
         if return_kv:
             own = ((phase >= 0) & (phase < plan.p2)
                    & np.isin(plan.own_slot[np.clip(phase, 0, m - 1)],
@@ -146,19 +184,39 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
             x_last[s] = x_out[s, :, -1].float()
         ring_active = (phase >= 0) & (phase < m) & (stages < n - 1)
         x, led = transport.ring_shift(x_out, led, active=ring_active)
+        if tick_hook is not None:
+            tick_hook()
     # replicate the final hidden state across stages
     x_last, led = transport.stage_psum(x_last, led)
     h = L.rms_norm(x_last[0][:, None, :].to(dt), staged["final_norm"], cfg.norm_eps)
     w = staged["lm_head"] if "lm_head" in staged else staged["embed"].T
     logits = L.unembed_logits(h, w, scale=cfg.logits_scaling)[:, 0]
+    if bad is not None:       # the one read of the sentinel's counts
+        ph = np.arange(plan.num_ticks)[None, :] - stages[:, None]
+        active = torch.as_tensor((ph >= 0) & (ph < m), device=dev)
+        health.note_nonfinite_profile((bad * active).cpu().numpy())
     out = [logits]
     if return_ledger:
         out.append(tx.ledger_to_dict(led))
+    if return_telemetry:
+        out.append(rec.profile())
     if return_kv:
         for hs, pages, taken in lent:
             kvpages.put_pages(pool, hs, pages, taken)
         out.append(pool)
     return out[0] if len(out) == 1 else tuple(out)
+
+
+def nonfinite_per_stage(x: torch.Tensor) -> torch.Tensor:
+    """The non-finite values of each stage's slice of ``x`` [N, ...], int64
+    [N], on x's device. ``x * 0`` is 0 where x is finite and NaN where it
+    is not, so ``(x * 0) != 0`` flags them, in x's dtype; the flags are
+    summed in fp32 along the last axis (exact: a row holds far fewer than
+    2**24 values), then in int64 over the rows. Three passes over x, no
+    full-size bool or int64 copy (``isfinite`` is four passes on its own)."""
+    flags = torch.mul(x, 0).ne_(0)
+    return flags.sum(-1, dtype=torch.float32).reshape(x.shape[0], -1).sum(
+        1, dtype=torch.int64)
 
 
 def _check_seed(pool: PagedPool, seed: PagedPool) -> None:

@@ -13,7 +13,9 @@ host-side numpy array of shape [N], and the stage-stacked tensors fold the
 stage axis into the batch (N*B rows) where attention runs. All movement
 between stages goes through ``ctx.transport``, which charges the ledger the
 bytes one stage's slice puts on the wire, once per stage whose predicate
-holds — the reference's per-chip model summed over chips.
+holds — the reference's per-chip model summed over chips. The stage
+telemetry's event counts (``obs.telemetry``) use the same predicates, so
+events x ``per_event_wire_bytes`` equals the ledger.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ from repro_torch.core.transport import Ledger, charge
 from repro_torch.kvstore import pages as kvpages
 from repro_torch.kvstore import quant as kvquant
 from repro_torch.kvstore.quant import torch_dtype
-from repro_torch.obs.telemetry import chunk_stored_bytes
+from repro_torch.obs import telemetry as obs_t
+from repro_torch.obs.telemetry import StageTelemetry, chunk_stored_bytes
 
 
 def pair_phase(ctx) -> np.ndarray:
@@ -74,13 +77,16 @@ def _pool_layer(pool: kvpages.PagedPool, l_idx: int):
 
 
 def fetch_remote(ctx, backend: AttentionBackend, qg, pool_l, st: State,
-                 led: Ledger = None):
+                 led: Ledger = None, tel: StageTelemetry = None):
     """Fetch wire: each spilled chunk-layer j in [p2, M) comes from the pair
     by one permute (encoded pages, plus scales when quantized); it counts
     on the ledger iff the receiver consumes it (j < phase < M). A pool
     backend that fuses slot stacks (``batched_pool``) takes the landed
     stack in one ``pool_block``; otherwise one combine per landed chunk
-    (the streamed reference order)."""
+    (the streamed reference order). Telemetry: one ``fetch_events`` per
+    consumed chunk-layer (the ledger's gate) and the pool partials'
+    ``launches`` (one batched, else one per landed chunk). Returns (state,
+    ledger, telemetry)."""
     plan, tr = ctx.plan, ctx.transport
     n = plan.num_stages
     host_tbl = host_table(ctx)
@@ -102,6 +108,7 @@ def fetch_remote(ctx, backend: AttentionBackend, qg, pool_l, st: State,
             ps, led = tr.pair_shift(wire, led, tag="fetch", active=active)
             ks = ps[:, 0].movedim(1, 0).flatten(1, 2)
             vs = ps[:, 1].movedim(1, 0).flatten(1, 2)
+        tel = obs_t.charge(tel, "fetch_events", 1.0, active)
         landed.append((kq, vq, ks, vs, j))
 
     if backend.batched_pool:
@@ -113,18 +120,21 @@ def fetch_remote(ctx, backend: AttentionBackend, qg, pool_l, st: State,
             vss = torch.stack([x[3] for x in landed])
         js = np.arange(plan.p2, plan.num_chunks)
         valid = torch.as_tensor(js[None, :] < phase[:, None], device=qg.device)
-        return backend.pool_block(qg, kqs, vqs, kss, vss, valid, ctx.scale,
-                                  st), led
+        st = backend.pool_block(qg, kqs, vqs, kss, vss, valid, ctx.scale, st)
+        return st, led, obs_t.charge(tel, "launches", 1.0)
     for kq, vq, ks, vs, j in landed:
         valid = torch.as_tensor(j < phase, device=qg.device)
         st = backend.chunk_block_q(qg, kq, vq, ks, vs, valid, ctx.scale, st)
-    return st, led
+        tel = obs_t.charge(tel, "launches", 1.0)
+    return st, led, tel
 
 
 def qship_remote(ctx, backend: AttentionBackend, qg, pool_l, st: State,
-                 led: Ledger = None):
+                 led: Ledger = None, tel: StageTelemetry = None):
     """Ship each stage's query to its pair, which scans ONLY the host slots
-    it keeps for it and ships back (m, l, acc); useful iff p2 < phase < M."""
+    it keeps for it and ships back (m, l, acc); useful iff p2 < phase < M.
+    Telemetry: one ``qship_events`` per useful round trip, and the
+    creditor scan's ``launches``. Returns (state, ledger, telemetry)."""
     plan, tr = ctx.plan, ctx.transport
     n = plan.num_stages
     gb, c, kvh, g, d = qg.shape
@@ -148,11 +158,15 @@ def qship_remote(ctx, backend: AttentionBackend, qg, pool_l, st: State,
                              tag="qship_state", active=active)
     back = (ml[:, 0].flatten(0, 1), ml[:, 1].flatten(0, 1),
             a_r.flatten(0, 1).float())
-    return attn_combine(st, back), led
+    tel = obs_t.charge(tel, "qship_events", 1.0, active)
+    tel = obs_t.charge(tel, "launches", 1.0 if backend.batched_pool
+                       else float(len(plan.host_slots_used)))
+    return attn_combine(st, back), led, tel
 
 
 def write_pools(ctx, pool: kvpages.PagedPool, stage_k: torch.Tensor,
-                stage_v: torch.Tensor, led: Ledger = None):
+                stage_v: torch.Tensor, led: Ledger = None,
+                tel: StageTelemetry = None):
     """End-of-tick page writes, in place. ``stage_k``/``stage_v``
     [N, lps, B, C, K, D]. Each stage encodes its fresh chunk once and
     scatters it to its own slot (phase < p2) or, under mocap, ships it
@@ -167,7 +181,9 @@ def write_pools(ctx, pool: kvpages.PagedPool, stage_k: torch.Tensor,
     (``ctx.prefix_pool``, the cached prefix KV): copied at the phase the
     chunk is written, not at the start of the run, because MBKR lends an
     own slot to the pair's spill earlier in the cycle on the second half
-    of the stages, which would overwrite a seed copied at the start."""
+    of the stages, which would overwrite a seed copied at the start.
+    Telemetry: one ``prefix_hit`` per redirected store and one
+    ``spill_events`` per useful spill. Returns (pool, ledger, telemetry)."""
     plan = ctx.plan
     codec = plan.codec
     n, m = plan.num_stages, plan.num_chunks
@@ -182,6 +198,7 @@ def write_pools(ctx, pool: kvpages.PagedPool, stage_k: torch.Tensor,
         _, lps, b, c, kvh, hd = stage_k.shape
         led = charge(led, "prefix_hit",
                      chunk_stored_bytes(plan, lps, b, c, kvh, hd), hit)
+        tel = obs_t.charge(tel, "prefix_hit", 1.0, hit)
     kq, ksc = kvquant.encode(codec, stage_k, pages=plan.pages_per_chunk)
     vq, vsc = kvquant.encode(codec, stage_v, pages=plan.pages_per_chunk)
     kvpages.scatter_chunk_raw(pool, plan.slot_pages[own_slot], kq, vq, ksc, vsc)
@@ -198,6 +215,7 @@ def write_pools(ctx, pool: kvpages.PagedPool, stage_k: torch.Tensor,
                          host_tbl[np.arange(n), np.clip(pp, 0, m - 1)],
                          plan.scratch)
         ship_active = (phase >= plan.p2) & (phase < m)
+        tel = obs_t.charge(tel, "spill_events", 1.0, ship_active)
         tr = ctx.transport
         if codec.quantized:
             sq, led = tr.pair_shift(kvquant.stack([kq, vq], dim=1), led,
@@ -215,4 +233,4 @@ def write_pools(ctx, pool: kvpages.PagedPool, stage_k: torch.Tensor,
                                        led, active=ship_active)
             kvpages.scatter_chunk_raw(pool, plan.slot_pages[hslot],
                                       spill[:, 0], spill[:, 1], None, None)
-    return pool, led
+    return pool, led, tel

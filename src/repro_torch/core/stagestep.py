@@ -11,6 +11,10 @@ folds the stage axis into the batch (N*B rows), so one kernel launch per
 (layer, tick) covers every stage. ``StageCtx`` carries the per-stage
 scalars as host-side numpy arrays of shape [N]: the phases are known on the
 host before a tick runs, so gating needs no device round trip.
+
+Every program threads the CollectiveLedger (``led``) and the stage
+telemetry (``tel``, ``obs.telemetry``), both host-side; a None one is
+not charged.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import costmodel as cm
 from repro_torch.core import remote
 from repro_torch.core.attention import (attn_finish, attn_init, get_backend,
                                         group_queries, pool_scan)
@@ -31,6 +36,8 @@ from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
+from repro_torch.obs import telemetry as obs_t
+from repro_torch.obs.telemetry import StageTelemetry
 
 Params = Dict[str, Any]
 
@@ -59,11 +66,17 @@ class StageCtx:
 
 def attend_chunk(ctx: StageCtx, l_idx: int, q: torch.Tensor,
                  k_new: torch.Tensor, v_new: torch.Tensor, pool,
-                 led: Ledger = None):
+                 led: Ledger = None, tel: StageTelemetry = None):
     """Full MOCAP attention for one layer of every stage's current chunk:
     own-pool prefix + remote prefix + causal self block. q [N*B, C, H, D];
     k_new / v_new [N*B, C, K, D]. The self block runs ``plan.attn_backend``;
-    every pool-sourced partial runs ``plan.pool_backend``."""
+    every pool-sourced partial runs ``plan.pool_backend``. Returns (att,
+    ledger, telemetry).
+
+    Telemetry, as the reference charges it per stage: ``attn_work`` at each
+    stage's prefix (active stages), and ``launches`` = the backend's block
+    invocations a stage makes: the pool scan (one with a ``batched_pool``
+    backend, else one per slot), the remote prefix, the self block."""
     plan = ctx.plan
     backend = get_backend(plan.attn_backend)
     pool_be = (backend if plan.pool_backend == plan.attn_backend
@@ -73,19 +86,26 @@ def attend_chunk(ctx: StageCtx, l_idx: int, q: torch.Tensor,
     qg = group_queries(q, kvh)
     st = attn_init(gb, c, kvh, h // kvh, d, device=q.device)
     pool_l = remote._pool_layer(pool, l_idx)
+    if tel is not None:
+        prefix = np.clip(ctx.phase, 0, plan.num_chunks - 1) * c
+        tel = obs_t.charge(tel, "attn_work", cm.attn_flops(ctx.cfg, c, prefix),
+                           ctx.active)
 
     # 1. own local prefix: chunks j < min(phase, p2)
     st = pool_scan(pool_be, qg, pool_l, plan.slot_pages, plan.slot_own_chunk,
                    np.minimum(ctx.phase, plan.p2), ctx.scale, st)
+    tel = obs_t.charge(tel, "launches",
+                       1.0 if pool_be.batched_pool else float(plan.num_slots))
     # 2. remote prefix: chunks p2 <= j < phase live at the pair
     if plan.p2 < plan.num_chunks and plan.mode == "mocap":
         if plan.remote_attn == "fetch":
-            st, led = remote.fetch_remote(ctx, pool_be, qg, pool_l, st, led)
+            st, led, tel = remote.fetch_remote(ctx, pool_be, qg, pool_l, st, led, tel)
         else:
-            st, led = remote.qship_remote(ctx, pool_be, qg, pool_l, st, led)
+            st, led, tel = remote.qship_remote(ctx, pool_be, qg, pool_l, st, led, tel)
     # 3. causal self block
     st = backend.self_block(qg, k_new, v_new, ctx.scale, st)
-    return attn_finish(st, q.dtype), led
+    tel = obs_t.charge(tel, "launches", 1.0)
+    return attn_finish(st, q.dtype), led, tel
 
 
 def _stage_w(w: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -145,22 +165,22 @@ def stage_out_ffn(cfg: ModelConfig, lp: Params, x: torch.Tensor,
 
 
 def tfm_stage_step(ctx: StageCtx, layers: Params, x: torch.Tensor, pool,
-                   led: Ledger = None):
+                   led: Ledger = None, tel: StageTelemetry = None):
     """Apply every stage's lps layers to its chunk ``ctx.phase``.
     ``layers`` leaves are [N, lps, ...]; x [N, B, C, d]. Returns
-    (x_out, pool, ledger); the pool is updated in place."""
+    (x_out, pool, ledger, telemetry); the pool is updated in place."""
     n, b = x.shape[:2]
     cos, sin = _rope(ctx, x)
     ks, vs = [], []
     for li in range(ctx.plan.layers_per_stage):
         lp = {k: w[:, li] for k, w in layers.items()}
         q, k, v = stage_qkv(ctx.cfg, lp, x, cos, sin)
-        att, led = attend_chunk(ctx, li, q, k, v, pool, led)
+        att, led, tel = attend_chunk(ctx, li, q, k, v, pool, led, tel)
         x = stage_out_ffn(ctx.cfg, lp, x, att)
         ks.append(k)
         vs.append(v)
-    pool, led = remote.write_pools(ctx, pool, *_stack_kv(ks, vs, n, b), led)
-    return x, pool, led
+    pool, led, tel = remote.write_pools(ctx, pool, *_stack_kv(ks, vs, n, b), led, tel)
+    return x, pool, led, tel
 
 
 def _mamba(ctx: StageCtx, lp: Params, x: torch.Tensor, conv: torch.Tensor,
@@ -181,27 +201,38 @@ def _mamba(ctx: StageCtx, lp: Params, x: torch.Tensor, conv: torch.Tensor,
 
 
 def ssm_stage_step(ctx: StageCtx, layers: Params, x: torch.Tensor, state,
-                   led: Ledger = None):
+                   led: Ledger = None, tel: StageTelemetry = None):
     """Mamba2 stage: every stage's lps blocks over its chunk, the (conv,
     ssd) state [N, lps, B, ...] carried tick to tick (updated in place).
     The SSD inner loop routes through ``plan.ssm_backend``. No pool and no
-    transfer: the ledger passes through. Returns (x_out, state, ledger)."""
+    transfer: the ledger passes through. Telemetry: ``attn_work`` (the
+    cost model's SSD work), and lps ``launches`` a stage under the ``cuda``
+    SSD (K4). Returns (x_out, state, ledger, telemetry)."""
+    lps = ctx.plan.layers_per_stage
+    tel = obs_t.charge(tel, "attn_work",
+                       lps * cm.attn_flops(ctx.cfg, x.shape[2], 0), ctx.active)
+    if ctx.plan.ssm_backend == "cuda":
+        tel = obs_t.charge(tel, "launches", float(lps))
     conv, ssd = state
-    for li in range(ctx.plan.layers_per_stage):
+    for li in range(lps):
         x = _mamba(ctx, {k: w[:, li] for k, w in layers.items()}, x,
                    conv[:, li], ssd[:, li])
-    return x, state, led
+    return x, state, led, tel
 
 
 def hybrid_stage_step(ctx: StageCtx, groups: Params, shared: Params,
-                      x: torch.Tensor, state, pool, led: Ledger = None):
+                      x: torch.Tensor, state, pool, led: Ledger = None,
+                      tel: StageTelemetry = None):
     """Zamba2 stage = lps groups of (pg Mamba2 + the shared attention
     block). ``groups`` leaves are [N, lps, pg, ...]; ``shared`` is one
     unstacked transformer layer; state [N, lps, pg, B, ...]. The shared
     block's update and FFN apply only where the group is real (global group
     id stage * lps + gi < num_groups); its K/V are written for every group,
     the tail pseudo-group and the padding included, as in the reference.
-    Returns (x_out, state, pool, ledger); state and pool update in place."""
+    Telemetry as the reference charges it: the shared block's attention
+    (``attend_chunk``) and its pool writes; the Mamba2 layers charge none.
+    Returns (x_out, state, pool, ledger, telemetry); state and pool update
+    in place."""
     cfg, plan = ctx.cfg, ctx.plan
     scfg = HY.T_single_cfg(cfg)
     n, b, c, dm = x.shape
@@ -222,12 +253,12 @@ def hybrid_stage_step(ctx: StageCtx, groups: Params, shared: Params,
         v = torch.matmul(hn, shared["wv"]).reshape(n * b, c, -1, hd)
         q = L.apply_rope(q, cos, sin)
         k = L.apply_rope(k, cos, sin)
-        att, led = attend_chunk(ctx, gi, q, k, v, pool, led)
+        att, led, tel = attend_chunk(ctx, gi, q, k, v, pool, led, tel)
         upd = torch.matmul(att.reshape(n, b * c, -1), shared["wo"])
         x = x + torch.where(has_attn, upd.reshape(n, b, c, dm), 0.0)
         ffn = T.ffn_block(scfg, shared, x) - x            # isolate the update
         x = x + torch.where(has_attn, ffn, 0.0)
         ks.append(k)
         vs.append(v)
-    pool, led = remote.write_pools(ctx, pool, *_stack_kv(ks, vs, n, b), led)
-    return x, state, pool, led
+    pool, led, tel = remote.write_pools(ctx, pool, *_stack_kv(ks, vs, n, b), led, tel)
+    return x, state, pool, led, tel

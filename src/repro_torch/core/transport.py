@@ -24,7 +24,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kvstore.quant import as_bytes
+from repro_torch.kvstore.quant import as_bytes, torch_dtype
 
 LEDGER_KEYS = ("ring", "collect", "spill", "fetch", "qship_q", "qship_state",
                "tp", "prefix_hit")
@@ -93,3 +93,65 @@ class StageAxisTransport:
         act = self._all(x) if active is None else active
         out = x.sum(dim=0, keepdim=True).expand_as(x)
         return out, charge(led, "collect", 2.0 * (k - 1) / k * nbytes(x), act)
+
+
+def analytic_wire_bytes(plan, cfg, b: int) -> Dict[str, float]:
+    """Closed-form §3.4 traffic totals for one ``prefill_pipeline`` call of a
+    TRANSFORMER-family plan — the model the runtime ledger is validated
+    against (held to it in the tests).
+
+    Logical bytes, whole run, all stages, useful-gated exactly like the
+    ledger: a transfer counts when its payload is consumed (fetch chunk j at
+    phase p counts iff j < p; qship counts iff p > p2; spill counts iff the
+    shipped chunk index is in [p2, M)). The ``tp`` category (the
+    reference's manual TP lowering) is not modeled; the port runs tp = 1.
+    Every chunk is shipped whole: the runtime only ships uniform chunks."""
+    n, m, c = plan.num_stages, plan.num_chunks, plan.chunk_len
+    lps = plan.layers_per_stage
+    kvh, hd, h = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_heads
+    dt = float(torch_dtype(cfg.dtype).itemsize)
+    codec = plan.codec
+    sto = float(codec.bytes_per_el)
+    ppc = plan.pages_per_chunk
+    out = {k: 0.0 for k in LEDGER_KEYS}
+
+    # ring: stage s < N-1 forwards its chunk output once per active phase
+    out["ring"] = (n - 1) * m * (b * c * cfg.d_model) * dt
+    # collect: one [B, d] fp32 all-reduce over the stage axis
+    out["collect"] = 2.0 * (n - 1) * (b * cfg.d_model) * 4.0
+
+    if plan.mode != "mocap" or plan.p2 >= m or cfg.attn_free:
+        return out
+
+    # --- spill: every stage ships each chunk in [p2, M) once (all lps
+    # layers in one end-of-tick permute). Quantized codec: the wire carries
+    # the encoded pages + fp32 scales; passthrough + int8 spill_dtype: int8
+    # payload + one fp32 scale per (tensor, layer, kv head).
+    payload = 2 * lps * b * c * kvh * hd  # k and v elements of one chunk
+    if codec.quantized:
+        spill = payload * sto + 2 * ppc * lps * b * kvh * 4.0
+    elif plan.spill_dtype == "int8":
+        spill = payload * 1.0 + 2 * lps * b * kvh * 4.0
+    else:
+        spill = payload * dt
+    out["spill"] = n * (m - plan.p2) * spill
+
+    if plan.remote_attn == "fetch":
+        # one chunk-layer permute per (stage, layer, phase, remote chunk
+        # consumed): chunk j >= p2 is consumed at every phase p in (j, M)
+        payload = 2 * b * c * kvh * hd
+        fetch = payload * sto
+        if codec.quantized:
+            fetch += 2 * ppc * b * kvh * 4.0
+        events = (m - 1 - plan.p2) * (m - plan.p2) // 2
+        out["fetch"] = n * lps * events * fetch
+    else:
+        # qship: one q ship + one (m, l, acc) return per (stage, layer,
+        # phase with p > p2)
+        phases = max(0, m - 1 - plan.p2)
+        ship = float(torch_dtype(plan.ship_dtype).itemsize)
+        out["qship_q"] = n * lps * phases * (b * c * h * hd) * ship
+        out["qship_state"] = n * lps * phases * (
+            2 * (b * kvh * (h // kvh) * c) * 4.0        # (m, l) fp32 packed
+            + (b * kvh * (h // kvh) * c * hd) * ship)   # acc in wire dtype
+    return out

@@ -8,13 +8,16 @@ kernel does not take, allocates its outputs with ``torch.empty`` and
 launches on the current stream. A tensor on the CPU goes to the plain
 version in ``kernels.ref``; a CUDA tensor launches the kernel or raises —
 there is no fallback. ``LAUNCHES`` counts kernel launches per tag, and only
-those.
+those. Inside a ``timed_launches`` frame each wrapper also stamps its
+launch (a CUDA event) or its plain version's return (the host clock).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
-from typing import Optional, Tuple
+import time
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -59,6 +62,70 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+# open ``timed_launches`` frames; every open frame records every launch
+_TIMED: List[dict] = []
+
+
+def _stamp(cuda: bool):
+    """A point in time: a CUDA event recorded on the current stream (the
+    card), or the host clock (the CPU)."""
+    if not cuda:
+        return time.perf_counter()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _note(tag: str, cuda: bool) -> None:
+    """After a kernel launch (``cuda``) or a plain version's return: one
+    stamp under ``tag`` in every open timed frame. Nothing when none is
+    open."""
+    if _TIMED:
+        stamp = _stamp(cuda)
+        for frame in _TIMED:
+            frame["events"].append((tag, stamp))
+
+
+def _plain(tag: str, result):
+    _note(tag, False)
+    return result
+
+
+@contextlib.contextmanager
+def timed_launches(device=None):
+    """A timed launch frame (the counterpart of the reference's
+    ``count_launches(timed=True)``): inside it every wrapper records one
+    stamp under its tag right after it launches its kernel (a CUDA event on
+    the current stream) or, on the CPU, right after its plain version
+    returns (``time.perf_counter``). The yielded frame holds ``"t0"`` (a
+    stamp taken at entry) and the ordered ``"events"`` [(tag, stamp)];
+    ``frame_seconds`` turns it into seconds since ``t0`` and
+    ``obs.profile.kernel_tag_times`` into per-tag totals. Frames nest.
+    Outside a frame nothing is recorded and ``LAUNCHES`` counts as ever.
+    ``device``: where the frame's launches run (default the card)."""
+    from repro_torch import device as devices
+    cuda = devices.resolve(device).type == "cuda"
+    frame = {"cuda": cuda, "t0": _stamp(cuda), "events": []}
+    _TIMED.append(frame)
+    try:
+        yield frame
+    finally:
+        _TIMED.remove(frame)
+
+
+def frame_seconds(frame: dict) -> dict:
+    """A ``timed_launches`` frame with its stamps in seconds since ``t0``
+    (``{"t0": 0.0, "events": [(tag, s)]}``). A card frame synchronizes on
+    its last event once and reads each event's ``elapsed_time`` from
+    ``t0``; the device's own clock, not the host's."""
+    t0, events = frame["t0"], frame["events"]
+    if not frame["cuda"]:
+        return {"t0": 0.0, "events": [(tag, ts - t0) for tag, ts in events]}
+    (events[-1][1] if events else t0).synchronize()
+    return {"t0": 0.0, "events": [(tag, t0.elapsed_time(ev) / 1e3)
+                                  for tag, ev in events]}
+
+
 def _fn(lib_name: str, name: str):
     from repro_torch.kernels import build
     fn = getattr(build.lib(lib_name), name)
@@ -76,6 +143,7 @@ def _call(lib_name: str, name: str, tag: str, on, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name} failed: CUDA error {err}")
     LAUNCHES[tag] += 1
+    _note(tag, True)
 
 
 def _attn_lib(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
@@ -173,9 +241,9 @@ def chunk_attention(q, k, v, *, causal_offset: int = 0,
     if k_scale is not None and (k_scale.shape != (b, t, kvh) or v_scale.shape != k_scale.shape):
         raise ValueError(f"scales must be [B, T, KVH] = {(b, t, kvh)}")
     if not _on_card(q, k, v, k_scale, v_scale):
-        res = ref.chunk_attention_plain(
+        res = _plain("chunk_attention", ref.chunk_attention_plain(
             q, k, v, causal_offset=causal_offset, scale=scale, kv_len=kv_len,
-            k_scale=k_scale, v_scale=v_scale)
+            k_scale=k_scale, v_scale=v_scale))
         return res if return_state else res[0]
     _check_dense(q, k, v, k_scale, v_scale)
     out = torch.empty_like(q)
@@ -224,9 +292,9 @@ def pool_attention(q, k, v, valid, *, scale: Optional[float] = None,
         raise ValueError(f"scales must be [S, G*B, T, KVH] = {(s, gb, t, kvh)}")
     valid = _valid_groups(torch.as_tensor(valid, device=q.device), gb, s)
     if not _on_card(q, k, v, valid, k_scale, v_scale):
-        return ref.pool_attention_plain(q, k, v, valid, scale=scale,
-                                        kv_len=kv_len, k_scale=k_scale,
-                                        v_scale=v_scale)
+        return _plain("pool_attention", ref.pool_attention_plain(
+            q, k, v, valid, scale=scale, kv_len=kv_len, k_scale=k_scale,
+            v_scale=v_scale))
     _check_dense(q, k, v, k_scale, v_scale)
     ng = valid.shape[0]
     _check_tc_groups(q, ng, s)
@@ -288,9 +356,9 @@ def pool_attention_paged(q, k_pages, v_pages, handles, valid, *, ppc: int,
         raise ValueError(f"scales must be [G, P, B, 1, KVH, 1] = {(ng, npages, b, 1, kvh, 1)}")
     valid = _valid_groups(torch.as_tensor(valid, device=q.device), gb, s)
     if not _on_card(q, kp, vp, handles, valid, ks, vs):
-        return ref.pool_attention_paged_plain(
+        return _plain("pool_attention_paged", ref.pool_attention_paged_plain(
             q, kp, vp, handles, valid, ppc=ppc, scale=scale, kv_len=kv_len,
-            k_scale=ks, v_scale=vs)
+            k_scale=ks, v_scale=vs))
     handles = handles.to(torch.int32).contiguous()
     _check_dense(q)
     st = kp.stride()
@@ -371,8 +439,8 @@ def ssd(x, dt, a_log, b, c, d_skip, *, chunk: int = 128, init_state=None):
                          f"{tuple(a_log.shape)} d_skip {tuple(d_skip.shape)}")
     ck = ssd_chunk(t, chunk)
     if not _on_card(x, dt, a_log, b, c, d_skip, init_state):
-        return ref.ssd_plain(x, dt, a_log, b, c, d_skip, chunk=ck,
-                             init_state=init_state)
+        return _plain("ssd", ref.ssd_plain(x, dt, a_log, b, c, d_skip, chunk=ck,
+                                           init_state=init_state))
     if x.dtype not in _SSD_CODES or b.dtype != x.dtype or c.dtype != x.dtype:
         raise TypeError(f"x/b/c dtypes {x.dtype}/{b.dtype}/{c.dtype}: one of "
                         f"{list(_SSD_CODES)} for all three")
@@ -508,7 +576,8 @@ def decode_attention(q, k, v, kv_len, *, scale: Optional[float] = None):
                          f"group {h // kvh} not in {_DECODE_GROUPS}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if not _on_card(q, k, v, kv_len):
-        return ref.decode_attention_plain(q, k, v, kv_len, scale=scale)
+        return _plain("decode_attention",
+                      ref.decode_attention_plain(q, k, v, kv_len, scale=scale))
     _check_dense(q, k, v)
     if not kv_len.is_contiguous():
         raise ValueError("kv_len must be contiguous")

@@ -35,10 +35,32 @@ share a cached prefix from pool snapshots; ``prefix_stats()`` is printed
 after the run. ``--kv-offload`` prints the analytic hot / warm / cold page
 placement of the largest bucket (``kvstore.tiers.plan_tiers``) under the
 cost-model profile, with the reference's TPU host-link rate.
+
+Observability (``repro_torch.obs``):
+
+    python -m repro_torch.launch.serve --scheduler continuous \
+        --trace-out build/trace.json --metrics-out build/metrics.prom \
+        --health --calibrate build/cal.json
+
+``--trace-out`` arms the stage telemetry and writes one Chrome trace
+(scheduler tasks, lease and wire counters, engine waves and ticks,
+``kv_resident_bytes`` tracks, measured spans, health alerts; continuous
+scheduler); ``--metrics-out`` writes the metrics as JSON lines, or as a
+Prometheus text file for a ``.prom`` path; ``--health`` arms the
+non-finite and SLO burn-rate sentinels and prints their alerts, and the
+occupancy-drift sentinel too when ``--trace-out`` arms the telemetry it
+reads (as in the reference's serve); ``--calibrate PATH`` measures the tick spans of every wave (CUDA
+events on the card) and fits the cost model's effective rates to the last
+wave's, from ``--profile``, into a profile JSON: an effective profile of N
+stages on one card (``obs.calibrate``); ``--calibrated-profile PATH``
+prices admission with such a profile; ``--profile-dir DIR`` runs the
+serving loop under ``torch.profiler`` and writes its Chrome trace there.
 """
 from __future__ import annotations
 
 import argparse
+import math
+import os
 import sys
 import time
 from typing import List, Optional, Sequence
@@ -112,6 +134,22 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="the first this many tokens are the same in every "
                          "request (a shared system prompt)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the merged Chrome trace here (arms the stage "
+                         "telemetry; continuous scheduler)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the metrics here (.prom: Prometheus text; "
+                         "else JSON lines)")
+    ap.add_argument("--health", action="store_true",
+                    help="arm the health sentinels and print their alerts")
+    ap.add_argument("--calibrate", default=None, metavar="PATH",
+                    help="measure the tick spans and write the cost model's "
+                         "fitted profile JSON here (torch executor)")
+    ap.add_argument("--calibrated-profile", default=None, metavar="PATH",
+                    help="price admission with this profile JSON (overrides "
+                         "--profile)")
+    ap.add_argument("--profile-dir", default=None,
+                    help="run under torch.profiler; its Chrome trace goes here")
     ap.add_argument("--smoke", action="store_true", help="the small config")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
@@ -120,11 +158,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def build(args: argparse.Namespace):
     """(cfg, engine, executor) for one serving cell."""
-    hw = cm.resolve_profile(args.profile)
+    hw = cm.resolve_profile(args.calibrated_profile or args.profile)
+    if args.calibrated_profile:
+        print(f"[profile] {args.calibrated_profile} -> {hw.name} "
+              f"(gemm_eff={hw.gemm_eff:.3f} attn_eff={hw.attn_eff:.3f})")
     slo = args.slo_ms / 1e3 if args.slo_ms else None
     knobs = dict(max_batch=args.max_batch, kv_dtype=args.kv_dtype,
                  policy=args.policy, slo=slo, hw=hw, prefix_cache=args.prefix_cache,
-                 prefix_min_pages=args.prefix_min_pages)
+                 prefix_min_pages=args.prefix_min_pages,
+                 trace=args.trace_out is not None)
     if args.executor == "sim":
         cfg = get_config(args.arch)
         ec = EngineConfig(model=cfg, num_stages=16, tp=16, num_chunks=16,
@@ -224,6 +266,90 @@ def measured_completions(waves) -> dict:
     return {rid: w["start"] + w["dur"] - t0 for w in waves for rid in w["rids"]}
 
 
+def arm_obs(args: argparse.Namespace, eng):
+    """Arm the engine's executor for the observability flags; returns the
+    health monitor (or None)."""
+    if args.trace_out:
+        eng.configure_obs(telemetry=True)
+    monitor = None
+    if args.health:
+        from repro_torch.obs.health import HealthMonitor
+        monitor = HealthMonitor()
+        eng.configure_obs(health=monitor)
+    if args.calibrate:
+        if args.executor == "torch":
+            eng.configure_obs(measured=True)
+        else:
+            print("note: --calibrate measures the torch executor; the sim "
+                  "executor IS the analytic model: skipping")
+    return monitor
+
+
+def run_profiled(eng, profile_dir: str, device) -> None:
+    """``eng.run_until_drained()`` under torch.profiler (the card's
+    activity too when it runs there); the Chrome trace goes to
+    ``profile_dir/serve_trace.json``."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        eng.run_until_drained()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "serve_trace.json")
+    prof.export_chrome_trace(path)
+    print(f"torch profile -> {path}")
+
+
+def calibrate(args: argparse.Namespace, cfg, eng, ex) -> None:
+    """Fit the cost model's effective rates (from the engine's profile) to
+    the last measured wave's tick spans (the earlier waves hold the
+    kernels' first build) and save the profile to ``args.calibrate``. A
+    port tick runs all N stages on one card, so the fit is an effective
+    "N stages on one card" profile, saved as such (``meta``)."""
+    from repro_torch.core import mbkr
+    from repro_torch.obs import calibrate as cal
+    meas = eng.measured_waves()
+    if not meas:
+        print("note: no measured waves; nothing to calibrate")
+        return
+    w = meas[-1]
+    ec = eng.ec
+    sm = cm.StageModel.build(cfg, w["num_stages"], ec.tp)
+    mplan = (mbkr.plan(len(w["chunks"]), w["num_stages"])
+             if not cfg.attn_free else None)
+    fit = cal.fit_profile(sm, w["chunks"], w["measured"], ec.hw, mbkr_plan=mplan)
+    dev = ex.device
+    cal.save_profile(args.calibrate, fit.profile, fit=fit, meta={
+        "arch": args.arch, "seq": args.seq, "source": "repro_torch.launch.serve",
+        "num_stages": w["num_stages"], "one_card": True, "device": str(dev),
+        "device_name": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                        else "cpu")})
+    print(f"[calibrate] {ec.hw.name} -> {fit.profile.name} (N={w['num_stages']} "
+          f"stages on one {dev.type} device): span MAPE {fit.mape_nominal:.3f} -> "
+          f"{fit.mape_calibrated:.3f} over {len(fit.rows)} spans -> {args.calibrate}")
+
+
+def export_obs(args: argparse.Namespace, eng, m: dict, wall: float, monitor) -> None:
+    """``--trace-out`` / ``--metrics-out``: the continuous engine exports
+    both (``export_obs``); the batch engine exports the metrics only."""
+    if args.scheduler == "continuous":
+        if args.trace_out or args.metrics_out:
+            paths = eng.export_obs(trace_out=args.trace_out,
+                                   metrics_out=args.metrics_out,
+                                   extra={"wall_seconds": wall})
+            for kind, path in paths.items():
+                print(f"{kind} -> {path}")
+        return
+    if args.trace_out:
+        print("note: --trace-out needs --scheduler continuous; skipping")
+    if args.metrics_out:
+        from repro_torch.obs.metrics import export_engine_metrics
+        path = export_engine_metrics(args.metrics_out, m,
+                                     extra={"wall_seconds": wall}, health=monitor)
+        print(f"metrics -> {path}")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
     if args.scheduler == "batch" and args.arrival_rate > 0:
@@ -238,15 +364,21 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg, eng, ex = build(args)
     if args.kv_offload:
         print_tier_summary(cfg, eng.ec)
+    monitor = arm_obs(args, eng)
     for r in make_requests(args.requests, args.seq, cfg.vocab_size, args.seed,
                            arrival_rate=args.arrival_rate,
                            tokens=args.executor == "torch",
                            shared_prefix=args.shared_prefix):
         eng.submit(r)
     t0 = time.perf_counter()
-    eng.run_until_drained()
+    if args.profile_dir:
+        run_profiled(eng, args.profile_dir, getattr(ex, "device", None))
+    else:
+        eng.run_until_drained()
     wall = time.perf_counter() - t0
     finished = sorted(eng.poll(), key=lambda r: r.rid)
+    if args.calibrate and args.executor == "torch":
+        calibrate(args, cfg, eng, ex)
     m = eng.metrics()
     hw = eng.ec.hw.name
     if args.executor == "torch":
@@ -275,6 +407,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
               f"{eng.clock:.3f} s | avg E2E {m['avg_e2e']:.3f} s | p99 "
               f"{m['p99_e2e']:.3f} s | {m['throughput']:.3f} req/s | stages "
               f"{m['num_stages']}")
+    if monitor is not None:
+        if args.scheduler == "continuous" and eng.slo is not None:
+            from repro_torch.obs.metrics import Histogram
+            h = Histogram("ttft")
+            for rec in eng.records():
+                if math.isfinite(rec.finish):
+                    h.observe(rec.finish - rec.arrival)
+            monitor.check_slo(h, eng.slo)
+        sm = monitor.summary()
+        burn = f" | burn {sm['burn_rate']:.2f}x" if sm["burn_rate"] is not None else ""
+        print(f"[health] alerts {sm['alerts_total']} {sm['by_kind']}{burn}")
+    export_obs(args, eng, m, wall, monitor)
     if args.executor == "torch":
         print(f"[serve] {args.arch} device={ex.device} remote={args.remote_attn} "
               f"attn={args.attn_backend} pool={args.pool_backend} "

@@ -23,6 +23,11 @@ Two engines share the executors:
   gated admission, bubble-free across request boundaries in the analytic
   schedule.
 
+Observability (``repro_torch.obs``): ``configure_obs`` arms the executor's
+stage telemetry, measured tick spans and health monitor; ``measured_waves``
+is the calibration input; ``ContinuousEngine.merged_trace`` / ``export_obs``
+write one Chrome trace and one metrics file.
+
 One deliberate deviation: ``TorchExecutor`` refuses a non-uniform chunk list
 (the reference's executor silently runs a uniform plan of as many chunks).
 The real path builds ``partition="uniform"``, as the reference's serve does,
@@ -48,6 +53,8 @@ from repro_torch.kvstore import quant as kvquant
 from repro_torch.kvstore.pages import POOL_FIELDS, PagedPool
 from repro_torch.kvstore.prefix import (DeviceSeedCache, PrefixPageCache,
                                         chunk_hashes)
+from repro_torch.obs import telemetry as obs_t
+from repro_torch.obs.profile import TickSpanCollector
 
 
 def _nbytes(tensors) -> float:
@@ -131,7 +138,9 @@ class CellHandle(Protocol):
     serve CLI; the reference's fleet router). ``ContinuousEngine`` is the
     implementation. Lifecycle: ``submit`` -> ``run_until_drained``
     (re-entrant) -> ``poll``; ``drain`` closes admission for good. The
-    observability methods of the reference's protocol are not ported yet."""
+    observability entries arm the executor (``configure_obs``) and read
+    back what it measured (``measured_waves``, ``merged_trace``,
+    ``export_obs``)."""
 
     draining: bool
 
@@ -149,6 +158,15 @@ class CellHandle(Protocol):
     def metrics(self) -> Dict[str, Any]: ...
     def records(self) -> List[Any]: ...
     def recalibrate(self, hw: Any) -> Any: ...
+    def merged_trace(self) -> Any: ...
+    def export_obs(self, trace_out: Optional[str] = None,
+                   metrics_out: Optional[str] = None,
+                   extra: Optional[Dict[str, float]] = None,
+                   health: Any = None) -> Dict[str, str]: ...
+    def configure_obs(self, *, telemetry: Optional[bool] = None,
+                      measured: Optional[bool] = None,
+                      health: Any = None) -> None: ...
+    def measured_waves(self) -> List[Dict[str, Any]]: ...
 
 
 # ---------------------------------------------------------------- executors
@@ -222,7 +240,21 @@ class TorchExecutor:
     wave records ``prefix_chunks``; an armed one also records the seed's
     and the snapshots' copy times and bytes (``seed_h2d_s``, ``seed_bytes``,
     ``snap_d2h_s``, ``snap_bytes``), taken outside ``dur``, which stays the
-    pipeline's wall time."""
+    pipeline's wall time.
+
+    Observability, settable any time (the port prepares no program per
+    setting, so there is no cache to key them into: each wave reads them):
+    ``collect_telemetry`` runs ``return_telemetry=True`` and lands the
+    ``[N, T]`` stage telemetry in ``wave["telemetry"]`` with the per-event
+    wire prices (``wave["per_event_wire"]``); ``collect_measured`` arms the
+    ``tick_hook`` with an ``obs.profile.TickSpanCollector`` (CUDA events on
+    the card) and lands the measured ``[N, T]`` tick spans in
+    ``wave["measured"]``, the calibration input (the first wave also holds
+    the kernels' first build: calibrate against a later one); ``health``
+    (an ``obs.health.HealthMonitor``) arms the non-finite sentinel and, with
+    telemetry on, checks each wave's occupancy against the analytic twin.
+    Each wave runs inside a ``torch.profiler.record_function`` range named
+    ``prefill_wave seq<S> b<B>``."""
 
     def __init__(self, cfg: ModelConfig, staged_params, run: RunConfig, *,
                  device=None):
@@ -236,6 +268,10 @@ class TorchExecutor:
         self.prefix_seed_entries = 8       # DeviceSeedCache LRU bound
         self._seed_caches: Dict[Tuple[int, int], DeviceSeedCache] = {}
         self.prefix_device_hit_chunks = 0  # sum of seeded k over waves
+        self.collect_telemetry = False
+        self.collect_measured = False
+        self.health = None
+        self._span_col: Optional[TickSpanCollector] = None
 
     def plan_for(self, seq: int, num_chunks: int, num_stages: int) -> pp.PipelinePlan:
         key = (seq, num_chunks, num_stages)
@@ -318,12 +354,26 @@ class TorchExecutor:
                 else:
                     prefix["seed_bytes"] = _nbytes(getattr(seed, f) for f in POOL_FIELDS)
             self.prefix_device_hit_chunks += k
+        collect, health = bool(self.collect_telemetry), self.health
+        col = None
+        if self.collect_measured:
+            if self._span_col is None:
+                self._span_col = TickSpanCollector(self.device)
+            col = self._span_col
         self._sync()
+        if col is not None:
+            col.reset()
         t0 = time.perf_counter()
-        out = pp.prefill_pipeline(self.cfg, self.staged, toks, plan,
-                                  device=self.device, prefix_chunks=k,
-                                  prefix_pool=seed, return_kv=armed)
-        out, kv = out if armed else (out, None)
+        with torch.profiler.record_function(f"prefill_wave seq{seq} b{len(requests)}"):
+            res = pp.prefill_pipeline(
+                self.cfg, self.staged, toks, plan, device=self.device,
+                return_telemetry=collect, prefix_chunks=k, prefix_pool=seed,
+                return_kv=armed, tick_hook=None if col is None else col.note,
+                health=health)
+        res = res if isinstance(res, tuple) else (res,)
+        out = res[0]
+        tel = res[1] if collect else None
+        kv = res[1 + int(collect)] if armed else None
         self._sync()
         dt = time.perf_counter() - t0
         if kv is not None:
@@ -336,15 +386,40 @@ class TorchExecutor:
                 cache.put(ch, e)
         for r, row in zip(requests, out.cpu().numpy()):
             r.result = row
-        self.waves.append({
+        wave: Dict[str, Any] = {
             "start": t0 - self._epoch, "dur": dt, "seq": seq,
             "num_ticks": int(plan.num_ticks), "num_stages": num_stages,
             "chunks": list(chunks), "rids": [r.rid for r in requests],
-            "prefix_chunks": k, **prefix})
+            "prefix_chunks": k, **prefix}
+        if col is not None:
+            wave["measured"] = col.finalize(num_stages, int(plan.num_ticks)).tick_s
+        if tel is not None:
+            wave["telemetry"] = tel
+            wave["per_event_wire"] = obs_t.per_event_wire_bytes(
+                plan, self.cfg, len(requests))
+            if health is not None:
+                health.check_occupancy(tel, plan)
+        self.waves.append(wave)
         return dt, np.full(num_stages, dt / max(len(chunks), 1))
 
 
 # ------------------------------------------------------------------- engine
+
+def _configure_obs(ex, telemetry: Optional[bool], measured: Optional[bool],
+                   health: Any) -> None:
+    """Arm an executor's observability; flags it lacks are ignored (the
+    ``SimExecutor`` IS the analytic model: there is nothing to measure)."""
+    if telemetry is not None and hasattr(ex, "collect_telemetry"):
+        ex.collect_telemetry = bool(telemetry)
+    if measured is not None and hasattr(ex, "collect_measured"):
+        ex.collect_measured = bool(measured)
+    if health is not None:
+        ex.health = health
+
+
+def _measured_waves(ex) -> List[Dict[str, Any]]:
+    return [w for w in getattr(ex, "waves", []) if w.get("measured") is not None]
+
 
 class PrefillEngine:
     def __init__(self, ec: EngineConfig, executor):
@@ -422,6 +497,16 @@ class PrefillEngine:
         new = self.done[self._polled:]
         self._polled = len(self.done)
         return list(new)
+
+    def configure_obs(self, *, telemetry: Optional[bool] = None,
+                      measured: Optional[bool] = None,
+                      health: Any = None) -> None:
+        """See ``ContinuousEngine.configure_obs`` — the same executor seam."""
+        _configure_obs(self.executor, telemetry, measured, health)
+
+    def measured_waves(self) -> List[Dict[str, Any]]:
+        """See ``ContinuousEngine.measured_waves`` — the calibration input."""
+        return _measured_waves(self.executor)
 
     # ------------------------------------------------------ fault handling
     def _handle_failure(self, stage: int, batch: Sequence[Request]) -> None:
@@ -742,6 +827,20 @@ class ContinuousEngine:
         """Per-request ``RequestRecord`` rows (``sched.metrics``)."""
         return list(self.scheduler.metrics.records)
 
+    def configure_obs(self, *, telemetry: Optional[bool] = None,
+                      measured: Optional[bool] = None,
+                      health: Any = None) -> None:
+        """Arm the executor's observability through the cell seam: stage
+        telemetry (``return_telemetry``), measured tick spans
+        (``collect_measured``) and a health monitor. Flags the executor does
+        not have are ignored."""
+        _configure_obs(self.executor, telemetry, measured, health)
+
+    def measured_waves(self) -> List[Dict[str, Any]]:
+        """Executor waves that carry a measured ``[N, T]`` tick-span array
+        (``configure_obs(measured=True)``): the calibration input."""
+        return _measured_waves(self.executor)
+
     def recalibrate(self, hw: cm.ProfileSpec) -> cm.HardwareProfile:
         """Swap the engine onto another profile: drops the cached bucket
         plans and rebases the scheduler's admission costs (admitted
@@ -752,6 +851,8 @@ class ContinuousEngine:
         self._sm = cm.StageModel.build(self.ec.model, self.ec.num_stages,
                                        self.ec.tp)
         self._plans.clear()
+        self._mplans.clear()
+        self._pplans.clear()
         self.scheduler.rebase_costs(self._chunk_plan)
         if isinstance(self.executor, SimExecutor):
             self.executor.hw = hw
@@ -764,3 +865,137 @@ class ContinuousEngine:
 
     def metrics(self) -> Dict[str, float]:
         return self.scheduler.summary()
+
+    # ------------------------------------------------------ observability
+    def merged_trace(self):
+        """ONE Perfetto trace merging every surface of this run:
+
+        - scheduler task intervals + request lifecycle marks (pid = stage,
+          tid = request; the scheduler's virtual clock),
+        - per-stage ``kv_lease_bytes`` counter tracks replayed from the
+          lease manager's admission timeline (virtual clock),
+        - per-stage ``wire_bytes`` counter tracks: sim runs price each
+          spilled chunk (index >= p2) from the bucket plan's KV bytes;
+          torch runs with ``executor.collect_telemetry`` price the
+          telemetry's event counts with the analytic per-event wire bytes,
+        - engine wave spans + per-(stage, tick) spans (the wave's wall time
+          split evenly over its ticks) and ``kv_resident_bytes`` tracks
+          from TorchExecutor telemetry waves (wall clock since executor
+          construction, pid = "engine"),
+        - MEASURED per-(stage, tick) spans (``wave["measured"]`` from
+          ``collect_measured``: device-stream time on the card) on their
+          own ``measured`` process row, laid from the wave's start,
+        - health-sentinel alerts (``executor.health``) on a ``health``
+          process row, labelled whenever a monitor is attached.
+
+        Pure: builds a fresh recorder each call; safe to export repeatedly.
+        """
+        from repro_torch.obs.trace import TraceRecorder
+        rec = TraceRecorder(enabled=True)
+        rec.tasks = list(self.trace.tasks)
+        rec.marks = list(self.trace.marks)
+        # lease residency per stage (virtual clock)
+        for s, timeline in enumerate(self.lease._timeline):
+            level = 0.0
+            for t, delta in sorted(timeline):
+                level += delta
+                rec.counter("kv_lease_bytes", pid=s, time=t,
+                            values={"bytes": level})
+        # sim wire model: a chunk with index >= p2 was spilled at creation
+        buckets = {sr.rid: sr.bucket for sr in self.scheduler.requests}
+        wire_acc: Dict[int, float] = {}
+        for ev in sorted(self.trace.tasks, key=lambda e: e.finish):
+            plan = self._chunk_plan(buckets.get(ev.rid, max(self.ec.buckets)))
+            if ev.chunk >= plan.p2:
+                lvl = wire_acc.get(ev.stage, 0.0) + float(plan.kvb[ev.chunk])
+                wire_acc[ev.stage] = lvl
+                rec.counter("wire_bytes", pid=ev.stage, time=ev.finish,
+                            values={"bytes": lvl})
+        # engine waves (wall clock) + device telemetry
+        waves = getattr(self.executor, "waves", None) or []
+        if waves:
+            rec.process_name("engine", "engine (wall clock)")
+        for wi, w in enumerate(waves):
+            rec.span(f"wave{wi} seq{w['seq']} b{len(w['rids'])}",
+                     pid="engine", tid=0, start=w["start"],
+                     finish=w["start"] + w["dur"], cat="wave",
+                     args={"rids": w["rids"], "chunks": w["chunks"]})
+            tel = w.get("telemetry")
+            if tel is None:
+                continue
+            pe = w.get("per_event_wire", {})
+            n_st, ticks = tel["own_chunks"].shape
+            tick_dur = w["dur"] / max(ticks, 1)
+            kv, occ = tel["kv_bytes"], tel["own_chunks"] + tel["hosted_chunks"]
+            wire = (tel["spill_events"] * pe.get("spill", 0.0)
+                    + tel["fetch_events"] * pe.get("fetch", 0.0)
+                    + tel["qship_events"] * pe.get("qship", 0.0))
+            for s in range(n_st):
+                for t in range(ticks):
+                    ts = w["start"] + t * tick_dur
+                    phase = t - s
+                    if 0 <= phase < len(w["chunks"]):
+                        rec.span(f"tick{t} c{phase}", pid="engine",
+                                 tid=s + 1, start=ts, finish=ts + tick_dur,
+                                 cat="tick",
+                                 args={"stage": s, "chunk": phase,
+                                       "occupancy": float(occ[s, t])})
+                    rec.counter("kv_resident_bytes", pid=s, time=ts,
+                                values={f"w{wi}": float(kv[s, t])})
+                    rec.counter("device_wire_bytes", pid=s, time=ts,
+                                values={f"w{wi}": float(wire[s, t])})
+        # measured tick spans: one process row, one thread per stage;
+        # per-stage span starts are the cumulative measured tick durations
+        # from the wave's host start. The row is labelled by the clock the
+        # spans were taken on: CUDA events on the card, perf_counter on the
+        # CPU (``obs.profile.TickSpanCollector``).
+        if any(w.get("measured") is not None for w in waves):
+            dev = getattr(self.executor, "device", None)
+            clock = ("device-stream time, CUDA events"
+                     if dev is not None and dev.type == "cuda"
+                     else "host perf_counter")
+            rec.process_name("measured", f"measured spans ({clock})")
+        for wi, w in enumerate(waves):
+            ms = w.get("measured")
+            if ms is None:
+                continue
+            for s in range(ms.shape[0]):
+                cursor = w["start"]
+                for t in range(ms.shape[1]):
+                    d = float(ms[s, t])
+                    phase = t - s
+                    if 0 <= phase < len(w["chunks"]) and d > 0:
+                        rec.span(f"tick{t} c{phase}", pid="measured", tid=s,
+                                 start=cursor, finish=cursor + d,
+                                 cat="measured",
+                                 args={"stage": s, "chunk": phase,
+                                       "wave": wi})
+                    cursor += d
+        health = getattr(self.executor, "health", None)
+        if health is not None:
+            # the row exists whenever the sentinels are armed, alerts or
+            # none (the reference labels it only when one fired)
+            rec.process_name("health", "health sentinels")
+            health.to_trace(rec)
+        return rec
+
+    def export_obs(self, trace_out: Optional[str] = None,
+                   metrics_out: Optional[str] = None,
+                   extra: Optional[Dict[str, float]] = None,
+                   health=None) -> Dict[str, str]:
+        """Export the merged trace and/or the metrics summary (both atomic);
+        returns {"trace": path, "metrics": path} for whichever was asked.
+        ``health`` (default: the executor's attached monitor) adds the
+        per-kind alert counters and burn-rate gauge to the metrics."""
+        paths: Dict[str, str] = {}
+        if health is None:
+            health = getattr(self.executor, "health", None)
+        if trace_out:
+            paths["trace"] = self.merged_trace().export(trace_out)
+        if metrics_out:
+            from repro_torch.obs.metrics import export_engine_metrics
+            paths["metrics"] = export_engine_metrics(
+                metrics_out, self.metrics(),
+                records=self.scheduler.metrics.records, extra=extra,
+                health=health)
+        return paths

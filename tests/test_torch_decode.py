@@ -35,6 +35,7 @@ from repro_torch import bridge
 from repro_torch.configs import get_smoke_config, replace
 from repro_torch.kernels import ops, ref
 from repro_torch.models.api import build_model
+from tests.helpers.torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ("qwen3-8b", "zamba2-7b", "mamba2-130m")
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}

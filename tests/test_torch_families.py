@@ -37,6 +37,7 @@ from repro_torch.core import costmodel as cm
 from repro_torch.core import pipeline as pp
 from repro_torch.models import layers as L
 from repro_torch.models.api import build_model
+from tests.helpers.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 ARCHS = ("granite-3-2b", "stablelm-3b", "qwen2-moe-a2.7b", "granite-moe-3b-a800m")

@@ -28,6 +28,7 @@ from repro_torch.core import pipeline as pp
 from repro_torch.core.staging import init_staged
 from repro_torch.launch.serve import make_requests
 from repro_torch.runtime.engine import EngineConfig, PrefillEngine, TorchExecutor
+from tests.helpers.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 N, M, C, B = 8, 8, 16, 2

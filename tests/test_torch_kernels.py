@@ -20,6 +20,7 @@ from repro_torch.core import attention as A
 from repro_torch.kernels import ops, ref
 from repro_torch.kvstore import pages as kvpages
 from repro_torch.kvstore import quant as kvquant
+from tests.helpers.torch_threads import one_torch_thread  # noqa: F401
 
 B, C, H, KVH, D = 2, 16, 4, 2, 16          # GQA g = 2
 NEG_INF = -1e30

@@ -30,6 +30,7 @@ import torch
 from repro_torch import bridge
 from repro_torch.configs import RunConfig, get_smoke_config, replace
 from repro_torch.core import pipeline as pp
+from tests.helpers.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 N, M, C, B = 8, 8, 16, 2

@@ -64,6 +64,7 @@ from repro_torch.obs.telemetry import prefix_saved_model
 from repro_torch.runtime import engine
 from repro_torch.sched import ChunkPlan
 from repro_torch.sched.kvlease import chunk_page_bytes
+from tests.helpers.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 N, M, C, B = 8, 8, 16, 2

@@ -17,6 +17,7 @@ from repro_torch.launch.serve import make_requests
 from repro_torch.runtime.engine import (ContinuousEngine, EngineConfig,
                                         PrefillEngine, Request, TorchExecutor,
                                         bucket_of)
+from tests.helpers.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SEQ, M, N = 128, 8, 8

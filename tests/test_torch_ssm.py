@@ -33,6 +33,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as port_ref
 from repro_torch.models import hybrid as HY
 from repro_torch.models import ssm as S
+from tests.helpers.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _inputs(r, t, h, p, g, n, seed=0):
