@@ -21,7 +21,11 @@ prints no result line):
      int8 and fp8 pages, at zamba2-7b's shared-block shape (head dim
      112, MHA) in bf16 with bf16, int8 and fp8 pages, and at granite-3-2b's
      (head dim 64, G 4), granite-moe-3b-a800m's (64, G 3) and
-     stablelm-3b's (80, MHA) in bf16 and fp32 with the same pages (at
+     stablelm-3b's (80, MHA) in bf16 and fp32 with the same pages, and at
+     the GQA groups of qwen3-14b (40 / 8 heads of 128, G 5), llama3-70b
+     (64 / 8, G 8), mistral-123b (96 / 8, G 12) and qwen3-235b (64 / 4, G
+     16) in bf16 with the same pages (at G 16 also the two planted K2
+     faults on the tensor-core body, which must break the check; at
      d 80 also three planted faults in the tensor-core body, compiled from
      edited copies of the sources: two in the columns 64-79 of the padded
      box, which must break the check, and garbage in its pad, reported);
@@ -49,25 +53,36 @@ prints no result line):
      case with G < H SSM groups; the bf16 time also in windows and from a
      torch.profiler trace, which must show the tensor-core body;
    - K5 flash-decode at qwen3-8b's (GQA, head dim 128) and zamba2-7b's (MHA,
-     head dim 112) decode shapes, 8 rows over a 32768-token cache, bf16 and
-     fp32, timed with every row at full length (also in windows and from a
-     torch.profiler trace) and held at ragged lengths (0, 1, ..., S) and at
-     lengths 100x apart, with the tail past each length poisoned;
+     head dim 112) decode shapes and at G 5, 12 and 16 (qwen3-14b's,
+     mistral-123b's and qwen3-235b's heads), 8 rows over a 32768-token
+     cache, bf16 and fp32, timed with every row at full length (also in
+     windows and from a torch.profiler trace) and held at ragged lengths
+     (0, 1, ..., S) and at lengths 100x apart, with the tail past each
+     length poisoned; at G 5, 12 and 16 the two planted K5 faults must
+     break the check;
 4. smoke parity: the small qwen3-8b, zamba2-7b, mamba2-130m, granite-3-2b,
    stablelm-3b, qwen2-moe-a2.7b and granite-moe-3b-a800m configs in fp32
    through the kernel backends on the card against the same pipeline on
    the CPU (plain versions);
-5. serve: each model at full width and depth (random weights from a seeded
+5. serve: each model at full width (random weights from a seeded
    generator) through ``PrefillEngine`` + ``TorchExecutor``: N=8 stages,
    M=8 chunks of 512 tokens, 2 requests a wave, 4 requests. qwen3-8b
    (36 layers) under qship/fetch x cuda/paged pools plus one int8-page run;
    zamba2-7b (81 layers) under qship/cuda, fetch/paged and one int8-page
    run; mamba2-130m (24 layers) under terapipe; granite-3-2b (40 layers)
    under qship/cuda, fetch/paged and qship/cuda int8; stablelm-3b (32)
-   under terapipe fetch/cuda and mocap qship/paged; qwen2-moe-a2.7b (24;
-   its fp32 runs cut to 8 layers, one a stage: 24 layers of fp32 experts
-   are ~57 GB) and granite-moe-3b-a800m (32) under two of qship/fetch x
-   cuda/paged. Each model's bf16 runs are
+   under terapipe fetch/cuda and mocap qship/paged; qwen2-moe-a2.7b (24)
+   and granite-moe-3b-a800m (32) under two of qship/fetch x cuda/paged;
+   qwen3-14b (40, GQA group 5; K1-K3 held per launch) under qship/cuda,
+   fetch/paged and qship/cuda int8; the paper's four models, llama3-70b
+   (G 8; also int8 pages and a profiled wave), mistral-123b (G 12),
+   qwen3-235b (MoE, 128 experts top 8, G 16) and llama3-405b (G 16), cut
+   to 8 layers (one a stage, ``bf16_layers``; at full depth they do not
+   fit the card) under qship/cuda and fetch/paged, bf16 only, one wave of
+   2 requests a run, K1-K3 held per launch. The fp32 runs of qwen3-8b,
+   zamba2-7b (one group a stage), qwen2-moe-a2.7b and qwen3-14b take one
+   layer a stage (``fp32_layers``); the others' run at full depth. Each
+   model's peak device memory is printed. Each model's bf16 runs are
    its main path: the kernels' launch counters are set to 0 just before
    them and read just after, and every kernel of the path must have
    launched. Then one more bf16 qship/cuda wave of the model runs under
@@ -85,12 +100,12 @@ prints no result line):
    summation order, and for granite-3-2b, whose logits hardly see
    attention; the bf16 spread and the router choices that differ are
    reported); in fp32 every request's argmax must equal the ``torch``
-   backends' (qwen2-moe-a2.7b's fp32 runs at 8 layers, one a stage: its
-   24 fp32 layers of experts would not fit; see ``serve_model``);
+   backends' (see ``serve_model``);
 6. decode: each model at full width and depth through ``Model.forward(
    return_cache=True)`` on a 512-token prompt, the KV axis padded by 8, and
    8 ``Model.decode_step``s (the decode path's K5 launches counted, exactly
-   36 a step for qwen3-8b, 13 for zamba2-7b, 0 for mamba2-130m): fp32 logits
+   36 a step for qwen3-8b, 13 for zamba2-7b, 0 for mamba2-130m, 40 for
+   qwen3-14b, whose fp32 bridge takes 8 layers, ``fp32_layers``): fp32 logits
    against ``forward`` on the longer sequence, bf16 logits against bf16
    ``forward`` and against the same decode with K5's plain version; two
    planted K5 faults must break the fp32 limit and a per-launch check of K5
@@ -126,7 +141,14 @@ prints no result line):
    sentinel armed (healthy: no alert) and on one stage's NaN weights, a
    calibration of the cost model from ``hgx-b200`` to the measured spans,
    and the serve CLI once with ``--trace-out --metrics-out --health
-   --calibrate`` (see ``obs_phase``).
+   --calibrate`` (see ``obs_phase``);
+10. fleet: two qwen3-8b cells (bf16, full depth; cell1 on int8 pages)
+    behind the jsf router through the serve CLI, EDF, an SLO, Poisson
+    arrivals, 8 requests: each completed once, both cells used, each
+    argmax equal to a single cell's on the same pages and seed, an
+    ``--options-in`` replay equal, the merged trace's rows per cell; then
+    one cell drained with requests in flight through ``FleetFabric`` (see
+    ``fleet_phase``).
 
 Then one JSON line of per-kernel numbers and, last, the result line.
 """
@@ -183,6 +205,11 @@ def log(msg: str) -> None:
 
 
 # ------------------------------------------------------------------ timing
+
+# the plain versions (tens of ms a call in the kernel phase) are timed over
+# fewer calls than the kernels
+PLAIN_TIMING = dict(iters=4, warmup=1)
+
 
 def time_ms(fn, iters: int = 12, warmup: int = 2) -> float:
     """Median device time of one call, CUDA events around each call."""
@@ -345,7 +372,7 @@ def pool_case(label: str, kind: str, kernel, plain, *args, **kw):
 
 
 def attention_phase(results: dict, h: int, kvh: int, d: int, key=None,
-                    fp32: bool = True) -> None:
+                    fp32: bool = True, k2_faults: bool = False) -> None:
     """K1-K3 at one model's attention shape: q [16, 512, h, d] (8 stages x
     batch 2 folded into the rows), k/v with kvh heads. ``key`` None
     (qwen3-8b, d 128) records the kernels' main times; otherwise the times
@@ -358,7 +385,9 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, key=None,
     kv_len < T and a ragged chunk with empty rows; K2 with kv_len < T and a
     poisoned tail and a 32-slot stack; K3 with shuffled handles to pages of
     128 and 16 tokens and a partial last page. At d 80 the planted faults
-    of ``pad_faults`` run too."""
+    of ``pad_faults`` run too. ``k2_faults``: the planted K2 faults
+    (``planted_faults``) on the tensor-core body's bf16 stack, each of
+    which must break ``compare``'s limit."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -395,7 +424,7 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, key=None,
             prof_ms, seen = profiled_ms(call, "ChunkWalk")
             log(f"  torch.profiler: attn_tc_kernel<ChunkWalk> {seen} launches, "
                 + (f"{prof_ms:.4f} ms device time each" if seen else "no device time seen"))
-            plain = time_ms(lambda: ref.chunk_attention_plain(q, k, v))
+            plain = time_ms(lambda: ref.chunk_attention_plain(q, k, v), **PLAIN_TIMING)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             lib = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True))
@@ -483,7 +512,7 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, key=None,
             prof_ms, seen = profiled_ms(call, "StackWalk")
             log(f"  torch.profiler: attn_tc_kernel<StackWalk> {seen} launches, "
                 + (f"{prof_ms:.4f} ms device time each" if seen else "no device time seen"))
-            plain = time_ms(lambda: ref.pool_attention_plain(q, k, v, valid))
+            plain = time_ms(lambda: ref.pool_attention_plain(q, k, v, valid), **PLAIN_TIMING)
             kv_read = 2.0 * n_valid * BATCH * c * kvh * d * k.element_size()
             ops_n = 4.0 * d * n_valid * BATCH * h * c * c
             b_ms, by = bound_ms(nbytes(q, valid, *got) + kv_read, ops_n, name)
@@ -492,6 +521,16 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, key=None,
             log(f"  time: kernel {ms:.4f} ms ({win_ms:.4f} ms a call in windows of "
                 f"back-to-back calls), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({by}), "
                 f"{n_valid} valid (stage, slot), {ops_n / 1e9:.1f} GFLOP")
+            if k2_faults:
+                want = ref.pool_attention_plain(q, k, v, valid)
+                for fault, fn in planted_faults("pool_attention", ops.pool_attention).items():
+                    ratio = fault_ratio(fn(q, k, v, valid), want, name)
+                    log(f"  planted fault on the tensor-core body: {fault}: worst "
+                        f"{ratio:.3e} of the tolerance")
+                    check(ratio > 1.0, f"K2 at {key}: planted fault '{fault}' passes ({ratio})")
+                    results["pool_attention"].setdefault("planted", {})[
+                        f"{key}: {fault}"] = ratio
+                del want
         del k, v
     # the tensor-core body (bf16 q): int8 and fp8 pages; kv_len < T with T
     # no multiple of the 64-key tile and the keys and values past kv_len
@@ -558,7 +597,7 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, key=None,
             log(f"  torch.profiler: attn_tc_kernel<PagedWalk> {seen} launches, "
                 + (f"{prof_ms:.4f} ms device time each" if seen else "no device time seen"))
             plain = time_ms(lambda: ref.pool_attention_paged_plain(
-                q, k_l, v_l, handles, valid, ppc=1))
+                q, k_l, v_l, handles, valid, ppc=1), **PLAIN_TIMING)
             kv_read = 2.0 * n_valid * BATCH * c * kvh * d * kp.element_size()
             ops_n = 4.0 * d * n_valid * BATCH * h * c * c
             b_ms, by = bound_ms(nbytes(q, valid, handles, *got) + kv_read, ops_n, name)
@@ -811,7 +850,8 @@ def ssd_phase(results: dict) -> None:
                 log(f"  torch.profiler: ssd_tc_kernel {seen} launches, "
                     + (f"{prof_ms:.4f} ms device time each" if seen else "no device time seen"))
                 check(seen > 0, f"K4 {arch} bf16: the tensor-core body did not run")
-                plain = time_ms(lambda: ref.ssd_plain(*xs, chunk=SSD_CHUNK, init_state=init))
+                plain = time_ms(lambda: ref.ssd_plain(*xs, chunk=SSD_CHUNK, init_state=init),
+                                **PLAIN_TIMING)
                 tri = SSD_CHUNK * (SSD_CHUNK + 1) / 2
                 per_chunk = 2.0 * tri * (n + p) + 4.0 * SSD_CHUNK * p * n
                 ops_n = per_chunk * rows * h * (t // SSD_CHUNK)
@@ -838,7 +878,12 @@ def ssd_phase(results: dict) -> None:
 
 
 # (heads H, kv heads, head dim) of each decode shape; the main one first
-DECODE_SHAPES = {"qwen3-8b": (32, 8, 128), "zamba2-7b": (32, 32, 112)}
+# K5's decode shapes: arch -> (H, KVH, D, the key its times go under; None:
+# the kernel's main row); the GQA groups 5, 12 and 16 also with the planted
+# K5 faults (``decode_faults``)
+DECODE_SHAPES = {"qwen3-8b": (32, 8, 128, None), "zamba2-7b": (32, 32, 112, "d112"),
+                 "qwen3-14b": (40, 8, 128, "g5"), "mistral-123b": (96, 8, 128, "g12"),
+                 "qwen3-235b": (64, 4, 128, "g16")}
 DECODE_KERNEL_BATCH, DECODE_KERNEL_S = 8, 32768   # decode_32k, batch 128 cut to 8
 
 
@@ -888,7 +933,8 @@ def decode_kernel_phase(results: dict) -> None:
     ~32k, which the device-side split must balance), each output at its own
     max|ref| (``compare``), the empty row exactly zero. The bf16 time is
     also read in windows of back-to-back calls and from a torch.profiler
-    trace."""
+    trace. At the GQA groups 5, 12 and 16 each planted K5 fault
+    (``decode_faults``) on the ragged lengths must break that limit."""
     import torch
     from repro_torch.kernels import ops, ref
 
@@ -900,7 +946,7 @@ def decode_kernel_phase(results: dict) -> None:
     spread = torch.tensor([300, 30000, 327, s, 310, 31000, 299, 32000], dtype=torch.int32,
                           device=dev)
     err = 0.0
-    for arch, (h, kvh, d) in DECODE_SHAPES.items():
+    for arch, (h, kvh, d, key) in DECODE_SHAPES.items():
         for name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
             log(f"[kernels] K5 decode_attention {arch} {name}  q [{b},{h},{d}], "
                 f"k/v [{b},{s},{kvh},{d}]")
@@ -918,7 +964,7 @@ def decode_kernel_phase(results: dict) -> None:
                 prof_ms, seen = profiled_ms(call, "decode_attn_kernel")
                 log(f"  torch.profiler: decode_attn_kernel {seen} launches, "
                     + (f"{prof_ms:.4f} ms device time each" if seen else "no device time seen"))
-                plain = time_ms(lambda: ref.decode_attention_plain(q, k, v, full))
+                plain = time_ms(lambda: ref.decode_attention_plain(q, k, v, full), **PLAIN_TIMING)
                 lib_call, backend = sdpa_decode(q, k, v, full)
                 check((lib_call().squeeze(2).float() - want.float()).abs().max().item()
                       <= 2e-2 * want.float().abs().max().item(),
@@ -929,10 +975,11 @@ def decode_kernel_phase(results: dict) -> None:
                              library_ms=lib, bound_ms=b_ms,
                              bound_by=by, library=f"scaled_dot_product_attention "
                              f"(enable_gqa, bool mask; backend {backend})")
-                if arch == "qwen3-8b":
+                if key is None:
                     results.setdefault("decode_attention", {}).update(times)
                 else:
-                    results.setdefault("decode_attention", {})[f"d{d}"] = times
+                    results.setdefault("decode_attention", {})[key] = dict(
+                        heads=h, kv_heads=kvh, head_dim=d, **times)
                 log(f"  time: kernel {ms:.4f} ms ({win_ms:.4f} ms a call in windows of "
                     f"back-to-back calls), plain {plain:.4f} ms, sdpa {lib:.4f} ms "
                     f"({backend}), bound {b_ms:.4f} ms ({by}), "
@@ -950,6 +997,14 @@ def decode_kernel_phase(results: dict) -> None:
                           f"K5 {arch} {name}: the kv_len = 0 row is not zero")
                 err = max(err, compare(f"decode {arch} {name} {what}, tail poisoned",
                                        (got,), (want,), name, ("out",)))
+                if what == "ragged" and key is not None and key.startswith("g"):
+                    for fault, fn in decode_faults(ops.decode_attention).items():
+                        ratio = fault_ratio((fn(q, k, v, lens),), (want,), name)
+                        log(f"  planted fault: {fault}: worst {ratio:.3e} of the tolerance")
+                        check(ratio > 1.0, f"K5 {arch} {name}: planted fault '{fault}' "
+                              f"passes ({ratio})")
+                        results["decode_attention"].setdefault("planted", {})[
+                            f"{key} {name}: {fault}"] = ratio
             del q, k, v, got, want
             torch.cuda.empty_cache()
     results["decode_attention"]["max_abs_err"] = err
@@ -1010,8 +1065,7 @@ def k1_gpipe_shape(results: dict) -> None:
     call = lambda: ops.chunk_attention(q, k, v, causal_offset=0)
     ms, win_ms = time_ms(call), windowed_ms(call)
     prof_ms, seen = profiled_ms(call, "ChunkWalk", calls=10)
-    plain = time_ms(lambda: ref.chunk_attention_plain(*held, causal_offset=0), iters=4,
-                    warmup=1)
+    plain = time_ms(lambda: ref.chunk_attention_plain(*held, causal_offset=0), **PLAIN_TIMING)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                          enable_gqa=True))
@@ -1031,11 +1085,18 @@ def k1_gpipe_shape(results: dict) -> None:
 
 
 # K1-K3 at the attention shapes of the models served here past qwen3-8b
-# and zamba2-7b: the key their times go under -> (H, KVH, D, also fp32 q)
+# and zamba2-7b: the key their times go under -> (H, KVH, D, also fp32 q);
+# the GQA groups 5, 8, 12 and 16 in bf16 only (their int8 and fp8 pages
+# too, as at every shape), the planted K2 faults at G 16
 ATTN_SHAPES = {"d64": (32, 8, 64, True),        # granite-3-2b (G 4)
                "d64_g3": (24, 8, 64, True),     # granite-moe-3b-a800m (G 3)
                "d80": (32, 32, 80, True),       # stablelm-3b (MHA; the padded box)
-               "d128_mha": (16, 16, 128, False)}   # qwen2-moe-a2.7b (MHA, bf16 only)
+               "d128_mha": (16, 16, 128, False),   # qwen2-moe-a2.7b (MHA, bf16 only)
+               "g5": (40, 8, 128, False),       # qwen3-14b
+               "g8": (64, 8, 128, False),       # llama3-70b
+               "g12": (96, 8, 128, False),      # mistral-123b
+               "g16": (64, 4, 128, False)}      # qwen3-235b (llama3-405b: 128 / 8)
+K2_FAULT_SHAPE = "g16"
 
 
 def kernel_phase(results: dict) -> None:
@@ -1044,7 +1105,8 @@ def kernel_phase(results: dict) -> None:
     attention_phase(results, h=32, kvh=32, d=112, key="d112", fp32=False)   # zamba2-7b
     for key, (h, kvh, d, fp32) in ATTN_SHAPES.items():
         t0 = time.perf_counter()
-        attention_phase(results, h=h, kvh=kvh, d=d, key=key, fp32=fp32)
+        attention_phase(results, h=h, kvh=kvh, d=d, key=key, fp32=fp32,
+                        k2_faults=key == K2_FAULT_SHAPE)
         log(f"[kernels] K1-K3 at {key} (H {h}, KVH {kvh}): {time.perf_counter() - t0:.1f} s")
     ssd_phase(results)
     decode_kernel_phase(results)
@@ -1111,24 +1173,36 @@ def smoke_parity_phase() -> None:
 
 # ------------------------------------------------------------------- serve
 
-# one entry per model served at full width and depth: its kernel
-# combinations (remote_attn, attn_backend, pool_backend, kv_dtype and, where
-# it is not the family's, the mode; the SSD runs K4), the kernels its main
-# path must launch, and which wrapper the planted faults replace. Optional:
+# one entry per model served at full width: its kernel combinations
+# (remote_attn, attn_backend, pool_backend, kv_dtype and, where it is not
+# the family's, the mode; the SSD runs K4), the kernels its main path must
+# launch, and which wrapper the planted faults replace. Optional:
 # ``per_launch``, the wrappers held per launch against their plain versions
-# on the bf16 path (where no bf16 logits limit separates a fault); ``wave``
-# False, no profiled wave; ``fp32_layers``, the depth of the fp32 runs
+# on the bf16 path (where no bf16 logits limit separates a fault, or a GQA
+# group is new); ``wave`` False, no profiled wave; ``fp32`` False, no fp32
+# runs; ``requests``, the requests a run serves (REQUESTS, two waves, where
+# absent); ``bf16_layers`` and ``fp32_layers``, the depth of the bf16 and
+# of the fp32 runs where they are cut (``depth``: N_STAGES is one layer a
+# stage, for the hybrid one group a stage). The fp32 runs hold each
+# launch's summation order, which depth does not change: qwen3-8b's and
+# zamba2-7b's take one layer a stage for the script's time (their fp32
+# waves at 36 and 81 layers took 6.0-9.6 s), qwen2-moe-a2.7b's and
+# qwen3-14b's for the card's memory (24 fp32 layers of experts are ~57 GB,
+# 40 of qwen3-14b's ~59 GB). The paper's four models do not fit the card at
+# full depth (llama3-70b's 80 layers are ~141 GB in bf16), so their bf16
+# runs take one layer a stage at full width, one wave of BATCH requests a
+# run, and they have no fp32 runs (their fp32 parity is the CPU tests')
 ATTN_KERNELS = ("chunk_attention", "pool_attention", "pool_attention_paged")
 SERVE_MODELS = {
     "qwen3-8b": dict(
         combos=[("qship", "cuda", "cuda", "auto"), ("qship", "cuda", "paged", "auto"),
                 ("fetch", "cuda", "cuda", "auto"), ("fetch", "cuda", "paged", "auto"),
                 ("qship", "cuda", "cuda", "int8")],
-        kernels=ATTN_KERNELS, faults="pool_attention"),
+        kernels=ATTN_KERNELS, faults="pool_attention", fp32_layers=N_STAGES),
     "zamba2-7b": dict(
         combos=[("qship", "cuda", "cuda", "auto"), ("fetch", "cuda", "paged", "auto"),
                 ("qship", "cuda", "cuda", "int8")],
-        kernels=ATTN_KERNELS + ("ssd",), faults="ssd"),
+        kernels=ATTN_KERNELS + ("ssd",), faults="ssd", fp32_layers=N_STAGES),
     "mamba2-130m": dict(
         combos=[("qship", "cuda", "cuda", "auto")],
         kernels=("ssd",), faults="ssd"),
@@ -1145,12 +1219,35 @@ SERVE_MODELS = {
     "qwen2-moe-a2.7b": dict(
         combos=[("qship", "cuda", "cuda", "auto"), ("fetch", "cuda", "paged", "auto")],
         kernels=ATTN_KERNELS, faults="pool_attention", per_launch=ATTN_KERNELS,
-        # 24 layers of fp32 experts are ~57 GB: the fp32 runs take one layer a stage
         fp32_layers=N_STAGES),
     "granite-moe-3b-a800m": dict(
         combos=[("fetch", "cuda", "cuda", "auto"), ("qship", "cuda", "paged", "auto")],
         kernels=ATTN_KERNELS, faults="pool_attention", per_launch=ATTN_KERNELS,
         wave=False),
+    # GQA group 5: K1-K3 held per launch; 40 fp32 layers are ~59 GB
+    "qwen3-14b": dict(
+        combos=[("qship", "cuda", "cuda", "auto"), ("fetch", "cuda", "paged", "auto"),
+                ("qship", "cuda", "cuda", "int8")],
+        kernels=ATTN_KERNELS, faults="pool_attention", per_launch=ATTN_KERNELS,
+        fp32_layers=N_STAGES, wave=False),
+    # the paper's four models (G 8, 12, 16, 16), 8 layers at full width
+    "llama3-70b": dict(
+        combos=[("qship", "cuda", "cuda", "auto"), ("fetch", "cuda", "paged", "auto"),
+                ("qship", "cuda", "cuda", "int8")],
+        kernels=ATTN_KERNELS, faults="pool_attention", per_launch=ATTN_KERNELS,
+        bf16_layers=N_STAGES, fp32=False, requests=BATCH),
+    "mistral-123b": dict(
+        combos=[("qship", "cuda", "cuda", "auto"), ("fetch", "cuda", "paged", "auto")],
+        kernels=ATTN_KERNELS, faults="pool_attention", per_launch=ATTN_KERNELS,
+        bf16_layers=N_STAGES, fp32=False, requests=BATCH, wave=False),
+    "qwen3-235b": dict(
+        combos=[("qship", "cuda", "cuda", "auto"), ("fetch", "cuda", "paged", "auto")],
+        kernels=ATTN_KERNELS, faults="pool_attention", per_launch=ATTN_KERNELS,
+        bf16_layers=N_STAGES, fp32=False, requests=BATCH, wave=False),
+    "llama3-405b": dict(
+        combos=[("qship", "cuda", "cuda", "auto"), ("fetch", "cuda", "paged", "auto")],
+        kernels=ATTN_KERNELS, faults="pool_attention", per_launch=ATTN_KERNELS,
+        bf16_layers=N_STAGES, fp32=False, requests=BATCH, wave=False),
 }
 # serve checks, as fractions of the reference's max|logit|: a bf16 kernel
 # combination against the witness, the cuda pool (K2) against the paged
@@ -1165,13 +1262,30 @@ BF16_LOGIT_TOL = {"qwen3-8b": 0.1, "zamba2-7b": 0.1, "mamba2-130m": 0.1,
                   # launch. qwen2-moe-a2.7b's spread reaches ~0.3 of
                   # max|logit| and flips argmaxes, so no limit holds there:
                   # its bf16 logits are reported (None), not held
-                  "qwen2-moe-a2.7b": None, "granite-moe-3b-a800m": 0.1}
+                  "qwen2-moe-a2.7b": None, "granite-moe-3b-a800m": 0.1,
+                  "qwen3-14b": 0.1, "llama3-70b": 0.1, "mistral-123b": 0.1,
+                  # 128 experts, top 8: router flips as in qwen2-moe-a2.7b
+                  "qwen3-235b": None, "llama3-405b": 0.1}
 BF16_POOL_PAIR_TOL = 1e-3
 FP32_LOGIT_TOL = {"qwen3-8b": 1e-3, "zamba2-7b": 1e-3, "mamba2-130m": 1e-4,
                   # granite-3-2b's logits move ~5e-4 of max|logit| when K2
                   # drops a slot (its summation-order spread: ~3e-7)
                   "granite-3-2b": 1e-5, "stablelm-3b": 1e-3, "qwen2-moe-a2.7b": 1e-3,
-                  "granite-moe-3b-a800m": 1e-3}
+                  "granite-moe-3b-a800m": 1e-3, "qwen3-14b": 1e-3}
+
+
+def depth(cfg, layers):
+    """``cfg`` cut to ``layers`` layers at full width (None: as it is). The
+    hybrid keeps its groups' shape and is cut to ``layers`` - 1 groups plus
+    its tail, one group a stage at ``layers`` = N_STAGES."""
+    import dataclasses
+    from repro_torch.configs import replace
+    if layers is None:
+        return cfg
+    if cfg.family != "hybrid":
+        return replace(cfg, num_layers=layers)
+    h = dataclasses.replace(cfg.hybrid, num_groups=layers - 1)
+    return replace(cfg, hybrid=h, num_layers=h.total_layers)
 
 
 @contextlib.contextmanager
@@ -1250,20 +1364,66 @@ def planted_faults(kind: str, real):
             "K4 ignores init_state": init_ignored}
 
 
+PLAIN_SCORES_BYTES = 2 << 30   # a K1-K3 plain call's fp32 scores, at most (``plain_of``)
+
+
 def plain_of(kind: str):
     """The plain version of the wrapper ``ops.<kind>``, with its signature:
     for K1-K3 the wrapper itself (its checks and argument handling) with
     its CPU route taken on the card's tensors (``ops._on_card`` reading
     False), which is the plain version's call."""
+    import torch
     from repro_torch.kernels import ops, ref
     if kind == "decode_attention":
         return ref.decode_attention_plain
     if kind in ATTN_KERNELS:
         wrapper = getattr(ops, kind)
 
-        def plain(*args, **kw):
+        def whole(*args, **kw):
             with swapped(ops, "_on_card", lambda *ts: False):
                 return wrapper(*args, **kw)
+
+        def plain(*args, **kw):
+            # whole stage groups' rows a call (K1: rows in N_STAGES groups),
+            # in as few calls as keep each call's fp32 scores within
+            # PLAIN_SCORES_BYTES: rows are independent, and all 16 rows of a
+            # pool scan at llama3-405b's 128 heads hold ~13 GB a copy
+            q, g = args[0], N_STAGES
+            if kind == "chunk_attention":
+                keys = args[1].shape[1]
+            elif kind == "pool_attention":
+                g = args[3].shape[0] if args[3].ndim == 2 else g
+                keys = args[1].shape[0] * args[1].shape[2]
+            else:
+                g = args[1].shape[0] if args[1].ndim == 6 else 1
+                keys = torch.as_tensor(args[3]).numel() * args[1].shape[-3]
+            scores = 4 * q.shape[0] * q.shape[1] * q.shape[2] * keys
+            calls = next((p for p in range(1, g + 1) if g % p == 0
+                          and scores <= p * PLAIN_SCORES_BYTES), g)
+            if calls == 1 or q.shape[0] % g:
+                return whole(*args, **kw)
+            b, per = q.shape[0] // calls, g // calls
+            parts = []
+            for i in range(calls):
+                rows, grp = slice(i * b, (i + 1) * b), slice(i * per, (i + 1) * per)
+                if kind == "chunk_attention":
+                    a = tuple(x[rows] for x in args)
+                    k = {n: (x[rows] if n in ("k_scale", "v_scale") and x is not None
+                             else x) for n, x in kw.items()}
+                elif kind == "pool_attention":
+                    valid = args[3][grp] if args[3].ndim == 2 else args[3]
+                    a = (q[rows], args[1][:, rows], args[2][:, rows], valid) + args[4:]
+                    k = {n: (x[:, rows] if n in ("k_scale", "v_scale") and x is not None
+                             else x) for n, x in kw.items()}
+                else:
+                    a = (q[rows], args[1][grp], args[2][grp], args[3], args[4][grp]) \
+                        + args[5:]
+                    k = {n: (x[grp] if n in ("k_scale", "v_scale") and x is not None
+                             else x) for n, x in kw.items()}
+                parts.append(whole(*a, **k))
+            if isinstance(parts[0], tuple):
+                return tuple(torch.cat(p) for p in zip(*parts))
+            return torch.cat(parts)
         return plain
 
     def ssd(x, dt, a_log, b, c, d_skip, *, chunk, init_state=None):
@@ -1309,7 +1469,7 @@ WAVE_CATEGORIES = (
 
 
 def wave_split(arch: str, staged=None,
-               combo=("qship", "cuda", "cuda", "auto")) -> dict:
+               combo=("qship", "cuda", "cuda", "auto"), cfg=None) -> dict:
     """One bf16 wave (BATCH requests) of ``arch`` at full width and depth
     through PrefillEngine + TorchExecutor under ``combo`` (the SSD on K4),
     traced by
@@ -1320,7 +1480,8 @@ def wave_split(arch: str, staged=None,
     wave's host wall time traced and untraced, the card's clocks, power
     and temperature just after it, and the 12 kernels that take the most
     device time. ``staged``: the model's bf16 weights (made from seed 0 if
-    None). Logs and returns the numbers."""
+    None); ``cfg``: its config (``arch``'s at full depth if None). Logs and
+    returns the numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import RunConfig, get_config
@@ -1330,7 +1491,7 @@ def wave_split(arch: str, staged=None,
     from repro_torch.runtime.engine import (EngineConfig, PrefillEngine,
                                             TorchExecutor)
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     seq = N_CHUNKS * CHUNK
     remote, attn, pool, kv = combo
     run = RunConfig(num_chunks=N_CHUNKS, num_stages=N_STAGES, mbkr=not cfg.attn_free,
@@ -1409,8 +1570,10 @@ def moe_cap(cfg) -> int:
 
 
 def serve_model(arch: str, results: dict) -> None:
-    """One model at full width and depth through PrefillEngine +
-    TorchExecutor.
+    """One model at full width (and full depth, or ``bf16_layers`` /
+    ``fp32_layers`` deep: ``depth``) through PrefillEngine + TorchExecutor;
+    the model's peak device memory (``torch.cuda.max_memory_allocated``)
+    is printed at the end, and its weights are freed before the next.
 
     bf16, the model's main path: the launch counters are set to 0 just
     before its kernel combinations and read just after; every kernel of the
@@ -1447,9 +1610,9 @@ def serve_model(arch: str, results: dict) -> None:
     combination is then held against its plain version on its
     own inputs, which the real kernels must pass and each planted K2 fault
     must break.
-    fp32 (same geometry, weights drawn in fp32; ``fp32_layers`` deep where
-    set): summation order is the only difference left, so every
-    combination's argmax must equal the ``torch`` backends' on the same
+    fp32 (unless ``fp32`` is False; same geometry, weights drawn in fp32,
+    ``fp32_layers`` deep where set): summation order is the only difference
+    left, so every combination's argmax must equal the ``torch`` backends' on the same
     pages, with the logits within FP32_LOGIT_TOL[arch]; both planted faults
     must break that."""
     import numpy as np
@@ -1466,10 +1629,15 @@ def serve_model(arch: str, results: dict) -> None:
                                             TorchExecutor)
 
     spec = SERVE_MODELS[arch]
-    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(arch)
+    cfg = depth(full, spec.get("bf16_layers"))
     seq = N_CHUNKS * CHUNK
     base = RunConfig(num_chunks=N_CHUNKS, num_stages=N_STAGES, mbkr=not cfg.attn_free)
     plan = pp.build_plan(cfg, N_STAGES, seq, base)
+    if cfg.num_layers != full.num_layers:
+        log(f"[serve] {arch}: bf16 depth cut to {cfg.num_layers} of {full.num_layers} "
+            f"layers (bf16_layers), full width")
     log(f"[serve] {arch} d={cfg.d_model} layers={cfg.num_layers} heads={cfg.num_heads}/"
         f"{cfg.num_kv_heads} hd={cfg.resolved_head_dim} mode={plan.mode} "
         f"lps={plan.layers_per_stage} N={N_STAGES} M={N_CHUNKS} C={CHUNK} "
@@ -1481,6 +1649,7 @@ def serve_model(arch: str, results: dict) -> None:
         check(plan.p2 < N_CHUNKS - 1, "the plan has no remote chunk to attend to")
     kvs = sorted({combo[3] for combo in spec["combos"]})
     per_launch = spec.get("per_launch", ())
+    n_req = spec.get("requests", REQUESTS)
 
     def weights(model_cfg):
         t0 = time.perf_counter()
@@ -1503,7 +1672,7 @@ def serve_model(arch: str, results: dict) -> None:
 
     def serve(model_cfg, staged, remote: str, attn: str, pool: str, kv: str,
               mode=None, ssm: str = "cuda", record: bool = True):
-        """One run of REQUESTS requests: its logits, and the MoE router's
+        """One run of n_req requests: its logits, and the MoE router's
         choices where ``record`` (False on the counted main path, which
         runs the code as users run it)."""
         run = RunConfig(num_chunks=N_CHUNKS, num_stages=N_STAGES,
@@ -1514,7 +1683,7 @@ def serve_model(arch: str, results: dict) -> None:
         eng = PrefillEngine(EngineConfig(model=model_cfg, num_stages=N_STAGES, tp=1,
                                          num_chunks=N_CHUNKS, max_batch=BATCH,
                                          buckets=(seq,), partition="uniform"), ex)
-        for r in make_requests(REQUESTS, seq, model_cfg.vocab_size, seed=0):
+        for r in make_requests(n_req, seq, model_cfg.vocab_size, seed=0):
             eng.submit(r)
         choices.clear()
         with swapped(layers_mod, "moe_route", record_choices if record and model_cfg.moe
@@ -1524,9 +1693,9 @@ def serve_model(arch: str, results: dict) -> None:
         name = f"{arch} {model_cfg.dtype} {'mbkr' if run.mbkr else 'terapipe'} " \
             f"{remote}/{attn}/{pool}/{kv}" + \
             ("" if model_cfg.family in ("dense", "moe") else f"/ssd {ssm}")
-        check(len(done) == REQUESTS, f"{name}: {len(done)} of {REQUESTS} answered")
+        check(len(done) == n_req, f"{name}: {len(done)} of {n_req} answered")
         logits = np.stack([r.result for r in done])
-        check(logits.shape == (REQUESTS, pad_vocab(model_cfg.vocab_size)),
+        check(logits.shape == (n_req, pad_vocab(model_cfg.vocab_size)),
               f"{name}: logits shape {logits.shape}")
         check(bool(np.isfinite(logits).all()), f"{name}: non-finite logits")
         walls = [w["dur"] for w in ex.waves]
@@ -1562,7 +1731,7 @@ def serve_model(arch: str, results: dict) -> None:
 
     def passes(model_cfg, err: float, same: int) -> bool:
         if model_cfg.dtype == "float32":
-            return same == REQUESTS and err < FP32_LOGIT_TOL[arch]
+            return same == n_req and err < FP32_LOGIT_TOL[arch]
         return err <= BF16_LOGIT_TOL[arch]
 
     failures = []
@@ -1633,7 +1802,7 @@ def serve_model(arch: str, results: dict) -> None:
     # where a bf16 wave's device time goes; every K4 launch of it must run
     # the tensor-core body
     if spec.get("wave", True):
-        split = wave_split(arch, staged)
+        split = wave_split(arch, staged, cfg=cfg)
         if "ssd" in spec["kernels"]:
             k4 = split["k4_launches"]
             check(k4["tensor cores"] > 0 and k4["cuda cores"] == 0,
@@ -1656,16 +1825,22 @@ def serve_model(arch: str, results: dict) -> None:
     torch.cuda.empty_cache()
 
     # ---- fp32: the argmax of every request, every combination
-    cfg32 = replace(cfg, dtype="float32", num_layers=spec.get("fp32_layers", cfg.num_layers))
-    staged = weights(cfg32)
-    refs = {kv: serve(cfg32, staged, "qship", "torch", "torch", kv, ssm="torch")
-            for kv in kvs}
-    for combo in spec["combos"]:
-        hold(cfg32, serve(cfg32, staged, *combo), refs[combo[3]], "torch backends",
-             "/".join(combo))
-    planted(cfg32, staged, refs["auto"], "torch backends")
-    del staged
-    torch.cuda.empty_cache()
+    if spec.get("fp32", True):
+        cfg32 = replace(depth(full, spec.get("fp32_layers")), dtype="float32")
+        if cfg32.num_layers != full.num_layers:
+            log(f"  fp32 depth cut to {cfg32.num_layers} of {full.num_layers} layers "
+                f"(fp32_layers), full width")
+        staged = weights(cfg32)
+        refs = {kv: serve(cfg32, staged, "qship", "torch", "torch", kv, ssm="torch")
+                for kv in kvs}
+        for combo in spec["combos"]:
+            hold(cfg32, serve(cfg32, staged, *combo), refs[combo[3]], "torch backends",
+                 "/".join(combo))
+        planted(cfg32, staged, refs["auto"], "torch backends")
+        del staged
+        torch.cuda.empty_cache()
+    log(f"  {arch} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
     check(not failures, "; ".join(failures))
 
 
@@ -1723,10 +1898,10 @@ def baselines_phase(results: dict) -> None:
     and the wall time of each path on the same requests beside the card's
     clocks (recorded, not held: on one card the stage axis is a batch, not
     a pipeline of chips). The scheduler's TTFT is the analytic model's and
-    is printed under its profile's name. Then fp32 at full depth, where
-    summation order moves the logits by ~1e-5 of max|logit|: GPipe on K1
-    against MOCAP on the ``torch`` backends, every request's argmax equal
-    and the logits within FP32_LOGIT_TOL."""
+    is printed under its profile's name. Then fp32, where summation order
+    moves the logits by ~1e-5 of max|logit|: GPipe on K1 against MOCAP on
+    the ``torch`` backends, every request's argmax equal and the logits
+    within FP32_LOGIT_TOL."""
     import numpy as np
     import torch
     from repro_torch.configs import RunConfig, get_config, replace
@@ -2146,9 +2321,13 @@ def prefix_phase(results: dict) -> None:
 
 # ------------------------------------------------------------------ decode
 
-# K5 launches a decode step: one per attention layer (qwen3-8b 36 layers,
-# zamba2-7b 13 applications of the shared block, mamba2-130m none)
-DECODE_MODELS = {"qwen3-8b": 36, "zamba2-7b": 13, "mamba2-130m": 0}
+# one entry per model decoded: ``k5``, its K5 launches a bf16 decode step,
+# one per attention layer (qwen3-8b 36 layers, zamba2-7b 13 applications of
+# the shared block, mamba2-130m none, qwen3-14b 40 at GQA group 5); and,
+# as in SERVE_MODELS, ``fp32_layers`` where the fp32 bridge is cut
+# (``depth``: qwen3-14b's 40 fp32 layers are ~59 GB)
+DECODE_MODELS = {"qwen3-8b": dict(k5=36), "zamba2-7b": dict(k5=13),
+                 "mamba2-130m": dict(k5=0), "qwen3-14b": dict(k5=40, fp32_layers=N_STAGES)}
 DEC_BATCH, DEC_PROMPT, DEC_PAD, DEC_STEPS = 2, 512, 8, 8
 # fractions of max|logit|: fp32 decode against forward on the longer
 # sequence (the fp32 serve limit); bf16 decode against bf16 forward on the
@@ -2534,12 +2713,13 @@ def frac(got, want) -> float:
 
 def decode_bridge(arch: str, dtype: str, results: dict) -> list:
     """The prefill->decode bridge of one model at full width and depth
+    (fp32 ``fp32_layers`` deep where DECODE_MODELS sets it)
     (``tests/test_models.py::test_decode_continues_prefill`` at the card's
     size): B = 2 rows, a 512-token prompt through ``Model.forward(
     return_cache=True)``, the KV axis padded by 8, 8 ``Model.decode_step``s
     fed with seeded tokens.
     bf16, the decode main path: the launch counts are set to 0 just before
-    the K5 run and read just after (exactly 8 x 36 / 13 / 0); the logits are
+    the K5 run and read just after (exactly 8 x DECODE_MODELS' ``k5``); the logits are
     held within DEC_BF16_TOL of max|logit| against bf16 ``forward`` on the
     prompt and the fed tokens (this holds the bf16 Mamba2 decode) and, where
     the model has attention, against the same decode with
@@ -2556,12 +2736,16 @@ def decode_bridge(arch: str, dtype: str, results: dict) -> list:
     from repro_torch.kernels import ops, ref
     from repro_torch.models.api import build_model
 
-    cfg = replace(get_config(arch), dtype=dtype)
+    spec = DECODE_MODELS[arch]
+    layers = spec.get("fp32_layers") if dtype == "float32" else None
+    cfg = replace(depth(get_config(arch), layers), dtype=dtype)
     model = build_model(cfg)
-    per_step = DECODE_MODELS[arch]
+    per_step = spec["k5"]
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
+    if layers is not None:
+        log(f"[decode] {arch} {dtype}: depth cut to {cfg.num_layers} layers, full width")
     toks = torch.randint(0, cfg.vocab_size, (DEC_BATCH, DEC_PROMPT + DEC_STEPS),
                          generator=gen, device="cuda")
     _, prefill = model.forward(params, toks[:, :DEC_PROMPT], return_cache=True)
@@ -2657,7 +2841,7 @@ def decode_long(arch: str, results: dict) -> list:
 
     cfg = get_config(arch)
     model = build_model(cfg)
-    per_step = DECODE_MODELS[arch]
+    per_step = DECODE_MODELS[arch]["k5"]
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -2740,6 +2924,162 @@ def decode_phase(results: dict) -> None:
     check(not failures, "; ".join(failures))
 
 
+# -------------------------------------------------------------------- fleet
+
+FLEET_ARCH, FLEET_REQUESTS, FLEET_RATE, FLEET_SLO_MS = "qwen3-8b", 8, 2.0, 4000.0
+FLEET_DRAIN_REQUESTS = 6
+
+
+def fleet_phase(results: dict) -> None:
+    """The fleet (``repro_torch.fleet``, ``launch.options``) on qwen3-8b at
+    full width and depth in bf16, S = 4096.
+
+    Through the serve CLI (``launch.serve.main``, in this process; its
+    stdout is captured and logged): ``--scheduler continuous --policy edf
+    --cells 2 --router jsf --arrival-rate 2 --slo-ms 4000 --max-batch 2
+    --requests 8 --seq 4096``, a ``--fleet-spec`` that gives cell1 int8
+    pages, ``--options-out``, a trace and the fleet metrics; then a replay
+    through ``--options-in`` alone. K1 and K2 must launch in the first run
+    (its counts, from 0). Held: every request completes exactly once; both
+    cells admit work; each request's argmax equals the same request's
+    served by a single ``ContinuousEngine`` cell of the same pages and
+    seed, fed the same submissions (the fleet runs the chosen cell dry
+    after each placement, so each wave is one request); the replay gives
+    the same placements and argmaxes; the merged trace keeps each cell's
+    rows apart (one ``engine`` process row per cell).
+
+    Then through ``FleetFabric`` directly, two cells on the same weights:
+    the first wave served, three more requests placed without running,
+    the cell holding them drained: it completes exactly those, admits
+    nothing after (a submit raises, the router never picks it), and the
+    last requests go to the other cell."""
+    import gc
+    import io
+    import numpy as np
+    import torch
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core import pipeline as pp
+    from repro_torch.core.staging import init_staged
+    from repro_torch.fleet import FleetFabric, FleetRouter
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import ContinuousEngine, EngineConfig, TorchExecutor
+
+    seq = N_CHUNKS * CHUNK
+    out = ROOT / "build"
+    out.mkdir(parents=True, exist_ok=True)
+    spec = out / "fleet_spec.json"
+    spec.write_text(json.dumps({"router": "jsf", "cells": [{}, {"kv_dtype": "int8"}]}))
+    opts, trace = out / "fleet_options.json", out / "fleet_trace.json"
+    argv = ["--arch", FLEET_ARCH, "--scheduler", "continuous", "--policy", "edf",
+            "--cells", "2", "--router", "jsf", "--arrival-rate", str(FLEET_RATE),
+            "--slo-ms", str(FLEET_SLO_MS), "--max-batch", str(BATCH), "--requests",
+            str(FLEET_REQUESTS), "--seq", str(seq), "--fleet-spec", str(spec),
+            "--options-out", str(opts), "--trace-out", str(trace), "--metrics-out",
+            str(out / "fleet_metrics.json")]
+
+    def cli(args):
+        log(f"  serve: python -m repro_torch.launch.serve {' '.join(args)}")
+        buf = io.StringIO()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(args)
+        launches, wall = dict(ops.LAUNCHES), time.perf_counter() - t0
+        text = buf.getvalue()
+        for line in text.splitlines():
+            log(f"    {line}")
+        check(rc == 0, f"fleet: serve returned {rc}")
+        rows = re.findall(r"^request (\d+): cell (cell\d+), argmax (\d+)$", text, re.M)
+        rids = sorted(int(r) for r, _, _ in rows)
+        check(rids == list(range(FLEET_REQUESTS)),
+              f"fleet: requests completed {rids}, not each of {FLEET_REQUESTS} once")
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  serve: {wall:.1f} s, launches {launches}")
+        return ({int(r): c for r, c, _ in rows}, {int(r): int(a) for r, _, a in rows},
+                launches)
+
+    placed, argmax, launches = cli(argv)
+    for name in ("chunk_attention", "pool_attention"):
+        check(launches[name] > 0, f"fleet serve: {name} never launched")
+        results[name]["launches_by_path"]["fleet serve"] = launches[name]
+    check(set(placed.values()) == {"cell0", "cell1"},
+          f"fleet: not both cells admitted work: {placed}")
+    pids = {str(e["pid"]) for e in json.loads(trace.read_text())["traceEvents"]}
+    check({p for p in pids if p.endswith("/engine")} == {"cell0/engine", "cell1/engine"}
+          and all(p.split("/")[0] in ("cell0", "cell1") for p in pids),
+          f"fleet: trace rows {sorted(pids)}")
+    log(f"  fleet: placements {placed}; argmax {argmax}; trace rows {sorted(pids)}")
+    replay = cli(["--options-in", str(opts)])
+    check(replay[:2] == (placed, argmax),
+          f"fleet: the --options-in replay gave {replay[:2]}, not {(placed, argmax)}")
+
+    # ---- single cells: each cell's requests, the same pages and seed
+    cfg = get_config(FLEET_ARCH)
+    run0 = RunConfig(num_chunks=N_CHUNKS, num_stages=N_STAGES)
+    staged = init_staged(cfg, pp.build_plan(cfg, N_STAGES, seq, run0),
+                         torch.Generator(device="cuda").manual_seed(0), device="cuda")
+
+    def cell(kv):
+        run = RunConfig(num_chunks=N_CHUNKS, num_stages=N_STAGES, remote_attn="qship",
+                        attn_backend="cuda", pool_backend="auto", ssm_backend="cuda",
+                        kv_dtype=kv)
+        ec = EngineConfig(model=cfg, hw=cm.resolve_profile("tpu-v5e"), num_stages=N_STAGES,
+                          tp=1, num_chunks=N_CHUNKS, max_batch=BATCH, buckets=(seq,),
+                          partition="uniform", kv_dtype=kv, policy="edf",
+                          slo=FLEET_SLO_MS / 1e3)
+        return ContinuousEngine(ec, TorchExecutor(cfg, staged, run, device="cuda"))
+
+    def reqs(n):
+        return serve.make_requests(n, seq, cfg.vocab_size, 0, arrival_rate=FLEET_RATE)
+
+    single = {}
+    for name, kv in (("cell0", "auto"), ("cell1", "int8")):
+        eng = cell(kv)
+        for r in reqs(FLEET_REQUESTS):
+            if placed[r.rid] == name:
+                eng.submit(r)
+                eng.run_until_drained()
+        single.update({r.rid: int(np.argmax(r.result)) for r in eng.poll()})
+        del eng
+    log(f"  single cells (same pages, seed and submissions): argmax {single}")
+    check(single == argmax, f"fleet: argmax {argmax} against single cells' {single}")
+
+    # ---- drain one cell after the first wave
+    fab = FleetFabric({"cell0": cell("auto"), "cell1": cell("auto")}, FleetRouter("jsf"))
+    stream = reqs(FLEET_DRAIN_REQUESTS)
+    fab.submit(stream[0])                         # the first wave runs
+    for r in stream[1:4]:
+        fab.submit(r, pump=False)                 # placed, in flight
+    pending = {c: sorted(r for r, p in fab.placements.items() if p == c and r > 0)
+               for c in ("cell0", "cell1")}
+    victim = max(pending, key=lambda c: len(pending[c]))
+    done = fab.drain_cell(victim)
+    check(sorted(r.rid for r in done) == pending[victim]
+          and all(r.result is not None and np.isfinite(r.result).all() for r in done),
+          f"fleet drain: {victim} completed {[r.rid for r in done]}, in flight "
+          f"{pending[victim]}")
+    refused = False
+    try:
+        fab.retired[victim].submit(stream[-1])
+    except RuntimeError:
+        refused = True
+    check(refused, f"fleet drain: the drained {victim} admitted a request")
+    after = [fab.submit(r).cell for r in stream[4:]]
+    fab.pump()
+    got = sorted(r.rid for r in fab.completed)
+    check(victim not in after and got == list(range(FLEET_DRAIN_REQUESTS)),
+          f"fleet drain: later placements {after}, completed {got}")
+    m = fab.metrics()
+    log(f"  drain: {victim} drained with {pending[victim]} in flight, completed them; "
+        f"later requests to {after}; per cell {m['per_cell']}")
+    del fab, done, staged              # the engines hold the weights in cycles
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------- build
 
 # the tensor-core body (K1-K3) and K5: (mangled template argument, name) of
@@ -2759,6 +3099,8 @@ def build_phase() -> None:
     start_fault_builds()                # beside the real build; waited for at first use
     build.build_all(verbose=True)
     log(f"[build] nvcc {time.perf_counter() - t0:.1f} s -> {build.build_dir()}")
+    log(f"  nvcc wall time a library (s): "
+        f"{ {n: round(t, 1) for n, t in sorted(build.SECONDS.items())} }")
     for name, text in sorted(build.LOGS.items()):
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
@@ -2855,6 +3197,9 @@ def main() -> int:
         t0 = time.perf_counter()
         obs_phase(results)
         log(f"[obs] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        fleet_phase(results)
+        log(f"[fleet] {time.perf_counter() - t0:.1f} s")
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -151,8 +151,10 @@ def register(name: str, full: Callable[[], ModelConfig],
 
 def _ensure_loaded() -> None:
     from repro_torch.configs import (granite_3_2b, granite_moe_3b_a800m,  # noqa: F401
-                                     mamba2_130m, qwen2_moe_a2_7b, qwen3_8b,
-                                     stablelm_3b, zamba2_7b)
+                                     llama3_70b, llama3_405b, mamba2_130m,
+                                     mistral_123b, qwen2_moe_a2_7b, qwen3_8b,
+                                     qwen3_14b, qwen3_235b, stablelm_3b,
+                                     zamba2_7b)
 
 
 def get_config(arch: str) -> ModelConfig:

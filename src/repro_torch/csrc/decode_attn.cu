@@ -531,6 +531,11 @@ int launch_g(const void* q, const void* k, const void* v, const int* kv_len, flo
                             stream);
 }
 
+// The groups built at every head dim; at D 128 (and the smoke configs' 16)
+// also G 5, 12 and 16 (qwen3-14b; mistral-123b; qwen3-235b, llama3-405b).
+// A thread keeps G x (VEC queries + VEC accumulators + U scores) in
+// registers, so the wide groups spill (the build phase of chip_smoke.py
+// prints each instance's registers and spills).
 #define DISPATCH_G(T, D, ...)                                                  \
   if (G == 1) return launch_g<T, D, 1>(__VA_ARGS__);                           \
   if (G == 2) return launch_g<T, D, 2>(__VA_ARGS__);                           \
@@ -538,10 +543,16 @@ int launch_g(const void* q, const void* k, const void* v, const int* kv_len, flo
   if (G == 8) return launch_g<T, D, 8>(__VA_ARGS__);                           \
   return (int)cudaErrorInvalidValue;
 
+#define DISPATCH_G_WIDE(T, D, ...)                                             \
+  if (G == 5) return launch_g<T, D, 5>(__VA_ARGS__);                           \
+  if (G == 12) return launch_g<T, D, 12>(__VA_ARGS__);                         \
+  if (G == 16) return launch_g<T, D, 16>(__VA_ARGS__);                         \
+  DISPATCH_G(T, D, __VA_ARGS__)
+
 #define DISPATCH_DG(T, ...)                                                    \
-  if (D == 16) { DISPATCH_G(T, 16, __VA_ARGS__) }                              \
+  if (D == 16) { DISPATCH_G_WIDE(T, 16, __VA_ARGS__) }                         \
   if (D == 112) { DISPATCH_G(T, 112, __VA_ARGS__) }                            \
-  if (D == 128) { DISPATCH_G(T, 128, __VA_ARGS__) }                            \
+  if (D == 128) { DISPATCH_G_WIDE(T, 128, __VA_ARGS__) }                       \
   return (int)cudaErrorInvalidValue;
 
 }  // namespace
@@ -553,7 +564,8 @@ extern "C" {
 // of (2 cap + B x KVH) x G x (D + 2) floats; counters: B x KVH int32, zero
 // before the first launch and left zero by every launch. cap: the most
 // blocks the grid may have. D is 16, 112 or 128 and G = H / KVH is 1, 2, 4
-// or 8. Returns cudaGetLastError() after the launch.
+// or 8, and at D 16 and 128 also 5, 12 or 16. Returns cudaGetLastError()
+// after the launch.
 int decode_attention_launch(const void* q, const void* k, const void* v, const void* kv_len,
                             void* part, void* counters, void* out, int dtype, int B, int H,
                             int KVH, int D, int S, int cap, float scale, void* stream) {

@@ -15,6 +15,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Tuple
 
@@ -28,6 +30,7 @@ SPLITS = {"chunk_attn": 6}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 LOGS: Dict[str, str] = {}   # per-source nvcc output (with ptxas -v when asked)
+SECONDS: Dict[str, float] = {}   # per-library nvcc wall time of the last build
 
 
 def sources() -> List[Path]:
@@ -68,6 +71,7 @@ def build_all(verbose: bool = False) -> Dict[str, Path]:
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     libs, procs = {}, []
+    t0 = time.perf_counter()
     for name, src, extra in _targets():
         lib = out_dir / f"lib{name}.so"
         libs[name] = lib
@@ -78,10 +82,18 @@ def build_all(verbose: bool = False) -> Dict[str, Path]:
                "-o", str(tmp), str(src)]
         procs.append((name, tmp, lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+
+    def wait(entry):
+        name, _, _, proc = entry
+        LOGS[name] = proc.communicate()[0]
+        SECONDS[name] = time.perf_counter() - t0
+
+    if procs:
+        with ThreadPoolExecutor(len(procs)) as pool:
+            list(pool.map(wait, procs))
     failed: List[Tuple[str, str]] = []
     for name, tmp, lib, proc in procs:
-        log, _ = proc.communicate()
-        LOGS[name] = log
+        log = LOGS[name]
         if proc.returncode != 0:
             failed.append((name, log))
         else:

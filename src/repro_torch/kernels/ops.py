@@ -465,8 +465,13 @@ def ssd(x, dt, a_log, b, c, d_skip, *, chunk: int = 128, init_state=None):
 
 # -------------------------------------------------------------------- K5
 
-_DECODE_GROUPS = (1, 2, 4, 8)     # G = H / KVH the kernel is built for
-_DECODE_HEAD_DIMS = (16, 112, 128)   # K5's own head dims (not K1-K3's 64 and 80)
+# head dim -> the G = H / KVH the kernel is built for there (DISPATCH_DG in
+# csrc/decode_attn.cu): G 5, 12 and 16 at D 128 (qwen3-14b; mistral-123b;
+# qwen3-235b and llama3-405b) and the smoke configs' 16. K5's head dims are
+# its own (not K1-K3's 64 and 80)
+_DECODE_GROUPS = {16: (1, 2, 4, 5, 8, 12, 16), 112: (1, 2, 4, 8),
+                  128: (1, 2, 4, 5, 8, 12, 16)}
+_DECODE_HEAD_DIMS = tuple(_DECODE_GROUPS)
 # csrc/decode_attn.cu: threads a block, keys a row group takes from a tile
 _DECODE_THREADS, _DECODE_U = 128, 4
 _DECODE_CAP_PER_SM = 4            # the grid's most blocks an SM (the scratch is sized for it)
@@ -545,8 +550,9 @@ def _decode_scratch(device, g: int, d: int, pairs: int):
 def decode_attention(q, k, v, kv_len, *, scale: Optional[float] = None):
     """Flash-decode attention (K5): one query token per batch row against a
     KV cache. q [B,H,D]; k/v [B,S,KVH,D] in q's dtype (fp32 or bf16), with
-    H / KVH in (1, 2, 4, 8); kv_len [B] int32 valid lengths, clamped to
-    [0, S] and read on the device (no host sync). Returns out [B,H,D] in
+    (D, H / KVH) one of ``_DECODE_GROUPS``' pairs; kv_len [B] int32 valid
+    lengths, clamped to [0, S] and read on the device (no host sync).
+    Returns out [B,H,D] in
     q's dtype: the softmax over the first kv_len[b] keys, p in fp32, one
     normalisation by max(l, 1e-30), so a row with kv_len = 0 gives zeros.
     Unlike the reference wrapper there is no lane padding and no block
@@ -571,9 +577,9 @@ def decode_attention(q, k, v, kv_len, *, scale: Optional[float] = None):
         raise TypeError(f"kv_len must be int32, got {kv_len.dtype}")
     if d not in _DECODE_HEAD_DIMS:
         raise ValueError(f"K5 decode attention: head dim {d} not in {_DECODE_HEAD_DIMS}")
-    if h // kvh not in _DECODE_GROUPS:
+    if h // kvh not in _DECODE_GROUPS[d]:
         raise ValueError(f"K5 decode attention: {h} query heads over {kvh} kv heads: "
-                         f"group {h // kvh} not in {_DECODE_GROUPS}")
+                         f"group {h // kvh} not in {_DECODE_GROUPS[d]} at head dim {d}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if not _on_card(q, k, v, kv_len):
         return _plain("decode_attention",

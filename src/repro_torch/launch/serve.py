@@ -42,6 +42,24 @@ Observability (``repro_torch.obs``):
         --trace-out build/trace.json --metrics-out build/metrics.prom \
         --health --calibrate build/cal.json
 
+Every flag maps to a ``launch.options.ServeOptions`` field:
+``--options-out PATH`` writes the resolved options JSON, ``--options-in
+PATH`` replays one, and the flags typed act as overrides on top of it.
+The engine is driven only through the ``CellHandle`` protocol, which lets
+the same loop run one cell or a fleet.
+
+Multi-cell fleet (``repro_torch.fleet``): one shared arrival stream routed
+over N cells, ``--cells N`` copies of the options or ``--fleet-spec
+spec.json`` with per-cell overrides (kv_dtype, buckets, a calibrated
+profile, ...), ``--router`` jsf | rr | least-loaded; each request's cell
+and argmax, the fleet roll-up and, with ``--trace-out``, one trace with
+each cell's own process rows. On one card the cells share it and their
+waves run one after another:
+
+    python -m repro_torch.launch.serve --scheduler continuous --policy edf \
+        --cells 2 --router jsf --arrival-rate 2 --slo-ms 4000 --max-batch 2 \
+        --requests 8 --fleet-spec spec.json --options-out opts.json
+
 ``--trace-out`` arms the stage telemetry and writes one Chrome trace
 (scheduler tasks, lease and wire counters, engine waves and ticks,
 ``kv_resident_bytes`` tracks, measured spans, health alerts; continuous
@@ -69,94 +87,47 @@ import numpy as np
 import torch
 
 from repro_torch import device as devices
-from repro_torch.configs.base import (ATTN_BACKENDS, POOL_BACKENDS,
-                                      SSM_BACKENDS, RunConfig, get_config,
-                                      get_smoke_config, list_archs)
+from repro_torch.configs.base import RunConfig, get_config, get_smoke_config
 from repro_torch.core import costmodel as cm
 from repro_torch.core import pipeline as pp
 from repro_torch.core.staging import init_staged
+from repro_torch.launch.options import (SIM_BUCKETS, ServeOptions, add_serve_args,
+                                        options_from_args, resolve_fleet)
 from repro_torch.runtime.engine import (ContinuousEngine, EngineConfig,
                                         PrefillEngine, Request, SimExecutor,
                                         TorchExecutor)
 from repro_torch.sched import poisson_arrivals
 
-SIM_BUCKETS = (8192, 32768, 131072)
 # the reference's host<->device staging rate for the cold tier (B/s): an
 # assumption it made for a TPU host link (``repro.launch.serve.H2D_BW``),
 # carried as reference data; it is not the H100's link
 REF_TPU_H2D_BW = 16e9
 
 
-def _csv_ints(text: str):
-    return tuple(int(x) for x in text.split(",") if x)
-
-
-def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+def parse_args(argv: Optional[Sequence[str]] = None) -> ServeOptions:
+    """The run's ``ServeOptions``: defaults <- ``--options-in`` <- the flags
+    typed (``launch.options``); ``--options-out`` writes the result."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", choices=list_archs(), default="qwen3-8b")
-    ap.add_argument("--executor", choices=("torch", "sim"), default="torch",
-                    help="torch: the pipeline on the card; sim: the analytic "
-                         "executor at N 16, tp 16, M 16 with LBCP plans")
-    ap.add_argument("--scheduler", choices=("batch", "continuous"), default="batch")
-    ap.add_argument("--policy", choices=("fcfs", "sjf", "edf"), default="fcfs",
-                    help="continuous-mode admission order")
-    ap.add_argument("--arrival-rate", type=float, default=0.0,
-                    help="Poisson arrivals, requests/s (continuous only; 0: all at 0)")
-    ap.add_argument("--slo-ms", type=float, default=None,
-                    help="TTFT deadline: arrival + slo (continuous only)")
-    ap.add_argument("--max-batch", type=int, default=4)
-    ap.add_argument("--buckets", type=_csv_ints, default=None,
-                    help="comma-separated bucket lengths (default: --seq; sim: "
-                         + ",".join(map(str, SIM_BUCKETS)) + ")")
-    ap.add_argument("--profile", default="tpu-v5e",
-                    help="cost-model profile: " + ", ".join(sorted(cm.PROFILES))
-                         + " or a profile JSON path")
-    ap.add_argument("--requests", type=int, default=4)
-    ap.add_argument("--seq", type=int, default=4096)
-    ap.add_argument("--num-chunks", type=int, default=8)
-    ap.add_argument("--num-stages", type=int, default=8)
-    ap.add_argument("--remote-attn", choices=("qship", "fetch"), default="qship")
-    ap.add_argument("--attn-backend", choices=ATTN_BACKENDS, default="cuda")
-    ap.add_argument("--pool-backend", choices=POOL_BACKENDS, default="auto")
-    ap.add_argument("--ssm-backend", choices=SSM_BACKENDS, default="cuda",
-                    help="SSD inner loop of mamba2 / zamba2 layers")
-    ap.add_argument("--kv-dtype", choices=("auto", "int8", "fp8"), default="auto")
-    ap.add_argument("--kv-offload", action="store_true",
-                    help="plan the cold KV tier (kvstore.tiers) and print the "
-                         "analytic tier summary")
-    ap.add_argument("--prefix-cache", choices=("off", "on"), default="off",
-                    help="radix prefix KV index (kvstore.prefix): admitted "
-                         "requests whose leading chunks are already resident "
-                         "lease only their novel suffix, and the torch "
-                         "executor seeds their pools (continuous scheduler)")
-    ap.add_argument("--prefix-min-pages", type=int, default=1,
-                    help="ignore prefix hits smaller than this many pages")
-    ap.add_argument("--shared-prefix", type=int, default=0,
-                    help="the first this many tokens are the same in every "
-                         "request (a shared system prompt)")
-    ap.add_argument("--trace-out", default=None,
-                    help="write the merged Chrome trace here (arms the stage "
-                         "telemetry; continuous scheduler)")
-    ap.add_argument("--metrics-out", default=None,
-                    help="write the metrics here (.prom: Prometheus text; "
-                         "else JSON lines)")
-    ap.add_argument("--health", action="store_true",
-                    help="arm the health sentinels and print their alerts")
-    ap.add_argument("--calibrate", default=None, metavar="PATH",
-                    help="measure the tick spans and write the cost model's "
-                         "fitted profile JSON here (torch executor)")
-    ap.add_argument("--calibrated-profile", default=None, metavar="PATH",
-                    help="price admission with this profile JSON (overrides "
-                         "--profile)")
-    ap.add_argument("--profile-dir", default=None,
-                    help="run under torch.profiler; its Chrome trace goes here")
-    ap.add_argument("--smoke", action="store_true", help="the small config")
-    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    ap.add_argument("--seed", type=int, default=0)
-    return ap.parse_args(argv)
+    add_serve_args(ap)
+    ap.add_argument("--options-in", default=None,
+                    help="load a ServeOptions JSON (written by --options-out); "
+                         "the flags typed override it")
+    ap.add_argument("--options-out", default=None,
+                    help="write the resolved options JSON here (replayable "
+                         "with --options-in), then run")
+    ns = ap.parse_args(argv)
+    base = ServeOptions()
+    if ns.options_in:
+        with open(ns.options_in) as f:
+            base = ServeOptions.from_json(f.read())
+    opts = options_from_args(ns, base)
+    if ns.options_out:
+        from repro_torch.obs._io import atomic_write_text
+        print(f"options -> {atomic_write_text(ns.options_out, opts.to_json())}")
+    return opts
 
 
-def build(args: argparse.Namespace):
+def build(args: ServeOptions):
     """(cfg, engine, executor) for one serving cell."""
     hw = cm.resolve_profile(args.calibrated_profile or args.profile)
     if args.calibrated_profile:
@@ -266,7 +237,7 @@ def measured_completions(waves) -> dict:
     return {rid: w["start"] + w["dur"] - t0 for w in waves for rid in w["rids"]}
 
 
-def arm_obs(args: argparse.Namespace, eng):
+def arm_obs(args: ServeOptions, eng):
     """Arm the engine's executor for the observability flags; returns the
     health monitor (or None)."""
     if args.trace_out:
@@ -301,7 +272,7 @@ def run_profiled(eng, profile_dir: str, device) -> None:
     print(f"torch profile -> {path}")
 
 
-def calibrate(args: argparse.Namespace, cfg, eng, ex) -> None:
+def calibrate(args: ServeOptions, cfg, eng, ex) -> None:
     """Fit the cost model's effective rates (from the engine's profile) to
     the last measured wave's tick spans (the earlier waves hold the
     kernels' first build) and save the profile to ``args.calibrate``. A
@@ -330,7 +301,7 @@ def calibrate(args: argparse.Namespace, cfg, eng, ex) -> None:
           f"{fit.mape_calibrated:.3f} over {len(fit.rows)} spans -> {args.calibrate}")
 
 
-def export_obs(args: argparse.Namespace, eng, m: dict, wall: float, monitor) -> None:
+def export_obs(args: ServeOptions, eng, m: dict, wall: float, monitor) -> None:
     """``--trace-out`` / ``--metrics-out``: the continuous engine exports
     both (``export_obs``); the batch engine exports the metrics only."""
     if args.scheduler == "continuous":
@@ -350,14 +321,94 @@ def export_obs(args: argparse.Namespace, eng, m: dict, wall: float, monitor) -> 
         print(f"metrics -> {path}")
 
 
+def report_health(monitor, records, slo: Optional[float]) -> None:
+    """Fold the TTFT SLO burn into ``monitor`` (where an SLO is set) and
+    print its alert summary."""
+    if slo is not None:
+        from repro_torch.obs.metrics import Histogram
+        h = Histogram("ttft")
+        for rec in records:
+            if math.isfinite(rec.finish):
+                h.observe(rec.finish - rec.arrival)
+        monitor.check_slo(h, slo)
+    sm = monitor.summary()
+    burn = f" | burn {sm['burn_rate']:.2f}x" if sm["burn_rate"] is not None else ""
+    print(f"[health] alerts {sm['alerts_total']} {sm['by_kind']}{burn}")
+
+
+def run_fleet(opts: ServeOptions) -> int:
+    """N cells behind the fleet router (mirrors the reference's
+    ``_run_fleet``): one shared arrival stream, each cell's engine and
+    executor built from its own options (``--fleet-spec`` overrides, or
+    ``--cells N`` copies; weights from each cell's seed), roll-up metrics
+    and ONE merged trace with per-cell process rows. Cells are driven only
+    through the ``CellHandle`` protocol. The torch cells share the one
+    device and their waves run one after another."""
+    from repro_torch.fleet import FleetFabric, FleetRouter
+    router_policy, cell_opts = resolve_fleet(opts)
+    if any(co.scheduler != "continuous" for co in cell_opts):
+        print("note: fleet cells require --scheduler continuous; overriding")
+        cell_opts = [co.override(scheduler="continuous") for co in cell_opts]
+    cells, vocab = {}, 0
+    for i, co in enumerate(cell_opts):
+        cfg, eng, _ = build(co)
+        cells[f"cell{i}"] = eng
+        vocab = cfg.vocab_size
+    if opts.executor == "torch" and len(cells) > 1:
+        print(f"note: {len(cells)} cells share one {devices.resolve(opts.device)} "
+              f"device (replicated-cell mode, serialized execution)")
+    fab = FleetFabric(cells, FleetRouter(router_policy))
+    monitor = None
+    if opts.health:
+        from repro_torch.obs.health import HealthMonitor
+        monitor = HealthMonitor()
+        fab.configure_obs(health=monitor)
+    if opts.trace_out:
+        fab.configure_obs(telemetry=True)
+    t0 = time.perf_counter()
+    for req in make_requests(opts.requests, opts.seq, vocab, opts.seed,
+                             arrival_rate=opts.arrival_rate,
+                             tokens=opts.executor == "torch",
+                             shared_prefix=opts.shared_prefix):
+        fab.submit(req)
+    fab.pump()
+    wall = time.perf_counter() - t0
+
+    m = fab.metrics()
+    slo_txt = f" | SLO {m['slo_met']}/{m['slo_total']}" if m["slo_total"] else ""
+    hw = sorted({co.calibrated_profile or co.profile for co in cell_opts})
+    print(f"[fleet {router_policy} x{m['cells']}] completed {m['completed']} "
+          f"(rejected {m['rejected']}) in {wall:.2f} s wall | analytic "
+          f"({', '.join(hw)}): makespan {m['makespan']:.3f} s, avg TTFT "
+          f"{m['avg_ttft']:.3f} s, p99 {m['p99_ttft']:.3f} s, "
+          f"{m['throughput']:.3f} req/s{slo_txt}")
+    for name, pc in m["per_cell"].items():
+        print(f"  {name}: {pc['completed']} done (rejected {pc['rejected']}) | "
+              f"p99 {pc['p99_ttft']:.3f} s")
+    if opts.executor == "torch":
+        for r in sorted(fab.completed, key=lambda r: r.rid):
+            print(f"request {r.rid}: cell {fab.placements[r.rid]}, argmax "
+                  f"{int(np.argmax(r.result))}")
+    if monitor is not None:
+        slo = opts.slo_ms / 1e3 if opts.slo_ms else None
+        report_health(monitor, [rec for c in cells.values() for rec in c.records()], slo)
+    if opts.trace_out or opts.metrics_out:
+        paths = fab.export_obs(trace_out=opts.trace_out, metrics_out=opts.metrics_out)
+        for kind, path in paths.items():
+            print(f"{kind} -> {path}")
+    return 0
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
+    if args.cells > 1 or args.fleet_spec:
+        return run_fleet(args)
     if args.scheduler == "batch" and args.arrival_rate > 0:
         # the batch engine admits everything at clock 0, so staggered
         # arrivals would give negative latencies there
         print("note: --arrival-rate requires --scheduler continuous; running "
               "the batch engine as a closed loop (arrivals at t=0)")
-        args.arrival_rate = 0.0
+        args = args.override(arrival_rate=0.0)
     if args.prefix_cache == "on" and args.scheduler != "continuous":
         print("note: --prefix-cache on needs --scheduler continuous; the batch "
               "engine serves without it")
@@ -376,7 +427,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     else:
         eng.run_until_drained()
     wall = time.perf_counter() - t0
-    finished = sorted(eng.poll(), key=lambda r: r.rid)
+    polled = eng.poll()                 # admission order
+    finished = sorted(polled, key=lambda r: r.rid)
     if args.calibrate and args.executor == "torch":
         calibrate(args, cfg, eng, ex)
     m = eng.metrics()
@@ -395,7 +447,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
               f"{m['p99_ttft']:.3f} s, avg queue {m['avg_queue_wait']:.3f} s, "
               f"{m['throughput']:.3f} req/s, bubble {m['bubble_frac'] * 100:.1f}%"
               f"{slo_txt}")
-        print("admission order: " + " ".join(str(r.rid) for r in eng.done))
+        print("admission order: " + " ".join(str(r.rid) for r in polled))
         if args.prefix_cache == "on":
             print(f"[prefix] {eng.prefix_stats()}")
             if args.executor == "torch":
@@ -408,16 +460,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
               f"{m['p99_e2e']:.3f} s | {m['throughput']:.3f} req/s | stages "
               f"{m['num_stages']}")
     if monitor is not None:
-        if args.scheduler == "continuous" and eng.slo is not None:
-            from repro_torch.obs.metrics import Histogram
-            h = Histogram("ttft")
-            for rec in eng.records():
-                if math.isfinite(rec.finish):
-                    h.observe(rec.finish - rec.arrival)
-            monitor.check_slo(h, eng.slo)
-        sm = monitor.summary()
-        burn = f" | burn {sm['burn_rate']:.2f}x" if sm["burn_rate"] is not None else ""
-        print(f"[health] alerts {sm['alerts_total']} {sm['by_kind']}{burn}")
+        continuous = args.scheduler == "continuous"
+        report_health(monitor, eng.records() if continuous else [],
+                      eng.slo if continuous else None)
     export_obs(args, eng, m, wall, monitor)
     if args.executor == "torch":
         print(f"[serve] {args.arch} device={ex.device} remote={args.remote_attn} "

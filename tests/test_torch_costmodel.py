@@ -37,6 +37,10 @@ PLAN_SAMPLE = [
     ("zamba2-7b", "tpu-v5e", 4096, 4, 8), ("zamba2-7b", "hgx-b200", 131072, 8, 16),
     ("mamba2-130m", "wsc-gr24", 131072, 4, 4), ("mamba2-130m", "hgx-b200", 4096, 16, 8),
     ("mamba2-130m", "tpu-v5e", 32768, 8, 16), ("qwen3-8b", "tpu-v5e", 32768, 16, 4),
+    # one sample of each of qwen3-14b and the paper's four models
+    ("qwen3-14b", "hgx-b200", 32768, 8, 8), ("llama3-70b", "wsc-gr24", 131072, 16, 16),
+    ("mistral-123b", "tpu-v5e", 32768, 16, 8), ("qwen3-235b", "hgx-b200", 65536, 16, 16),
+    ("llama3-405b", "wsc-gr24", 131072, 16, 8),
 ]
 
 

@@ -553,18 +553,53 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         ops.pool_attention(q, k[None], k[None], torch.ones(2))      # 2 valid, 1 slot
 
 
-@pytest.mark.parametrize("h,kvh,d", [(4, 2, 64), (4, 2, 80), (6, 2, 16), (24, 8, 64)],
-                         ids=["d64", "d80", "g3", "d64_g3"])
-def test_k5_refuses_head_dims_and_groups_of_k1_to_k3_alone(h, kvh, d):
+@pytest.mark.parametrize("h,kvh,d,refused",
+                         [(4, 2, 64, True), (4, 2, 80, True), (6, 2, 16, True),
+                          (24, 8, 64, True), (10, 2, 16, False)],
+                         ids=["d64", "d80", "g3", "d64_g3", "g5_taken"])
+def test_k5_refuses_head_dims_and_groups_of_k1_to_k3_alone(h, kvh, d, refused):
     """K1-K3 take head dims 64 and 80 and G = 3; K5 does not, and says so
     with its own message on the CPU already (never reaching the CUDA side's
-    cudaErrorInvalidValue), while K1 takes the same q / k / v."""
+    cudaErrorInvalidValue), while K1 takes the same q / k / v. G 5 at D 16
+    (the smoke qwen3-14b's grouping; qwen3-14b's at D 128) K5 takes."""
     q = torch.zeros(2, h, d)
     k = torch.zeros(2, 8, kvh, d)
-    with pytest.raises(ValueError, match="K5 decode attention"):
-        ops.decode_attention(q, k, k, torch.tensor([3, 8], dtype=torch.int32))
+    kv_len = torch.tensor([3, 8], dtype=torch.int32)
+    if refused:
+        with pytest.raises(ValueError, match="K5 decode attention"):
+            ops.decode_attention(q, k, k, kv_len)
+    else:
+        assert ops.decode_attention(q, k, k, kv_len).shape == (2, h, d)
     out = ops.chunk_attention(q[:, None], k, k, causal_offset=7)
     assert out.shape == (2, 1, h, d)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g,d", [(5, 128), (12, 128), (16, 128), (5, 16)],
+                         ids=["g5", "g12", "g16", "g5_d16"])
+def test_k5_plain_matches_pallas_at_the_new_groups(g, d, dtype):
+    """K5's plain version (what ``ops.decode_attention`` takes on the CPU)
+    against the reference Pallas flash-decode in interpret mode at GQA
+    groups 5, 12 and 16 (qwen3-14b; mistral-123b; qwen3-235b and
+    llama3-405b), 2 kv heads, ragged lengths with the tail past each
+    length set to 1e4: 2e-5 in fp32, 3e-2 in bf16 (the tolerances of
+    ``tests/test_kernels.py::test_decode_attention``)."""
+    b, kvh, s = 3, 2, 192
+    rng = np.random.default_rng(g)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((b, g * kvh, d), (b, s, kvh, d), (b, s, kvh, d)))
+    kv_len = np.array([1, 77, s], dtype=np.int32)
+    for i, n in enumerate(kv_len):
+        k[i, n:], v[i, n:] = 1e4, -1e4
+    tdt, jdt = ((torch.float32, jnp.float32) if dtype == "float32"
+                else (torch.bfloat16, jnp.bfloat16))
+    got = ops.decode_attention(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+                               torch.from_numpy(kv_len))
+    want = ref_ops.decode_attention(*(jnp.asarray(x, jdt) for x in (q, k, v)),
+                                    jnp.asarray(kv_len))
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
 
 
 # ------------------------------------------------------ traversal orders
