@@ -24,8 +24,10 @@ prints no result line):
      stablelm-3b's (80, MHA) in bf16 and fp32 with the same pages, and at
      the GQA groups of qwen3-14b (40 / 8 heads of 128, G 5), llama3-70b
      (64 / 8, G 8), mistral-123b (96 / 8, G 12) and qwen3-235b (64 / 4, G
-     16) in bf16 with the same pages (at G 16 also the two planted K2
-     faults on the tensor-core body, which must break the check; at
+     16), llava-next-34b (56 / 8, G 7) and whisper-small's decoder (12 /
+     12 heads of 64, in bf16 and fp32) in bf16 with the same pages (at G
+     7 and G 16 also the two planted K2 faults on the tensor-core body,
+     which must break the check; at
      d 80 also three planted faults in the tensor-core body, compiled from
      edited copies of the sources: two in the columns 64-79 of the padded
      box, which must break the check, and garbage in its pad, reported);
@@ -46,6 +48,16 @@ prints no result line):
      heads, bf16, held against the plain version on 2 rows, each query row
      at its own scale, which two planted K1 faults must break, and timed
      beside SDPA's causal time (``k1_gpipe_shape``);
+   - K1 non-causal (``ops.full_attention``) at whisper-small's shapes,
+     bf16 and fp32: the decoder's cross-attention (16 rows x 56 queries
+     against 1500 encoder frames) and the encoder (2 rows x 1500 x 1500),
+     neither a multiple of K1's tiles, with three planted faults that
+     must break the check (the last drops the 28 keys past the last whole
+     tile), timed beside
+     SDPA's non-causal call (``k1_whisper_shapes``); and K1-K3 at the
+     shapes whisper-small's pipeline launches them (C = 56, pages of 56
+     tokens: K3's CUDA-core body), held and timed
+     (``whisper_pipeline_shapes``);
    - K4 the Mamba2 SSD scan at zamba2-7b's and mamba2-130m's shapes in
      bf16 and fp32, with a non-zero init_state, one a_log / d_skip row per
      stage (Gs = 8), x, b and c dense and as strided views of one
@@ -53,13 +65,16 @@ prints no result line):
      case with G < H SSM groups; the bf16 time also in windows and from a
      torch.profiler trace, which must show the tensor-core body;
    - K5 flash-decode at qwen3-8b's (GQA, head dim 128) and zamba2-7b's (MHA,
-     head dim 112) decode shapes and at G 5, 12 and 16 (qwen3-14b's,
-     mistral-123b's and qwen3-235b's heads), 8 rows over a 32768-token
-     cache, bf16 and fp32, timed with every row at full length (also in
-     windows and from a torch.profiler trace) and held at ragged lengths
-     (0, 1, ..., S) and at lengths 100x apart, with the tail past each
-     length poisoned; at G 5, 12 and 16 the two planted K5 faults must
-     break the check;
+     head dim 112) decode shapes, at G 5, 7, 12 and 16 (qwen3-14b's,
+     llava-next-34b's, mistral-123b's and qwen3-235b's heads) and at head
+     dims 64 (granite-3-2b G 4, granite-moe-3b-a800m G 3, whisper-small
+     G 1) and 80 (stablelm-3b, G 1), 8 rows over a 32768-token cache, and
+     at whisper-small's cross-attention (8 rows over its 1500 frames),
+     bf16 and fp32, timed with every row at full length (also in windows
+     and from a torch.profiler trace) and held at ragged lengths (0, 1,
+     ..., S) and at lengths 100x apart, with the tail past each length
+     poisoned; at every shape past qwen3-8b's and zamba2-7b's the two
+     planted K5 faults must break the check;
 4. smoke parity: the small qwen3-8b, zamba2-7b, mamba2-130m, granite-3-2b,
    stablelm-3b, qwen2-moe-a2.7b and granite-moe-3b-a800m configs in fp32
    through the kernel backends on the card against the same pipeline on
@@ -101,20 +116,36 @@ prints no result line):
    attention; the bf16 spread and the router choices that differ are
    reported); in fp32 every request's argmax must equal the ``torch``
    backends' (see ``serve_model``);
-6. decode: each model at full width and depth through ``Model.forward(
+6. frontends: llava-next-34b (full width cut to 8 layers; 2880 patch
+   embeddings then 1216 tokens, S = 4096, N = M = 8, C = 512: chunk 5
+   straddles the front) and whisper-small (full width and depth: 1500
+   frames into the encoder, 448 decoder tokens as N = M = 8 chunks of 56)
+   through ``prefill_pipeline(embeds=)`` under qship/cuda and fetch/paged,
+   2 rows: the launch counts read around the bf16 main path, logits
+   against the witness, every K1-K3 launch held against its plain version
+   with planted K2 faults (and, whisper-small, planted non-causal K1
+   faults) that must break it, a timed wave through
+   ``measure_prefill(embeds=)``; whisper-small's fp32 argmaxes against the
+   ``torch`` backends (see ``frontend_model``);
+7. decode: each model at full width and depth through ``Model.forward(
    return_cache=True)`` on a 512-token prompt, the KV axis padded by 8, and
    8 ``Model.decode_step``s (the decode path's K5 launches counted, exactly
    36 a step for qwen3-8b, 13 for zamba2-7b, 0 for mamba2-130m, 40 for
-   qwen3-14b, whose fp32 bridge takes 8 layers, ``fp32_layers``): fp32 logits
-   against ``forward`` on the longer sequence, bf16 logits against bf16
-   ``forward`` and against the same decode with K5's plain version; two
-   planted K5 faults must break the fp32 limit and a per-launch check of K5
-   against its plain version. Then
+   qwen3-14b, whose fp32 bridge takes 8 layers, ``fp32_layers``; and the
+   K5 shapes held per launch at 8 layers, 8 a step: granite-3-2b,
+   granite-moe-3b-a800m, stablelm-3b and llava-next-34b after its 2880
+   patch embeddings; whisper-small at full depth after its 1500 frames on
+   a 440-token prompt, 24 a step, 12 of them its cross-attention): fp32
+   logits against ``forward`` on the longer sequence, bf16 logits against
+   bf16 ``forward`` and against the same decode with K5's plain version;
+   two planted K5 faults must break the fp32 limit and a per-launch check
+   of K5 against its plain version (every model's bf16 launches held per
+   launch too). Then
    long-context decode in bf16 (qwen3-8b, zamba2-7b): 4 rows at ragged
    positions in a 32768-token cache, 16 steps with K5, with its plain
    version, and with every K5 launch held against the plain version, which
    both planted faults must break by 10x (see ``decode_phase``);
-7. baselines + continuous: qwen3-8b at full width and depth in bf16, the
+8. baselines + continuous: qwen3-8b at full width and depth in bf16, the
    same 8 requests through MOCAP and terapipe (``PrefillEngine``), the GPipe
    baseline (``build_plan(mode="gpipe")``, M = 8, through
    ``prefill_pipeline``; K1 exactly layers_per_stage x (M + N - 1) times)
@@ -123,7 +154,7 @@ prints no result line):
    top-2 margin is above the measured bf16 spread), planted K1 faults, the waves in
    admission order, the four paths' wall times; then GPipe in fp32 against
    the ``torch`` backends (see ``baselines_phase``);
-8. prefix: cross-request prefix KV reuse on qwen3-8b at full width and
+9. prefix: cross-request prefix KV reuse on qwen3-8b at full width and
    depth in bf16 (k = 6 shared chunks of 512): ``prefill_pipeline`` seeded
    from a ``return_kv`` pool with garbage in the hit region, bit-identical
    to the unseeded run under qship/cuda, fetch/paged and int8 pages (K1-K3
@@ -132,7 +163,7 @@ prints no result line):
    ``TorchExecutor`` with the prefix cache off and on (logits bit-identical,
    every wave after the first seeded); a ``HostOffloadStager`` round trip
    (see ``prefix_phase``);
-9. obs: the device half of observability on qwen3-8b at full width and
+10. obs: the device half of observability on qwen3-8b at full width and
    depth in bf16, qship/``cuda``: stage telemetry on against off
    (bit-identical logits, equal launches and profiler device activities,
    occupancy and wire bytes against their closed forms), each stage's
@@ -142,7 +173,7 @@ prints no result line):
    calibration of the cost model from ``hgx-b200`` to the measured spans,
    and the serve CLI once with ``--trace-out --metrics-out --health
    --calibrate`` (see ``obs_phase``);
-10. fleet: two qwen3-8b cells (bf16, full depth; cell1 on int8 pages)
+11. fleet: two qwen3-8b cells (bf16, full depth; cell1 on int8 pages)
     behind the jsf router through the serve CLI, EDF, an SLO, Poisson
     arrivals, 8 requests: each completed once, both cells used, each
     argmax equal to a single cell's on the same pages and seed, an
@@ -165,6 +196,7 @@ import sys
 import time
 import warnings
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -877,14 +909,31 @@ def ssd_phase(results: dict) -> None:
     results["ssd"]["max_abs_err"] = err
 
 
-# (heads H, kv heads, head dim) of each decode shape; the main one first
 # K5's decode shapes: arch -> (H, KVH, D, the key its times go under; None:
-# the kernel's main row); the GQA groups 5, 12 and 16 also with the planted
-# K5 faults (``decode_faults``)
+# the kernel's main row); every shape past qwen3-8b's and zamba2-7b's also
+# with the planted K5 faults (``decode_faults``); whisper-small's cross-
+# attention at its own cache length (DECODE_CROSS_S frames), every other
+# shape over DECODE_KERNEL_S keys
 DECODE_SHAPES = {"qwen3-8b": (32, 8, 128, None), "zamba2-7b": (32, 32, 112, "d112"),
                  "qwen3-14b": (40, 8, 128, "g5"), "mistral-123b": (96, 8, 128, "g12"),
-                 "qwen3-235b": (64, 4, 128, "g16")}
+                 "qwen3-235b": (64, 4, 128, "g16"), "llava-next-34b": (56, 8, 128, "g7"),
+                 "granite-3-2b": (32, 8, 64, "d64_g4"),
+                 "granite-moe-3b-a800m": (24, 8, 64, "d64_g3"),
+                 "stablelm-3b": (32, 32, 80, "d80"), "whisper-small": (12, 12, 64, "d64_g1"),
+                 "whisper-small cross": (12, 12, 64, "d64_cross")}
 DECODE_KERNEL_BATCH, DECODE_KERNEL_S = 8, 32768   # decode_32k, batch 128 cut to 8
+DECODE_CROSS_S = 1500                              # whisper-small's encoder frames
+# K5's held lengths for each cache length: (ragged 0 .. S, ~S/100 and ~S).
+# Most lie off a 64-key boundary, so that a partial last tile meets the
+# device-side split; at whisper-small's 1500 frames every length past 0
+# does (1500 % 64 = 28)
+DECODE_LENGTHS = {DECODE_KERNEL_S: ((0, 1, 77, 4099, 12345, 20001, DECODE_KERNEL_S - 1,
+                                     DECODE_KERNEL_S),
+                                    (300, 30000, 327, DECODE_KERNEL_S, 310, 31000, 299,
+                                     32000)),
+                  DECODE_CROSS_S: ((0, 1, 77, 190, 619, 950, DECODE_CROSS_S - 1,
+                                    DECODE_CROSS_S),
+                                   (15, 1371, 42, DECODE_CROSS_S, 25, 1437, 14, 1469))}
 
 
 def sdpa_decode(q, k, v, kv_len):
@@ -933,20 +982,22 @@ def decode_kernel_phase(results: dict) -> None:
     ~32k, which the device-side split must balance), each output at its own
     max|ref| (``compare``), the empty row exactly zero. The bf16 time is
     also read in windows of back-to-back calls and from a torch.profiler
-    trace. At the GQA groups 5, 12 and 16 each planted K5 fault
-    (``decode_faults``) on the ragged lengths must break that limit."""
+    trace. At every shape past qwen3-8b's and zamba2-7b's each planted K5
+    fault (``decode_faults``) on the ragged lengths must break that limit.
+    whisper-small's cross-attention shape runs over DECODE_CROSS_S keys
+    (every frame valid on its path; its ragged and 100x-apart lengths in
+    DECODE_LENGTHS)."""
     import torch
     from repro_torch.kernels import ops, ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
-    b, s = DECODE_KERNEL_BATCH, DECODE_KERNEL_S
-    ragged = torch.tensor([0, 1, 77, 4099, 12345, 20001, s - 1, s], dtype=torch.int32,
-                          device=dev)
-    spread = torch.tensor([300, 30000, 327, s, 310, 31000, 299, 32000], dtype=torch.int32,
-                          device=dev)
+    b = DECODE_KERNEL_BATCH
     err = 0.0
     for arch, (h, kvh, d, key) in DECODE_SHAPES.items():
+        s = DECODE_CROSS_S if key == "d64_cross" else DECODE_KERNEL_S
+        ragged, spread = (torch.tensor(x, dtype=torch.int32, device=dev)
+                          for x in DECODE_LENGTHS[s])
         for name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
             log(f"[kernels] K5 decode_attention {arch} {name}  q [{b},{h},{d}], "
                 f"k/v [{b},{s},{kvh},{d}]")
@@ -997,7 +1048,7 @@ def decode_kernel_phase(results: dict) -> None:
                           f"K5 {arch} {name}: the kv_len = 0 row is not zero")
                 err = max(err, compare(f"decode {arch} {name} {what}, tail poisoned",
                                        (got,), (want,), name, ("out",)))
-                if what == "ragged" and key is not None and key.startswith("g"):
+                if what == "ragged" and key not in (None, "d112"):
                     for fault, fn in decode_faults(ops.decode_attention).items():
                         ratio = fault_ratio((fn(q, k, v, lens),), (want,), name)
                         log(f"  planted fault: {fault}: worst {ratio:.3e} of the tolerance")
@@ -1086,17 +1137,154 @@ def k1_gpipe_shape(results: dict) -> None:
 
 # K1-K3 at the attention shapes of the models served here past qwen3-8b
 # and zamba2-7b: the key their times go under -> (H, KVH, D, also fp32 q);
-# the GQA groups 5, 8, 12 and 16 in bf16 only (their int8 and fp8 pages
-# too, as at every shape), the planted K2 faults at G 16
+# the GQA groups 5, 7, 8, 12 and 16 in bf16 only (their int8 and fp8 pages
+# too, as at every shape), the planted K2 faults at the new groups G 7 and
+# G 16
 ATTN_SHAPES = {"d64": (32, 8, 64, True),        # granite-3-2b (G 4)
                "d64_g3": (24, 8, 64, True),     # granite-moe-3b-a800m (G 3)
+               "d64_g1": (12, 12, 64, True),    # whisper-small's decoder (MHA)
                "d80": (32, 32, 80, True),       # stablelm-3b (MHA; the padded box)
                "d128_mha": (16, 16, 128, False),   # qwen2-moe-a2.7b (MHA, bf16 only)
                "g5": (40, 8, 128, False),       # qwen3-14b
+               "g7": (56, 8, 128, False),       # llava-next-34b
                "g8": (64, 8, 128, False),       # llama3-70b
                "g12": (96, 8, 128, False),      # mistral-123b
                "g16": (64, 4, 128, False)}      # qwen3-235b (llama3-405b: 128 / 8)
-K2_FAULT_SHAPE = "g16"
+K2_FAULT_SHAPES = ("g7", "g16")
+# whisper-small's non-causal K1 shapes (12 heads of 64, MHA): the decoder's
+# cross-attention, a chunk of WHISPER_C queries of N_STAGES x BATCH rows
+# against the F = DECODE_CROSS_S encoder frames, and the encoder, F queries
+# of BATCH rows against themselves; neither count is a multiple of K1's
+# 64-row / 64-key tiles
+WHISPER_C = 56
+
+
+def k1_whisper_shapes(results: dict) -> None:
+    """K1 non-causal (``ops.full_attention``) at whisper-small's cross and
+    encoder shapes, bf16 and fp32, against the plain version (``compare``),
+    with a partial last query tile and a partial last key tile; in bf16 each
+    planted fault of ``full_attention_faults`` on the kernel must break that
+    limit, the one that drops the F % 64 = 28 keys past the last whole
+    tile among them.
+    Times (bf16): ``time_ms``, ``windowed_ms``, ``profiled_ms``, the plain
+    version's, SDPA's non-causal call; recorded under
+    ``results["chunk_attention"]["whisper_cross" / "whisper_encoder"]``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    h, d, f = 12, 64, DECODE_CROSS_S
+    k1 = results["chunk_attention"]
+    for name, rows, c in (("whisper_cross", N_STAGES * BATCH, WHISPER_C),
+                          ("whisper_encoder", BATCH, f)):
+        for dname, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            log(f"[kernels] K1 full_attention at {name}  q [{rows},{c},{h},{d}], "
+                f"k/v [{rows},{f},{h},{d}] {dname}, non-causal")
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                       for shape in ((rows, c, h, d), (rows, f, h, d), (rows, f, h, d)))
+            got = ops.full_attention(q, k, v)
+            want = ref.chunk_attention_plain(q, k, v, causal_offset=f)[0]
+            k1["max_abs_err"] = max(k1.get("max_abs_err", 0.0),
+                                    compare(f"{name} {dname}", (got,), (want,), dname,
+                                            ("out",)))
+            if dname == "float32":
+                continue
+            for fault, fn in full_attention_faults(ops.chunk_attention).items():
+                ratio = fault_ratio((fn(q, k, v, causal_offset=f),), (want,), dname)
+                log(f"  planted fault on the kernel: {fault}: worst {ratio:.3e} of the "
+                    f"tolerance")
+                check(ratio > 1.0, f"K1 at {name}: planted fault '{fault}' passes ({ratio})")
+                k1.setdefault("planted", {})[f"{name}: {fault}"] = ratio
+            call = lambda: ops.full_attention(q, k, v)
+            ms, win_ms = time_ms(call), windowed_ms(call)
+            prof_ms, seen = profiled_ms(call, "ChunkWalk")
+            plain = time_ms(lambda: ref.chunk_attention_plain(q, k, v, causal_offset=f),
+                            **PLAIN_TIMING)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            b_ms, by = bound_ms(nbytes(q, k, v, got), 4.0 * d * rows * h * c * f, dname)
+            k1[name] = dict(heads=h, kv_heads=h, head_dim=d, rows=rows, queries=c, keys=f,
+                            ms=ms, windowed_ms=win_ms, profiler_ms=prof_ms, plain_ms=plain,
+                            library_ms=lib, bound_ms=b_ms, bound_by=by)
+            log(f"  torch.profiler: attn_tc_kernel<ChunkWalk> {seen} launches, "
+                + (f"{prof_ms:.4f} ms device time each" if seen else "no device time seen"))
+            log(f"  time: kernel {ms:.4f} ms ({win_ms:.4f} ms a call in windows), plain "
+                f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({by})")
+            del qt, kt, vt
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+
+
+def whisper_pipeline_shapes(results: dict) -> None:
+    """K1-K3 at the shapes whisper-small's pipeline launches them, bf16:
+    N_STAGES x BATCH rows of WHISPER_C = 56 queries, 12 heads of 64. K1's
+    causal self block and K2 over a stack of 6 stored chunks of 56 keys
+    run the tensor-core body; K3 off pages of 56 tokens (one a chunk) runs
+    the CUDA-core body (``paged_tc_fits`` wants pages that fill 64-key
+    tiles). Each is held against its plain version (``compare``) and timed
+    as ``attention_phase`` times its kernel (SDPA's causal call beside
+    K1); recorded under ``results[kernel]["whisper_pipe"]``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    h, d, gb, c, slots = 12, 64, N_STAGES * BATCH, WHISPER_C, 6
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    valid = torch.zeros((N_STAGES, slots), dtype=torch.bool, device=dev)
+    for s in range(N_STAGES):           # stage s at phase s: min(s, 6) slots
+        valid[s, :min(s, slots)] = True
+    n_valid = int(valid.sum().item())
+    q, k, v = randn(gb, c, h, d), randn(gb, c, h, d), randn(gb, c, h, d)
+    k_st, v_st = randn(slots, gb, c, h, d), randn(slots, gb, c, h, d)
+    k_pg, v_pg = (randn(N_STAGES, slots + 1, BATCH, c, h, d) for _ in range(2))
+    handles = torch.arange(slots, dtype=torch.int32, device=dev)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    pool_read = 2.0 * n_valid * BATCH * c * h * d * 2
+    pool_ops = 4.0 * d * n_valid * BATCH * h * c * c
+    cases = (("chunk_attention", "ChunkWalk", "tensor-core",
+              lambda: ops.chunk_attention(q, k, v, return_state=True),
+              lambda: ref.chunk_attention_plain(q, k, v),
+              lambda got: nbytes(q, k, v, *got), 4.0 * d * gb * h * c * (c + 1) / 2,
+              lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
+             ("pool_attention", "StackWalk", "tensor-core",
+              lambda: ops.pool_attention(q, k_st, v_st, valid),
+              lambda: ref.pool_attention_plain(q, k_st, v_st, valid),
+              lambda got: nbytes(q, valid, *got) + pool_read, pool_ops, None),
+             ("pool_attention_paged", "paged_attn_kernel", "CUDA-core",
+              lambda: ops.pool_attention_paged(q, k_pg, v_pg, handles, valid, ppc=1),
+              lambda: ref.pool_attention_paged_plain(q, k_pg, v_pg, handles, valid, ppc=1),
+              lambda got: nbytes(q, valid, handles, *got) + pool_read, pool_ops, None))
+    for kernel, tag, body, call, plain_call, bytes_of, ops_n, lib_call in cases:
+        log(f"[kernels] {kernel} at whisper-small's pipeline shape: q [{gb},{c},{h},{d}], "
+            f"{body} body")
+        got = call()
+        res = results[kernel]
+        res["max_abs_err"] = max(res.get("max_abs_err", 0.0), compare(
+            f"{kernel} whisper pipeline bfloat16", got, plain_call(), "bfloat16"))
+        ms, win_ms = time_ms(call), windowed_ms(call)
+        prof_ms, seen = profiled_ms(call, tag)
+        plain = time_ms(plain_call, **PLAIN_TIMING)
+        lib = time_ms(lib_call) if lib_call else None
+        b_ms, by = bound_ms(bytes_of(got), ops_n, "bfloat16")
+        res["whisper_pipe"] = dict(heads=h, kv_heads=h, head_dim=d, rows=gb, queries=c,
+                                   page_tokens=c, body=body, ms=ms, windowed_ms=win_ms,
+                                   profiler_ms=prof_ms, plain_ms=plain, library_ms=lib,
+                                   bound_ms=b_ms, bound_by=by)
+        log(f"  torch.profiler: {tag} {seen} launches, "
+            + (f"{prof_ms:.4f} ms device time each" if seen else "no device time seen"))
+        log(f"  time: kernel {ms:.4f} ms ({win_ms:.4f} ms a call in windows), plain "
+            f"{plain:.4f} ms, "
+            + (f"sdpa {lib:.4f} ms, " if lib is not None else "")
+            + f"bound {b_ms:.4f} ms ({by})")
+    del q, k, v, k_st, v_st, k_pg, v_pg, qt, kt, vt
+    torch.cuda.empty_cache()
 
 
 def kernel_phase(results: dict) -> None:
@@ -1106,8 +1294,10 @@ def kernel_phase(results: dict) -> None:
     for key, (h, kvh, d, fp32) in ATTN_SHAPES.items():
         t0 = time.perf_counter()
         attention_phase(results, h=h, kvh=kvh, d=d, key=key, fp32=fp32,
-                        k2_faults=key == K2_FAULT_SHAPE)
+                        k2_faults=key in K2_FAULT_SHAPES)
         log(f"[kernels] K1-K3 at {key} (H {h}, KVH {kvh}): {time.perf_counter() - t0:.1f} s")
+    k1_whisper_shapes(results)
+    whisper_pipeline_shapes(results)
     ssd_phase(results)
     decode_kernel_phase(results)
 
@@ -1265,13 +1455,14 @@ BF16_LOGIT_TOL = {"qwen3-8b": 0.1, "zamba2-7b": 0.1, "mamba2-130m": 0.1,
                   "qwen2-moe-a2.7b": None, "granite-moe-3b-a800m": 0.1,
                   "qwen3-14b": 0.1, "llama3-70b": 0.1, "mistral-123b": 0.1,
                   # 128 experts, top 8: router flips as in qwen2-moe-a2.7b
-                  "qwen3-235b": None, "llama3-405b": 0.1}
+                  "qwen3-235b": None, "llama3-405b": 0.1,
+                  "llava-next-34b": 0.1, "whisper-small": 0.1}
 BF16_POOL_PAIR_TOL = 1e-3
 FP32_LOGIT_TOL = {"qwen3-8b": 1e-3, "zamba2-7b": 1e-3, "mamba2-130m": 1e-4,
                   # granite-3-2b's logits move ~5e-4 of max|logit| when K2
                   # drops a slot (its summation-order spread: ~3e-7)
                   "granite-3-2b": 1e-5, "stablelm-3b": 1e-3, "qwen2-moe-a2.7b": 1e-3,
-                  "granite-moe-3b-a800m": 1e-3, "qwen3-14b": 1e-3}
+                  "granite-moe-3b-a800m": 1e-3, "qwen3-14b": 1e-3, "whisper-small": 1e-3}
 
 
 def depth(cfg, layers):
@@ -1432,14 +1623,15 @@ def plain_of(kind: str):
     return ssd
 
 
-def shadowed(fn, kind: str, worst: list):
+def shadowed(fn, kind: str, worst: list, by: Optional[dict] = None, label=None):
     """``fn`` (the wrapper ``ops.<kind>``: K1-K5, or a planted fault) in
     its place on a model path, every call also held against the plain
     version on the same inputs: ``worst[0]`` keeps the largest error of any
     output as a multiple of its tolerance (``fault_ratio``: 2e-2 of
     max|ref| for a bf16 output, 1e-3 for an fp32 one of bf16 inputs, 1e-4
     for fp32 inputs; entries holding the empty-row sentinel m = -1e30 must
-    match it and stay out of max|ref|)."""
+    match it and stay out of max|ref|); ``by[label(*args, **kw)]`` the
+    largest of each kind of call that ``label`` names."""
     import torch
     plain = plain_of(kind)
 
@@ -1448,7 +1640,11 @@ def shadowed(fn, kind: str, worst: list):
         want = plain(*args, **kw)
         in_dtype = "float32" if args[0].dtype == torch.float32 else "bfloat16"
         pair = (got, want) if isinstance(got, tuple) else ((got,), (want,))
-        worst[0] = max(worst[0], fault_ratio(*pair, in_dtype))
+        ratio = fault_ratio(*pair, in_dtype)
+        worst[0] = max(worst[0], ratio)
+        if by is not None:
+            name = label(*args, **kw)
+            by[name] = max(by.get(name, 0.0), ratio)
         return got
     return call
 
@@ -1851,6 +2047,186 @@ def serve_phase(results: dict) -> None:
         log(f"[serve] {arch} {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------- frontends
+
+# the two families fed from outside the token stream, through
+# ``prefill_pipeline(embeds=)`` (``TorchExecutor`` passes no embeddings, as
+# the reference's executor): arch -> ``layers`` (None: full depth), the
+# pipeline (N, M, C), fp32 runs or not. llava-next-34b: 8 layers at full
+# width (60 are ~67 GB of bf16), S = 4096 = its 2880 patch embeddings then
+# 1216 tokens, so chunk 5 (positions 2560-3071) straddles the front.
+# whisper-small: full width and depth, 1500 frames into the encoder, a
+# decoder prompt of 448 tokens (its published context) as 8 chunks of 56
+# (N 4, M 7, C 64 has p2 = M - 1: no chunk would read a remote one; at
+# N 8, M 8 chunk 7 reads chunk 6 at the pair)
+FRONTEND_MODELS = {"llava-next-34b": dict(layers=N_STAGES, pipe=(N_STAGES, N_CHUNKS, CHUNK),
+                                          fp32=False),
+                   "whisper-small": dict(layers=None, pipe=(N_STAGES, 8, WHISPER_C),
+                                         fp32=True)}
+FRONTEND_COMBOS = (("qship", "cuda", "cuda"), ("fetch", "cuda", "paged"))
+
+
+def frontend_model(arch: str, results: dict) -> None:
+    """One frontend model at full width (``FRONTEND_MODELS``' depth), B = 2
+    rows, random weights and seeded frontend embeddings (0.02 x a standard
+    normal), through ``prefill_pipeline(embeds=)``.
+
+    bf16, the model's main path: the launch counters are set to 0 just
+    before FRONTEND_COMBOS and read just after; K1, K2 and K3 must each
+    have launched. Each combination's logits are held against the
+    ``torch`` backends with p in fp32 (``p32_witness``) within
+    BF16_LOGIT_TOL of max|logit|. Then every K1, K2 and K3 launch of each
+    combination is held against its plain version on its own inputs
+    (``shadowed``; K1's calls told apart as the causal self block, the
+    decoder's cross-attention and the encoder), which the real kernels
+    must pass and each planted K2 fault (``planted_faults``) and, for
+    whisper-small, each planted non-causal K1 fault
+    (``full_attention_faults``) must break. One more qship/cuda wave runs
+    through ``obs.profile.measure_prefill(embeds=)``: its tick spans and
+    per-kernel times. fp32 (whisper-small): every combination's argmax
+    equal to the ``torch`` backends' and its logits within
+    FP32_LOGIT_TOL of max|logit|."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import RunConfig, get_config, replace
+    from repro_torch.core import attention
+    from repro_torch.core import pipeline as pp
+    from repro_torch.core.staging import init_staged
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import pad_vocab
+    from repro_torch.obs.profile import measure_prefill
+
+    spec = FRONTEND_MODELS[arch]
+    n, m, c = spec["pipe"]
+    seq = m * c
+    full = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    failures = []
+
+    def setup(dtype: str):
+        cfg = replace(depth(full, spec["layers"]), dtype=dtype)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        plan = pp.build_plan(cfg, n, seq, RunConfig(num_chunks=m, num_stages=n))
+        staged = init_staged(cfg, plan, gen, device="cuda")
+        f = cfg.frontend.num_embeds
+        front = (torch.randn((BATCH, f, cfg.d_model), generator=gen, device="cuda")
+                 * 0.02).to(staged["embed"].dtype)
+        n_tok = seq - (f if cfg.family == "vlm" else 0)
+        toks = torch.randint(0, cfg.vocab_size, (BATCH, n_tok), generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        log(f"[frontends] {arch} {dtype} d={cfg.d_model} layers={cfg.num_layers} of "
+            f"{full.num_layers} heads={cfg.num_heads}/{cfg.num_kv_heads} "
+            f"hd={cfg.resolved_head_dim} front {cfg.frontend.kind} x {f}, {n_tok} tokens, "
+            f"N={n} M={m} C={c} lps={plan.layers_per_stage} p2={plan.p2}: weights "
+            f"{time.perf_counter() - t0:.2f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        check(plan.p2 < m - 1, f"{arch}: the plan has no remote chunk to attend to")
+        return cfg, staged, front, toks
+
+    def plan_of(cfg, remote, attn, pool):
+        return pp.build_plan(cfg, n, seq, RunConfig(
+            num_chunks=m, num_stages=n, remote_attn=remote, attn_backend=attn,
+            pool_backend=pool))
+
+    def wave(cfg, staged, front, toks, remote, attn, pool):
+        t0 = time.perf_counter()
+        out = pp.prefill_pipeline(cfg, staged, toks, plan_of(cfg, remote, attn, pool),
+                                  device="cuda", embeds=front)
+        logits = out.float().cpu().numpy()
+        name = f"{arch} {cfg.dtype} {remote}/{attn}/{pool}"
+        check(logits.shape == (BATCH, pad_vocab(cfg.vocab_size)),
+              f"{name}: logits shape {logits.shape}")
+        check(bool(np.isfinite(logits).all()), f"{name}: non-finite logits")
+        log(f"  {name}: argmax {logits.argmax(-1).tolist()}, wall "
+            f"{time.perf_counter() - t0:.4f} s")
+        return logits
+
+    def err_of(got, want, what: str) -> float:
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        same = int((got.argmax(-1) == want.argmax(-1)).sum())
+        log(f"    vs {what}: max abs err {err:.3e} of max|logit|, argmax equal "
+            f"{same}/{len(want)}")
+        return err, same
+
+    def label(q, k, *_, causal_offset=0, **__):
+        if k.ndim != 4:                  # K2's slot stack, K3's page store
+            return "K2 / K3"
+        if causal_offset < k.shape[1]:
+            return "K1 self"
+        return "K1 encoder" if q.shape[1] == k.shape[1] else "K1 cross"
+
+    # ---- bf16, the main path
+    cfg, staged, front, toks = setup("bfloat16")
+    run = (cfg, staged, front, toks)
+    with swapped(attention, "_BACKENDS", dict(attention._BACKENDS, torch=p32_witness())):
+        witness = wave(*run, "qship", "torch", "torch")
+    ops.reset_launches()
+    bf16 = {combo: wave(*run, *combo) for combo in FRONTEND_COMBOS}
+    launches = dict(ops.LAUNCHES)
+    log(f"  launches on the {arch} main path: {launches}")
+    for name in ATTN_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the {arch} main path")
+        results[name].setdefault("launches_by_path", {})[arch] = launches[name]
+    for combo, logits in bf16.items():
+        log(f"  bf16 {'/'.join(combo)}")
+        err, _ = err_of(logits, witness, "witness")
+        if err > BF16_LOGIT_TOL[arch]:
+            failures.append(f"{arch} bf16 {'/'.join(combo)}: {err} of max|logit|")
+    _, prof = measure_prefill(cfg, staged, toks, plan_of(cfg, *FRONTEND_COMBOS[0]),
+                              device="cuda", embeds=front, warmup=0, timed_kernels=True)
+    log(f"  measure_prefill (qship/cuda): wave {prof.tick_s.max(0).sum():.4f} s of tick "
+        f"spans, kernel tags (s) { {k: round(v, 4) for k, v in prof.kernel_s.items()} }")
+    faults = [(f, "pool_attention", fn) for f, fn in
+              planted_faults("pool_attention", ops.pool_attention).items()]
+    if cfg.family == "encdec":
+        faults += [(f, "chunk_attention", fn) for f, fn in
+                   full_attention_faults(ops.chunk_attention).items()]
+    runs = [("none (the kernels themselves)", None, None, combo) for combo in FRONTEND_COMBOS]
+    runs += [(f, kind, fn, FRONTEND_COMBOS[0]) for f, kind, fn in faults]
+    for fault, kind, fn, combo in runs:
+        worst, by = [0.0], {}
+        with contextlib.ExitStack() as stack:
+            for k in ATTN_KERNELS:
+                real = fn if k == kind else getattr(ops, k)
+                stack.enter_context(swapped(ops, k, shadowed(real, k, worst, by, label)))
+            wave(*run, *combo)
+        log(f"  per launch, planted fault: {fault} ({'/'.join(combo)}): every K1-K3 launch "
+            f"vs its plain version: worst {worst[0]:.3e} of its tolerance "
+            f"{ {k: round(v, 4) for k, v in by.items()} }")
+        if (worst[0] > 1.0) != (kind is not None):
+            failures.append(f"{arch} bf16 per-launch check, planted fault '{fault}': "
+                            f"{worst[0]} of the tolerance")
+        if kind is not None:
+            results[kind].setdefault("planted", {})[f"{arch} per launch: {fault}"] = worst[0]
+    del staged, front, toks, run, witness, bf16
+    torch.cuda.empty_cache()
+
+    # ---- fp32: the argmax of every row, every combination
+    if spec["fp32"]:
+        cfg, staged, front, toks = setup("float32")
+        run = (cfg, staged, front, toks)
+        ref_logits = wave(*run, "qship", "torch", "torch")
+        for combo in FRONTEND_COMBOS:
+            log(f"  fp32 {'/'.join(combo)}")
+            err, same = err_of(wave(*run, *combo), ref_logits, "torch backends")
+            if same != BATCH or err >= FP32_LOGIT_TOL[arch]:
+                failures.append(f"{arch} fp32 {'/'.join(combo)}: argmax equal {same}, "
+                                f"logits err {err}")
+        del staged, front, toks, run
+        torch.cuda.empty_cache()
+    log(f"  {arch} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    check(not failures, "; ".join(failures))
+
+
+def frontend_phase(results: dict) -> None:
+    for arch in FRONTEND_MODELS:
+        t0 = time.perf_counter()
+        frontend_model(arch, results)
+        log(f"[frontends] {arch} {time.perf_counter() - t0:.1f} s")
+
+
 # ------------------------------------------------ baselines + continuous
 
 GP_ARRIVAL_RATE, GP_SLO_MS = 2.0, 4000.0
@@ -1868,6 +2244,29 @@ def k1_faults(real):
 
     return {"K1 lets every query see every key": sees_the_future,
             "K1 drops the last 64-key tile": last_tile_dropped}
+
+
+def full_attention_faults(real):
+    """Wrong versions of ``ops.chunk_attention`` (K1) in its non-causal
+    calls (``ops.full_attention``: a causal offset at or past the last key;
+    the other calls pass through): one that masks the keys causally from
+    offset 0, one that drops the last 64 keys, and one that drops the keys
+    past the last whole 64-key tile (28 of 1500)."""
+    def causal(q, k, v, *, causal_offset=0, **kw):
+        full = causal_offset >= k.shape[1]
+        return real(q, k, v, causal_offset=0 if full else causal_offset, **kw)
+
+    def dropping(n_of):
+        def fault(q, k, v, *, causal_offset=0, **kw):
+            if causal_offset >= k.shape[1]:
+                kw["kv_len"] = k.shape[1] - n_of(k.shape[1])
+            return real(q, k, v, causal_offset=causal_offset, **kw)
+        return fault
+
+    return {"K1 masks the non-causal attention causally": causal,
+            "K1 drops the last 64 keys of the non-causal attention": dropping(lambda t: 64),
+            "K1 drops the partial last key tile of the non-causal attention":
+                dropping(lambda t: t % 64 or 64)}
 
 
 def baselines_phase(results: dict) -> None:
@@ -2323,11 +2722,27 @@ def prefix_phase(results: dict) -> None:
 
 # one entry per model decoded: ``k5``, its K5 launches a bf16 decode step,
 # one per attention layer (qwen3-8b 36 layers, zamba2-7b 13 applications of
-# the shared block, mamba2-130m none, qwen3-14b 40 at GQA group 5); and,
-# as in SERVE_MODELS, ``fp32_layers`` where the fp32 bridge is cut
-# (``depth``: qwen3-14b's 40 fp32 layers are ~59 GB)
+# the shared block, mamba2-130m none, qwen3-14b 40 at GQA group 5,
+# whisper-small 12 self- and 12 cross-attentions); as in SERVE_MODELS,
+# ``fp32_layers`` where the fp32 bridge is cut (``depth``: qwen3-14b's 40
+# fp32 layers are ~59 GB) and ``layers`` where both are (the K5 shapes of
+# granite-3-2b (D 64, G 4), granite-moe-3b-a800m (D 64, G 3), stablelm-3b
+# (D 80, G 1) and llava-next-34b (D 128, G 7) are held per launch, which
+# depth does not change); ``front``: the prompt starts with the model's
+# stub frontend embeddings (llava-next-34b's 2880 patches in front of the
+# tokens, whisper-small's 1500 frames into its encoder); ``prompt``: the
+# prompt's tokens (whisper-small: its published 448-token context,
+# DEC_STEPS of it decoded); ``logit_faults`` False:
+# the planted K5 faults need break only the per-launch check in fp32
+# (granite-3-2b's logits hardly see attention, as in the serve phase: the
+# dropped key moves them ~1e-4 of max|logit|)
 DECODE_MODELS = {"qwen3-8b": dict(k5=36), "zamba2-7b": dict(k5=13),
-                 "mamba2-130m": dict(k5=0), "qwen3-14b": dict(k5=40, fp32_layers=N_STAGES)}
+                 "mamba2-130m": dict(k5=0), "qwen3-14b": dict(k5=40, fp32_layers=N_STAGES),
+                 "granite-3-2b": dict(k5=N_STAGES, layers=N_STAGES, logit_faults=False),
+                 "granite-moe-3b-a800m": dict(k5=N_STAGES, layers=N_STAGES),
+                 "stablelm-3b": dict(k5=N_STAGES, layers=N_STAGES),
+                 "llava-next-34b": dict(k5=N_STAGES, layers=N_STAGES, front=True),
+                 "whisper-small": dict(k5=24, front=True, prompt=448 - 8)}
 DEC_BATCH, DEC_PROMPT, DEC_PAD, DEC_STEPS = 2, 512, 8, 8
 # fractions of max|logit|: fp32 decode against forward on the longer
 # sequence (the fp32 serve limit); bf16 decode against bf16 forward on the
@@ -2724,12 +3139,20 @@ def decode_bridge(arch: str, dtype: str, results: dict) -> list:
     prompt and the fed tokens (this holds the bf16 Mamba2 decode) and, where
     the model has attention, against the same decode with
     ``ref.decode_attention_plain`` in K5's place.
+    Models with attention also run the bf16 decode with every K5 launch
+    held against its plain version (``shadowed``), within its
+    tolerance (the planted faults' ratios there reported).
     fp32: every step's logits against ``forward`` on the prompt and the fed
     tokens at that position, within DEC_FP32_TOL of max|logit|; then each
     planted K5 fault (``decode_faults``) must break that limit and, with
     every K5 launch held against its plain version on its own inputs
     (``shadowed``), the per-launch check by 10x or more, where the real
-    kernel stays within it. Returns the failures."""
+    kernel stays within it; for whisper-small each fault also breaks the
+    per-launch check of the cross-attention's launches (kv_len = F) alone.
+    ``front`` models decode after their frontend embeddings (seeded, 0.02 x
+    a standard normal). An MoE model's forward runs at a capacity that
+    drops no token (a decode step's dispatch drops none either), so that
+    the two see the same experts. Returns the failures."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config, replace
@@ -2737,34 +3160,56 @@ def decode_bridge(arch: str, dtype: str, results: dict) -> list:
     from repro_torch.models.api import build_model
 
     spec = DECODE_MODELS[arch]
-    layers = spec.get("fp32_layers") if dtype == "float32" else None
+    layers = spec.get("layers") or (spec.get("fp32_layers") if dtype == "float32" else None)
     cfg = replace(depth(get_config(arch), layers), dtype=dtype)
+    if cfg.moe is not None:     # every expert can take every token
+        import dataclasses
+        cfg = replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.real_experts / cfg.moe.top_k))
     model = build_model(cfg)
     per_step = spec["k5"]
+    prompt = spec.get("prompt", DEC_PROMPT)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
     if layers is not None:
         log(f"[decode] {arch} {dtype}: depth cut to {cfg.num_layers} layers, full width")
-    toks = torch.randint(0, cfg.vocab_size, (DEC_BATCH, DEC_PROMPT + DEC_STEPS),
+    toks = torch.randint(0, cfg.vocab_size, (DEC_BATCH, prompt + DEC_STEPS),
                          generator=gen, device="cuda")
-    _, prefill = model.forward(params, toks[:, :DEC_PROMPT], return_cache=True)
+    kw = {}
+    if spec.get("front"):
+        kw["embeds"] = (torch.randn((DEC_BATCH, cfg.frontend.num_embeds, cfg.d_model),
+                                    generator=gen, device="cuda") * 0.02).to(params["embed"].dtype)
+    _, prefill = model.forward(params, toks[:, :prompt], return_cache=True, **kw)
     if "k" in prefill:
         pad = (0, 0, 0, 0, 0, DEC_PAD)
         prefill = {**prefill, "k": F.pad(prefill["k"], pad), "v": F.pad(prefill["v"], pad)}
     torch.cuda.synchronize()
-    log(f"[decode] {arch} {dtype}: weights + {DEC_PROMPT}-token prefill "
-        f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    log(f"[decode] {arch} {dtype}: weights + {prompt}-token prefill"
+        + (f" after {cfg.frontend.num_embeds} frontend embeddings" if kw else "")
+        + f" {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
     def fresh():
         return {k: v.clone() for k, v in prefill.items()}
 
     def run(cache):
-        return decode_run(model, params, cache, toks[:, DEC_PROMPT:])
+        return decode_run(model, params, cache, toks[:, prompt:])
 
     failures = []
     name = f"{arch} {dtype} bridge"
-    want = model.forward(params, toks)[:, DEC_PROMPT:].transpose(0, 1)
+    want = model.forward(params, toks, **kw)[:, -DEC_STEPS:].transpose(0, 1)
+    cross = prefill.get("xk")      # whisper-small's cross K/V: its K5 launches' own kind
+    by_call = (lambda q, k, v, kv_len, **_: "cross" if cross is not None
+               and k.shape[1] == cross.shape[2] else "self")
+
+    def held(fn, worst: list, by: dict):
+        """A run of the decode with every K5 launch (``fn``) held against
+        its plain version."""
+        with swapped(ops, "decode_attention",
+                     shadowed(fn, "decode_attention", worst, by, by_call)):
+            got, _ = run(fresh())
+        return got
     if dtype == "bfloat16":
         ops.reset_launches()
         got, walls = run(fresh())
@@ -2790,6 +3235,21 @@ def decode_bridge(arch: str, dtype: str, results: dict) -> list:
                 f"{int((got.argmax(-1) == ref_logits.argmax(-1)).sum())}/{got[..., 0].numel()}")
             if not err <= DEC_BF16_TOL:
                 failures.append(f"{name}: {err} of max|logit| against {what}")
+        if per_step:
+            runs = [("none (the kernel itself)", ops.decode_attention, False)] + \
+                [(f, fn, True) for f, fn in decode_faults(ops.decode_attention).items()]
+            for fault, fn, is_fault in runs:
+                worst, by = [0.0], {}
+                held(fn, worst, by)
+                log(f"  {name}, every K5 launch vs its plain version, "
+                    f"{'planted fault: ' + fault + ' (reported)' if is_fault else fault}: "
+                    f"worst {worst[0]:.3e} of its tolerance "
+                    f"{ {k: round(v, 4) for k, v in by.items()} }")
+                results["decode_attention"].setdefault("planted", {})[
+                    f"{arch} bf16 bridge: {fault}"] = dict(per_launch=worst[0], **by)
+                if not is_fault and worst[0] > 1.0:
+                    failures.append(f"{name}: K5 off its plain version by {worst[0]} "
+                                    "of the tolerance")
         return failures
 
     got, walls = run(fresh())
@@ -2805,17 +3265,19 @@ def decode_bridge(arch: str, dtype: str, results: dict) -> list:
     runs = [("none (the kernel itself)", ops.decode_attention, False)] + \
         [(f, fn, True) for f, fn in decode_faults(ops.decode_attention).items()]
     for fault, fn, is_fault in runs:
-        worst = [0.0]
-        with swapped(ops, "decode_attention", shadowed(fn, "decode_attention", worst)):
-            got, _ = run(fresh())
+        worst, by = [0.0], {}
+        got = held(fn, worst, by)
         err = frac(got, want)
         log(f"  planted fault: {fault}: logits {err:.3e} of max|logit|; every K5 launch "
-            f"vs its plain version: worst {worst[0]:.3e} of its tolerance")
+            f"vs its plain version: worst {worst[0]:.3e} of its tolerance "
+            f"{ {k: round(v, 4) for k, v in by.items()} }")
         results.setdefault("decode_attention", {}).setdefault("planted", {})[
-            f"{arch} fp32 bridge: {fault}"] = dict(logits=err, per_launch=worst[0])
-        if is_fault and (err < DEC_FP32_TOL or worst[0] < 10.0):
+            f"{arch} fp32 bridge: {fault}"] = dict(logits=err, per_launch=worst[0], **by)
+        missed = err < DEC_FP32_TOL and spec.get("logit_faults", True)
+        if is_fault and (missed or worst[0] < 10.0
+                         or (cross is not None and by.get("cross", 0.0) <= 1.0)):
             failures.append(f"{name}: planted fault '{fault}' not caught "
-                            f"(logits {err}, per launch {worst[0]})")
+                            f"(logits {err}, per launch {worst[0]}, {by})")
         if not is_fault and worst[0] > 1.0:
             failures.append(f"{name}: K5 off its plain version by {worst[0]} of the tolerance")
     return failures
@@ -3185,6 +3647,9 @@ def main() -> int:
         t0 = time.perf_counter()
         serve_phase(results)
         log(f"[serve] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        frontend_phase(results)
+        log(f"[frontends] {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         decode_phase(results)
         log(f"[decode] {time.perf_counter() - t0:.1f} s")

@@ -4,7 +4,7 @@ fields the prefill paths and the cost model read; mirrors
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Tuple
 
 
@@ -51,9 +51,23 @@ class HybridConfig:
 
 
 @dataclass(frozen=True)
+class EncDecConfig:
+    enc_layers: int = 12
+    # stubbed audio frontend: precomputed frame embeddings
+    num_frames: int = 1500
+
+
+@dataclass(frozen=True)
+class FrontendConfig:
+    """Modality frontend stub: precomputed embeddings injected as inputs."""
+    kind: str = "none"  # none | audio_stub | vision_stub
+    num_embeds: int = 0  # frames or patches the caller provides
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     arch: str
-    family: str  # dense | moe | ssm | hybrid
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -73,6 +87,8 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
+    encdec: Optional[EncDecConfig] = None
+    frontend: FrontendConfig = field(default_factory=FrontendConfig)
     dtype: str = "bfloat16"
     source: str = ""
 
@@ -94,8 +110,11 @@ class ModelConfig:
         attn = (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
                 + self.num_heads * hd * d + (2 * hd if self.qk_norm else 0))
         block = attn + 3 * d * self.d_ff + 2 * d     # + SwiGLU, two norms
-        if self.family == "dense":
+        if self.family in ("dense", "vlm"):
             return emb + self.num_layers * block + d
+        if self.family == "encdec":       # decoder layers add cross-attention and its norm
+            dec = 2 * attn + 3 * d * self.d_ff + 3 * d
+            return emb + self.encdec.enc_layers * block + self.num_layers * dec + 2 * d
         if self.family == "moe":
             m = self.moe
             d_e = m.d_expert or self.d_ff
@@ -154,7 +173,7 @@ def _ensure_loaded() -> None:
                                      llama3_70b, llama3_405b, mamba2_130m,
                                      mistral_123b, qwen2_moe_a2_7b, qwen3_8b,
                                      qwen3_14b, qwen3_235b, stablelm_3b,
-                                     zamba2_7b)
+                                     whisper_small, llava_next_34b, zamba2_7b)
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -15,13 +15,15 @@ Backends:
 - ``torch`` — the per-block reference (``attn_update``), mirrors
   ``JnpBackend`` including the cast of p to v's dtype before PV.
 - ``cuda``  — kernel K1 (``ops.chunk_attention``) for the self and chunk
-  blocks, kernel K2 (``ops.pool_attention``) for a whole slot stack in one
-  launch; mirrors ``PallasBackend``.
+  blocks and the non-causal attention (``ops.full_attention``), kernel K2
+  (``ops.pool_attention``) for a whole slot stack in one launch; mirrors
+  ``PallasBackend``.
 - ``paged`` — pool partials through kernel K3 (``ops.pool_attention_paged``)
   straight off the page store; mirrors ``PagedPallasBackend``.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -97,7 +99,9 @@ class AttentionBackend:
     (causal, within the chunk) and ``chunk_block`` (one stored chunk, fully
     visible, gated per group by ``valid``). ``batched_pool`` advertises a
     fused multi-slot ``pool_block``; ``paged_pool`` advertises
-    ``pool_block_paged`` straight off the page store."""
+    ``pool_block_paged`` straight off the page store. ``full_block`` is the
+    whole non-causal attention of the whisper encoder's layers and of its
+    decoder's cross-attention."""
 
     name = "abstract"
     batched_pool = False
@@ -108,6 +112,18 @@ class AttentionBackend:
 
     def chunk_block(self, qg, k, v, valid, scale, st: State) -> State:
         raise NotImplementedError
+
+    def full_block(self, q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+        """Every query sees every key: q [B, Sq, H, D], k/v [B, Skv, K, D]
+        -> out [B, Sq, H, D] in q's dtype. Base: one ``chunk_block`` over
+        all of k/v, finished."""
+        b, sq, h, d = q.shape
+        kvh = k.shape[2]
+        scale = scale if scale is not None else 1.0 / math.sqrt(d)
+        st = attn_init(b, sq, kvh, h // kvh, d, device=q.device)
+        every = torch.ones((1,), dtype=torch.bool, device=q.device)
+        return attn_finish(self.chunk_block(group_queries(q, kvh), k, v, every, scale, st),
+                           q.dtype)
 
     def pool_block(self, qg, kq, vq, ks, vs, valid, scale, st: State) -> State:
         """A stack of stored chunks: payloads [S, GB, Ck, K, D], per-page
@@ -188,6 +204,10 @@ class CudaBackend(AttentionBackend):
 
     def self_block(self, qg, k, v, scale, st: State) -> State:
         return attn_combine(st, self._kernel_state(qg, k, v, scale, 0))
+
+    def full_block(self, q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+        """K1 non-causal (``ops.full_attention``)."""
+        return ops.full_attention(q, k, v, scale=scale)
 
     def chunk_block(self, qg, k, v, valid, scale, st: State) -> State:
         s2 = self._kernel_state(qg, k, v, scale, int(k.shape[1]))

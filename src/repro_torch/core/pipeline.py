@@ -1,6 +1,6 @@
 """Chunked-pipeline prefill driver — MOCAP's execution model on one GPU
-(mirrors ``repro.core.pipeline`` for the dense, moe, ssm and hybrid families,
-modes mocap and terapipe; mode gpipe dispatches to ``core.gpipe``).
+(mirrors ``repro.core.pipeline`` for every family, modes mocap and
+terapipe; mode gpipe dispatches to ``core.gpipe``).
 
 The reference maps the N pipeline stages onto N devices in SPMD lockstep
 (``shard_map`` + ``ppermute``). Here the stage axis is the leading tensor
@@ -20,6 +20,7 @@ import torch
 from repro_torch import device as devices
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import transport as tx
+from repro_torch.core.attention import get_backend
 from repro_torch.core.gpipe import gpipe_prefill
 from repro_torch.core.plan import PipelinePlan, build_plan  # noqa: F401
 from repro_torch.core.stagestep import (StageCtx, hybrid_stage_step,
@@ -30,12 +31,13 @@ from repro_torch.kvstore import pages as kvpages
 from repro_torch.kvstore.pages import POOL_FIELDS, PagedPool
 from repro_torch.kvstore.quant import torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.models import whisper as W
 from repro_torch.obs import telemetry as obs_t
 
 
 @torch.no_grad()
 def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePlan,
-                     *, device=None, return_ledger: bool = False,
+                     *, device=None, embeds=None, return_ledger: bool = False,
                      return_telemetry: bool = False,
                      prefix_chunks: int = 0,
                      prefix_pool: Optional[PagedPool] = None,
@@ -48,6 +50,18 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
     CollectiveLedger: per-category wire bytes summed over stages, as the
     reference's ``return_ledger`` does. A ``gpipe`` plan runs the
     microbatch baseline (``core.gpipe``, dense only), which has no ledger.
+
+    ``embeds`` [B, F, d]: the stub frontend. For the vlm family (patch
+    embeddings) the stream is the F embeddings, then ``tokens`` [B, S - F]
+    (S = M x C, F need not be a multiple of C): stage 0 takes each
+    position of its chunk from the one side or the other, so a chunk that
+    straddles position F is exact, and the embedding multiplier applies
+    after the splice. For the encdec family (frame embeddings) the encoder
+    runs once before the tick loop (``whisper.encode``; its attention is K1
+    non-causal under the ``cuda`` backend, its oracle under ``torch``), and
+    each stage's decoder layers attend to the encoder output through their
+    own cross K/V (``stage_cross_kv``); ``tokens`` are the decoder's
+    [B, S]. Other families take no embeds.
 
     ``return_telemetry``: also return the stage telemetry
     (``obs.telemetry``): one float64 ``[N, T]`` numpy array per key (pool
@@ -97,6 +111,8 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
                              "paged pool only, not gpipe")
         if tick_hook is not None or health is not None:
             raise ValueError("tick_hook / health probe only the chunked pipeline, not gpipe")
+        if embeds is not None:
+            raise ValueError("gpipe runs the dense family, which takes no embeds")
         return gpipe_prefill(cfg, staged, tokens, plan, device=device,
                              return_telemetry=return_telemetry)
     if plan.mode not in ("mocap", "terapipe"):
@@ -113,21 +129,37 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
     dev = devices.resolve(device)
     if staged["embed"].device.type != dev.type:
         raise ValueError(f"params on {staged['embed'].device}, run on {dev}")
-    tokens = torch.as_tensor(np.asarray(tokens) if not torch.is_tensor(tokens)
-                             else tokens, device=dev).long()
+    tokens = _on(tokens, dev).long()
     n, m, c = plan.num_stages, plan.num_chunks, plan.chunk_len
     b = tokens.shape[0]
-    if tokens.shape[1] != m * c:
-        raise ValueError(f"tokens {tuple(tokens.shape)} vs plan {m} x {c}")
+    family = cfg.family
+    if family == "encdec" and embeds is None:
+        raise ValueError("the encdec family needs frame embeddings (embeds=)")
+    if embeds is not None and family not in ("vlm", "encdec"):
+        raise ValueError(f"family {family!r} takes no embeds")
+    n_front = 0
+    if embeds is not None:
+        embeds = _on(embeds, dev)
+        if embeds.shape[0] != b or embeds.shape[2] != cfg.d_model:
+            raise ValueError(f"embeds {tuple(embeds.shape)} vs {b} rows of d {cfg.d_model}")
+        n_front = embeds.shape[1] if family == "vlm" else 0
+    if n_front + tokens.shape[1] != m * c:
+        raise ValueError(f"{n_front} embeds + tokens {tuple(tokens.shape)} "
+                         f"vs plan {m} x {c}")
     dt = torch_dtype(cfg.dtype)
     transport = tx.StageAxisTransport()
     scale = cfg.attention_multiplier or 1.0 / math.sqrt(cfg.resolved_head_dim or 1)
     stages = np.arange(n)
     first_half = stages < n // 2
 
-    family = cfg.family
-    if family not in ("dense", "moe", "ssm", "hybrid"):
+    if family not in ("dense", "moe", "ssm", "hybrid", "vlm", "encdec"):
         raise ValueError(f"family {family!r} is not ported")
+    cross = None
+    if family == "encdec":         # the encoder runs once, outside the tick loop
+        enc_out = W.encode(cfg, staged, embeds,
+                           attend=get_backend(plan.attn_backend).full_block)
+        cross = stage_cross_kv(cfg, staged["stage_layers"], enc_out)
+        del enc_out
     pool = alloc_kv_pool(cfg, plan, b, device=dev)          # None for ssm
     if prefix_pool is not None:
         _check_seed(pool, prefix_pool)
@@ -151,7 +183,8 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
                        prefix_chunks=prefix_chunks, prefix_pool=prefix_pool)
         # stage 0 embeds chunk clip(t); the others take the ring buffer
         tc = min(max(t, 0), m - 1)
-        x_emb = L.embed_lookup(staged["embed"], tokens[:, tc * c:(tc + 1) * c])
+        x_emb = chunk_embed(staged["embed"], tokens, embeds if n_front else None,
+                            tc * c, c)
         if cfg.embedding_multiplier != 1.0:
             x_emb = x_emb * cfg.embedding_multiplier
         x[0] = x_emb.to(dt)
@@ -164,7 +197,7 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
                 led, tel)
         else:
             x_out, pool, led, tel = tfm_stage_step(
-                ctx, staged["stage_layers"], x, pool, led, tel)
+                ctx, staged["stage_layers"], x, pool, led, tel, cross=cross)
         if rec is not None:
             if family != "ssm":
                 tel = obs_t.charge_tick_residency(tel, ctx, chunk_bytes)
@@ -205,6 +238,46 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
             kvpages.put_pages(pool, hs, pages, taken)
         out.append(pool)
     return out[0] if len(out) == 1 else tuple(out)
+
+
+def _on(x, dev) -> torch.Tensor:
+    """A tensor or an array-like on ``dev``."""
+    return torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x), device=dev)
+
+
+def chunk_embed(embed: torch.Tensor, tokens: torch.Tensor,
+                embeds: Optional[torch.Tensor], lo: int, c: int) -> torch.Tensor:
+    """The input embeddings of stream positions [lo, lo + c): the token
+    embeddings of ``tokens`` [B, S] or, with the vlm's ``embeds`` [B, F, d]
+    in front, position p < F from ``embeds[:, p]`` (cast to the embedding's
+    dtype) and position p >= F from token p - F, so a chunk that straddles
+    F takes each side exactly (the reference's per-position select)."""
+    f = 0 if embeds is None else embeds.shape[1]
+    hi = lo + c
+    parts = []
+    if lo < f:
+        parts.append(embeds[:, lo:min(hi, f)].to(embed.dtype))
+    if hi > f:
+        parts.append(L.embed_lookup(embed, tokens[:, max(lo - f, 0):hi - f]))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def stage_cross_kv(cfg: ModelConfig, layers: Params, enc_out: torch.Tensor):
+    """Every stage's cross K/V of the encoder output ``enc_out`` [B, F, d]
+    through its own ``xwk`` / ``xwv`` [N, lps, d, KVH*D]: (xk, xv), each
+    [N, lps, B, F, KVH, D] on the stage axis, laid out layer-major in
+    memory, so that a layer's slice ``[:, li]`` is one contiguous
+    [N, B, F, KVH, D] block that the cross-attention kernel reads in
+    place."""
+    n, lps = layers["xwk"].shape[:2]
+    b, f, d = enc_out.shape
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    flat = enc_out.reshape(1, b * f, d)
+
+    def one(w: torch.Tensor) -> torch.Tensor:
+        per = [torch.matmul(flat, w[:, li]).reshape(n, b, f, kvh, hd) for li in range(lps)]
+        return torch.stack(per).transpose(0, 1)
+    return one(layers["xwk"]), one(layers["xwv"])
 
 
 def nonfinite_per_stage(x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """The stage programs: what every stage computes in one pipeline tick
-(mirrors ``repro.core.stagestep``): ``tfm_stage_step`` for the dense and
-MoE transformers, ``ssm_stage_step`` for Mamba2 (conv/SSD state carried tick to
+(mirrors ``repro.core.stagestep``): ``tfm_stage_step`` for the dense, MoE
+and vlm transformers and the whisper decoder (its cross-attention against
+the encoder's K/V), ``ssm_stage_step`` for Mamba2 (conv/SSD state carried tick to
 tick) and ``hybrid_stage_step`` for Zamba2 (SSM groups plus a shared
 attention block whose KV takes part in MBKR, one pool "layer" per group).
 
@@ -149,26 +150,58 @@ def stage_qkv(cfg: ModelConfig, lp: Params, x: torch.Tensor, cos, sin):
     return q, k, v.flatten(0, 1)
 
 
+def stage_out(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+              att: torch.Tensor) -> torch.Tensor:
+    """The o-projection of the attention output ``att`` [N*B, C, H, D] of
+    one layer at every stage, added into the residual x [N, B, C, d]."""
+    n, b, c, dm = x.shape
+    upd = torch.matmul(att.reshape(n, b * c, -1), lp["wo"])
+    return x + cfg.residual_multiplier * upd.reshape(n, b, c, dm)
+
+
+def stage_ffn(cfg: ModelConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
+    """The FFN block of one layer at every stage (``transformer.ffn_out``:
+    SwiGLU; or, moe, each (stage, row) dispatching its chunk's C tokens to
+    its stage's experts, so capacity is per chunk, as in the reference's
+    stage program)."""
+    hn = L.rms_norm(x, _stage_w(lp["ln2"], 4), cfg.norm_eps)
+    return x + cfg.residual_multiplier * T.ffn_out(cfg, lp, hn)
+
+
 def stage_out_ffn(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                   att: torch.Tensor) -> torch.Tensor:
-    """The rest of one layer at every stage: the o-projection of the
-    attention output ``att`` [N*B, C, H, D] into the residual x [N, B, C, d]
-    and the FFN block (``transformer.ffn_out``: SwiGLU; or, moe, each
-    (stage, row) dispatching its chunk's C tokens to its stage's experts,
-    so capacity is per chunk, as in the reference's stage program)."""
+    """The rest of one layer at every stage: ``stage_out``, then
+    ``stage_ffn``."""
+    return stage_ffn(cfg, lp, stage_out(cfg, lp, x, att))
+
+
+def cross_attend(ctx: StageCtx, lp: Params, x: torch.Tensor, xk: torch.Tensor,
+                 xv: torch.Tensor, tel: StageTelemetry = None):
+    """The whisper decoder's cross-attention of one layer at every stage:
+    ``lnx`` norm, ``xwq``, the chunk's C queries against the stage's F
+    encoder keys (non-causal), ``xwo`` and the residual add. x [N, B, C, d];
+    xk / xv [N*B, F, KVH, D]. The attention is the plan's backend's
+    ``full_block``: K1 non-causal (``ops.full_attention``) under ``cuda``.
+    Telemetry: one ``launches`` a stage, as the reference charges it.
+    Returns (x, telemetry)."""
+    cfg = ctx.cfg
     n, b, c, dm = x.shape
-    rm = cfg.residual_multiplier
-    upd = torch.matmul(att.reshape(n, b * c, -1), lp["wo"])
-    x = x + rm * upd.reshape(n, b, c, dm)
-    hn = L.rms_norm(x, _stage_w(lp["ln2"], 4), cfg.norm_eps)
-    return x + rm * T.ffn_out(cfg, lp, hn)
+    hn = L.rms_norm(x, _stage_w(lp["lnx"], 4), cfg.norm_eps).reshape(n, b * c, dm)
+    q = torch.matmul(hn, lp["xwq"]).reshape(n * b, c, -1, cfg.resolved_head_dim)
+    att = get_backend(ctx.plan.attn_backend).full_block(q, xk, xv)
+    upd = torch.matmul(att.reshape(n, b * c, -1), lp["xwo"])
+    return x + upd.reshape(n, b, c, dm), obs_t.charge(tel, "launches", 1.0)
 
 
 def tfm_stage_step(ctx: StageCtx, layers: Params, x: torch.Tensor, pool,
-                   led: Ledger = None, tel: StageTelemetry = None):
+                   led: Ledger = None, tel: StageTelemetry = None, *,
+                   cross=None):
     """Apply every stage's lps layers to its chunk ``ctx.phase``.
-    ``layers`` leaves are [N, lps, ...]; x [N, B, C, d]. Returns
-    (x_out, pool, ledger, telemetry); the pool is updated in place."""
+    ``layers`` leaves are [N, lps, ...]; x [N, B, C, d]. ``cross``: the
+    whisper decoder's (xk, xv), each [N, lps, B, F, KVH, D] with every
+    layer's slice ``[:, li]`` contiguous (``pipeline.stage_cross_kv``).
+    Returns (x_out, pool, ledger, telemetry); the pool is updated in
+    place."""
     n, b = x.shape[:2]
     cos, sin = _rope(ctx, x)
     ks, vs = [], []
@@ -176,7 +209,12 @@ def tfm_stage_step(ctx: StageCtx, layers: Params, x: torch.Tensor, pool,
         lp = {k: w[:, li] for k, w in layers.items()}
         q, k, v = stage_qkv(ctx.cfg, lp, x, cos, sin)
         att, led, tel = attend_chunk(ctx, li, q, k, v, pool, led, tel)
-        x = stage_out_ffn(ctx.cfg, lp, x, att)
+        if cross is None:
+            x = stage_out_ffn(ctx.cfg, lp, x, att)
+        else:
+            xk, xv = (t[:, li].reshape(n * b, *t.shape[3:]) for t in cross)
+            x, tel = cross_attend(ctx, lp, stage_out(ctx.cfg, lp, x, att), xk, xv, tel)
+            x = stage_ffn(ctx.cfg, lp, x)
         ks.append(k)
         vs.append(v)
     pool, led, tel = remote.write_pools(ctx, pool, *_stack_kv(ks, vs, n, b), led, tel)

@@ -1,9 +1,10 @@
 """Parameter staging: flat ``[L, ...]`` layer params -> stage-stacked
 ``[N, lps, ...]`` (zero-padded: a zero-parameter transformer or Mamba2
 block is an exact identity through the residual), the stage-stacked paged
-KV pool and the SSM state the stage programs carry (mirrors the dense,
-moe, ssm and hybrid parts of ``repro.core.staging``; expert leaves stage as
-[N, lps, E, ...])."""
+KV pool and the SSM state the stage programs carry (mirrors
+``repro.core.staging``; expert leaves stage as [N, lps, E, ...]; the vlm
+stages as the dense family, the encdec's decoder layers as its stage
+layers)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
@@ -18,6 +19,7 @@ from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
+from repro_torch.models import whisper as W
 
 Params = Dict[str, Any]
 
@@ -56,7 +58,10 @@ def stage_params(cfg: ModelConfig, params: Params, plan: PipelinePlan) -> Params
     Embedding, head, final norm and the hybrid's shared block stay as they
     are (one copy serves every stage on the one device). Hybrid: the tail
     becomes pseudo-group G, zero-padded to ssm_per_group layers, and the
-    G + 1 groups are zero-padded to N x lps: leaves [N, lps, pg, ...]."""
+    G + 1 groups are zero-padded to N x lps: leaves [N, lps, pg, ...].
+    Encdec: the decoder layers are the stage layers; the encoder
+    (``enc_layers``, ``enc_norm``) stays unstaged, since it runs once
+    before the tick loop."""
     n, lps = plan.num_stages, plan.layers_per_stage
 
     def pad_to(a: torch.Tensor, rows: int) -> torch.Tensor:
@@ -76,6 +81,10 @@ def stage_params(cfg: ModelConfig, params: Params, plan: PipelinePlan) -> Params
                 "stage_layers": {k: fold(g, tail[k])
                                  for k, g in params["mamba_groups"].items()},
                 "shared": params["shared"]}
+    if cfg.family == "encdec":
+        return {"embed": params["embed"], "final_norm": params["final_norm"],
+                "stage_layers": {k: one(v) for k, v in params["dec_layers"].items()},
+                "enc_layers": params["enc_layers"], "enc_norm": params["enc_norm"]}
     out = {"embed": params["embed"], "final_norm": params["final_norm"],
            "stage_layers": {k: one(v) for k, v in params["layers"].items()}}
     if "lm_head" in params:
@@ -90,7 +99,11 @@ def init_staged(cfg: ModelConfig, plan: PipelinePlan,
     memory once. Padded layers and groups are zero, as ``stage_params``
     makes them."""
     n, lps = plan.num_stages, plan.layers_per_stage
-    if cfg.family in ("dense", "moe"):
+    if cfg.family == "encdec":
+        p = W.init(cfg, generator, device, dtype, layer_lead=(n, lps))
+        p["stage_layers"] = p.pop("dec_layers")
+        return p
+    if cfg.family in ("dense", "moe", "vlm"):
         p = T.init(cfg, generator, device, dtype, layer_lead=(n, lps))
         out = {"embed": p["embed"], "final_norm": p["final_norm"],
                "stage_layers": p["layers"]}

@@ -48,9 +48,13 @@
 //    out. One launch, no combine kernel.
 //  - Rows with kv_len = 0 are written as zeros by block pair % grid.
 //  - Under MHA (G = 1) with rows of no whole number of 64-byte DRAM bursts
-//    (bf16 at D = 112: 224 bytes, read as 256), a "pair" is two adjacent
-//    kv heads of a row (PAIR_HEADS): a key is their two rows, 448
-//    contiguous bytes, and the two row groups of a warp take one head each.
+//    (bf16 at D = 112: 224 bytes, read as 256; at D = 80: 160 bytes), a
+//    "pair" is two adjacent kv heads of a row (PAIR_HEADS): a key is their
+//    two rows, 448 (320) contiguous bytes, and the two row groups of a warp
+//    take one head each.
+//  - A head row of no power-of-two number of 16-byte pieces (bf16 at
+//    D = 80 or 112: 10 or 14) takes a row group padded to 16 threads; the
+//    padding threads load nothing and hold zeros (`active`).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -71,8 +75,8 @@ __host__ __device__ constexpr int pow2_at_least(int n) {
 }
 
 // Kv heads a unit takes at once: 2 when G = 1 and a head's row is no whole
-// number of 64-byte DRAM bursts (bf16 at D = 16 or 112: 224-byte rows cost
-// 256 bytes each), so that a key's rows of two adjacent heads are one
+// number of 64-byte DRAM bursts (bf16 at D = 16, 80 or 112: 224-byte rows
+// cost 256 bytes each), so that a key's rows of two adjacent heads are one
 // contiguous 64-byte-aligned span; else 1.
 template <typename T, int D>
 constexpr bool PAIR_HEADS = (D * (int)sizeof(T)) % 64 != 0;
@@ -189,10 +193,17 @@ struct Cursor {
   }
 };
 
+// Blocks an SM the register budget must allow (0: ptxas's own choice). At
+// fp32 D 64 G 3 ptxas's own budget (80 registers) spills 4 bytes; asking
+// for one block an SM lets it keep them in registers (105), and no other
+// instance changes.
+template <typename T, int D, int G>
+constexpr int MIN_BLOCKS = sizeof(T) == 4 && D == 64 && G == 3 ? 1 : 0;
+
 // One unit = HP adjacent kv heads (hk0 = hk * HP, ...) of one row, GG = HP x G
 // query heads; the Cursor walks units (its KVH is KVH / HP).
 template <typename T, int D, int G, int HP>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS<T, D, G>)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const int* __restrict__ kv_len, float* __restrict__ part,
                    int* __restrict__ counters, T* __restrict__ out, int B, int H, int KVH,
@@ -531,9 +542,13 @@ int launch_g(const void* q, const void* k, const void* v, const int* kv_len, flo
                             stream);
 }
 
-// The groups built at every head dim; at D 128 (and the smoke configs' 16)
-// also G 5, 12 and 16 (qwen3-14b; mistral-123b; qwen3-235b, llama3-405b).
-// A thread keeps G x (VEC queries + VEC accumulators + U scores) in
+// The (D, G) instances, each a model's decode shape (ops._DECODE_GROUPS
+// lists the same pairs): G 1, 2, 4 and 8 at D 16 (the smoke configs), 112
+// (zamba2-7b's shared block) and 128; at D 16 and 128 also G 5, 12 and 16
+// (qwen3-14b; mistral-123b; qwen3-235b, llama3-405b) and at D 128 G 7
+// (llava-next-34b); at D 64 G 1, 3 and 4 (whisper-small,
+// granite-moe-3b-a800m, granite-3-2b) and at D 80 G 1 (stablelm-3b). A
+// thread keeps G x (VEC queries + VEC accumulators + U scores) in
 // registers, so the wide groups spill (the build phase of chip_smoke.py
 // prints each instance's registers and spills).
 #define DISPATCH_G(T, D, ...)                                                  \
@@ -551,8 +566,21 @@ int launch_g(const void* q, const void* k, const void* v, const int* kv_len, flo
 
 #define DISPATCH_DG(T, ...)                                                    \
   if (D == 16) { DISPATCH_G_WIDE(T, 16, __VA_ARGS__) }                         \
+  if (D == 64) {                                                               \
+    if (G == 1) return launch_g<T, 64, 1>(__VA_ARGS__);                        \
+    if (G == 3) return launch_g<T, 64, 3>(__VA_ARGS__);                        \
+    if (G == 4) return launch_g<T, 64, 4>(__VA_ARGS__);                        \
+    return (int)cudaErrorInvalidValue;                                         \
+  }                                                                            \
+  if (D == 80) {                                                               \
+    if (G == 1) return launch_g<T, 80, 1>(__VA_ARGS__);                        \
+    return (int)cudaErrorInvalidValue;                                         \
+  }                                                                            \
   if (D == 112) { DISPATCH_G(T, 112, __VA_ARGS__) }                            \
-  if (D == 128) { DISPATCH_G_WIDE(T, 128, __VA_ARGS__) }                       \
+  if (D == 128) {                                                              \
+    if (G == 7) return launch_g<T, 128, 7>(__VA_ARGS__);                       \
+    DISPATCH_G_WIDE(T, 128, __VA_ARGS__)                                       \
+  }                                                                            \
   return (int)cudaErrorInvalidValue;
 
 }  // namespace
@@ -563,9 +591,8 @@ extern "C" {
 // (0 = fp32, 1 = bf16); kv_len [B] int32 on the device. part: fp32 scratch
 // of (2 cap + B x KVH) x G x (D + 2) floats; counters: B x KVH int32, zero
 // before the first launch and left zero by every launch. cap: the most
-// blocks the grid may have. D is 16, 112 or 128 and G = H / KVH is 1, 2, 4
-// or 8, and at D 16 and 128 also 5, 12 or 16. Returns cudaGetLastError()
-// after the launch.
+// blocks the grid may have. (D, G = H / KVH) is one of DISPATCH_DG's
+// pairs. Returns cudaGetLastError() after the launch.
 int decode_attention_launch(const void* q, const void* k, const void* v, const void* kv_len,
                             void* part, void* counters, void* out, int dtype, int B, int H,
                             int KVH, int D, int S, int cap, float scale, void* stream) {

@@ -260,8 +260,9 @@ def chunk_attention(q, k, v, *, causal_offset: int = 0,
 
 
 def full_attention(q, k, v, *, scale: Optional[float] = None):
-    """Non-causal K1: every query sees every key (a causal offset past the
-    last key) — the encoder-decoder cross-attention shape."""
+    """Non-causal K1: every query sees every key (a causal offset at the
+    last key's end): the whisper decoder's cross-attention and its
+    encoder's bidirectional layers."""
     return chunk_attention(q, k, v, causal_offset=int(k.shape[1]), scale=scale)
 
 
@@ -466,11 +467,12 @@ def ssd(x, dt, a_log, b, c, d_skip, *, chunk: int = 128, init_state=None):
 # -------------------------------------------------------------------- K5
 
 # head dim -> the G = H / KVH the kernel is built for there (DISPATCH_DG in
-# csrc/decode_attn.cu): G 5, 12 and 16 at D 128 (qwen3-14b; mistral-123b;
-# qwen3-235b and llama3-405b) and the smoke configs' 16. K5's head dims are
-# its own (not K1-K3's 64 and 80)
-_DECODE_GROUPS = {16: (1, 2, 4, 5, 8, 12, 16), 112: (1, 2, 4, 8),
-                  128: (1, 2, 4, 5, 8, 12, 16)}
+# csrc/decode_attn.cu): at D 128 G 5, 7, 12 and 16 (qwen3-14b; llava-next-34b;
+# mistral-123b; qwen3-235b and llama3-405b), as at the smoke configs' 16
+# (but G 7); at D 64 G 1, 3 and 4 (whisper-small, granite-moe-3b-a800m,
+# granite-3-2b) and at D 80 G 1 (stablelm-3b)
+_DECODE_GROUPS = {16: (1, 2, 4, 5, 8, 12, 16), 64: (1, 3, 4), 80: (1,),
+                  112: (1, 2, 4, 8), 128: (1, 2, 4, 5, 7, 8, 12, 16)}
 _DECODE_HEAD_DIMS = tuple(_DECODE_GROUPS)
 # csrc/decode_attn.cu: threads a block, keys a row group takes from a tile
 _DECODE_THREADS, _DECODE_U = 128, 4
@@ -481,7 +483,7 @@ _DECODE_SCRATCH: dict = {}        # device -> [grid cap, fp32 partials, int32 pa
 def decode_heads_per_unit(g: int, d: int, itemsize: int, kvh: int) -> int:
     """Kv heads one unit of K5's work takes (``PAIR_HEADS`` in
     ``csrc/decode_attn.cu``): 2 when G = 1, a head's key row is no whole
-    number of 64-byte DRAM bursts (bf16 at D 16 or 112) and KVH is even,
+    number of 64-byte DRAM bursts (bf16 at D 16, 80 or 112) and KVH is even,
     so that a key's rows of the two heads are one contiguous span; else 1."""
     return 2 if g == 1 and (d * itemsize) % 64 and kvh % 2 == 0 else 1
 

@@ -18,15 +18,17 @@ NEG_INF = -1e30
 
 
 def _state(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           mask: torch.Tensor, scale: float):
+           mask: Optional[torch.Tensor], scale: float):
     """Online-softmax state of q [B,C,H,D] over k/v [B,T,KVH,D] (fp32,
-    dequantized) under ``mask`` broadcastable to [B,KVH,G,C,T]. Returns
-    (m, l) [B,H,C] and acc [B,C,H,D], as the kernels do."""
+    dequantized) under ``mask`` broadcastable to [B,KVH,G,C,T] (None: every
+    key visible). Returns (m, l) [B,H,C] and acc [B,C,H,D], as the kernels
+    do."""
     b, c, h, d = q.shape
     kvh = k.shape[2]
     qg = q.float().reshape(b, c, kvh, h // kvh, d)
     s = torch.einsum("bckgd,btkd->bkgct", qg, k) * scale
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    if mask is not None:
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = torch.clamp(s.amax(dim=-1), min=NEG_INF) if s.shape[-1] else \
         torch.full(s.shape[:-1], NEG_INF, device=q.device)
     m_safe = torch.where(m < NEG_INF / 2, torch.zeros_like(m), m)
@@ -71,21 +73,33 @@ def pool_attention_plain(q, k, v, valid, *, scale: Optional[float] = None,
     """K2. q [G*B,C,H,D]; a stack of S stored chunks k/v [S,G*B,T,KVH,D]
     (scales [S,G*B,T,KVH]); ``valid`` [S] or [G,S]. Every stored chunk is
     fully visible below ``kv_len``; an invalid (group, slot) contributes
-    nothing, so an all-invalid group gives exactly (-1e30, 0, 0). Returns
+    nothing, so an all-invalid group gives exactly (-1e30, 0, 0). Each
+    group's rows score only its valid slots' first ``kv_len`` keys (the
+    state of the masked whole stack, without the masked work). Returns
     (m, l) [G*B,H,C] and acc [G*B,C,H,D]."""
     gb, c, h, d = q.shape
-    s_n, _, t, kvh, _ = k.shape
+    _, _, t, kvh, _ = k.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     kv_len = t if kv_len is None else kv_len
-    ok = _groups(valid).to(q.device)                          # [G, S]
+    ok = _groups(valid).cpu()                                 # [G, S]
     ng = ok.shape[0]
-    ok = ok.repeat_interleave(gb // ng, dim=0)                # [GB, S]
-    tok = torch.arange(t, device=q.device) < kv_len
-    mask = (ok[:, :, None] & tok[None, None, :]).reshape(gb, 1, 1, 1, s_n * t)
+    b = gb // ng
+    m = torch.full((gb, h, c), NEG_INF, device=q.device)
+    l = torch.zeros((gb, h, c), device=q.device)
+    acc = torch.zeros((gb, c, h, d), device=q.device)
+    for g in range(ng):
+        slots = torch.nonzero(ok[g]).flatten().to(k.device)
+        if slots.numel() == 0 or kv_len == 0:
+            continue
+        rows = slice(g * b, (g + 1) * b)
 
-    def flat(x, sc):                                          # -> [GB, S*T, K, D]
-        return _dequant(x, sc).permute(1, 0, 2, 3, 4).reshape(gb, s_n * t, kvh, d)
-    return _state(q, flat(k, k_scale), flat(v, v_scale), mask, scale)
+        def flat(x, sc):                                      # -> [B, S'*kv_len, K, D]
+            x = x[slots, rows, :kv_len]
+            x = _dequant(x, None if sc is None else sc[slots, rows, :kv_len])
+            return x.permute(1, 0, 2, 3, 4).reshape(b, -1, kvh, d)
+        m[rows], l[rows], acc[rows] = _state(q[rows], flat(k, k_scale), flat(v, v_scale),
+                                             None, scale)
+    return m, l, acc
 
 
 def pool_attention_paged_plain(q, k_pages, v_pages, handles, valid, *,
@@ -95,15 +109,20 @@ def pool_attention_paged_plain(q, k_pages, v_pages, handles, valid, *,
     """K3. The state of K2 over pages read through ``handles`` [S*ppc] from
     the page store k/v [P,B,pt,KVH,D] or, stage-stacked, [G,P,B,pt,KVH,D]
     (per-page scales [P,B,1,KVH,1] / [G,P,B,1,KVH,1]); ``kv_len`` defaults
-    to ppc*pt. This plain version gathers the pages (the kernel does not)."""
+    to ppc*pt. This plain version gathers the pages (the kernel does not)
+    of the slots that some group reads."""
     if k_pages.ndim == 5:
         k_pages, v_pages = k_pages[None], v_pages[None]
         if k_scale is not None:
             k_scale, v_scale = k_scale[None], v_scale[None]
     ng, _, b, pt, kvh, d = k_pages.shape
     hnd = torch.as_tensor(handles, device=k_pages.device).long().reshape(-1)
-    s_n = hnd.numel() // ppc
     kv_len = ppc * pt if kv_len is None else kv_len
+    read = _groups(valid).cpu()
+    used = torch.nonzero(read.any(0)).flatten()               # slots some group reads
+    valid = read[:, used]
+    hnd = hnd.reshape(-1, ppc)[used.to(hnd.device)].reshape(-1)
+    s_n = used.numel()
 
     def stack(x):    # [G, P, B, pt, ...] -> [S, G*B, ppc*pt, ...]
         x = x[:, hnd].reshape(ng, s_n, ppc, b, pt, *x.shape[4:])

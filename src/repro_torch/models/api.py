@@ -1,7 +1,8 @@
-"""Model facade, the counterpart of ``repro.models.api`` for the families the
-port registers (dense, moe, ssm, hybrid): ``build_model(cfg)`` returns a `Model`
-whose methods are plain functions over parameter dicts. Entry points run on
-the card unless the caller passes ``device="cpu"``.
+"""Model facade, the counterpart of ``repro.models.api`` for every family
+(dense, moe and vlm on the transformer, ssm, hybrid, encdec on whisper):
+``build_model(cfg)`` returns a `Model` whose methods are plain functions
+over parameter dicts. Entry points run on the card unless the caller passes
+``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -11,10 +12,11 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, ssm, transformer
+from repro_torch.models import hybrid, ssm, transformer, whisper
 from repro_torch.models import layers as L
 
-_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": ssm, "hybrid": hybrid}
+_FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+             "ssm": ssm, "hybrid": hybrid, "encdec": whisper}
 
 
 @dataclass(frozen=True)
@@ -32,9 +34,15 @@ class Model:
         """Random weights drawn from ``generator`` (on the same device)."""
         return self._mod.init(self.cfg, generator, device_mod.resolve(device))
 
-    def forward(self, params, tokens: torch.Tensor, return_cache: bool = False, **kw):
+    def forward(self, params, tokens: torch.Tensor, return_cache: bool = False,
+                embeds=None, **kw):
         """fp32 logits [B, S, Vpad] and, with ``return_cache``, the cache
-        (the SSM state for the ssm family) that ``decode_step`` continues."""
+        (the SSM state for the ssm family) that ``decode_step`` continues.
+        ``embeds`` [B, F, d]: the vlm's patch embeddings (spliced in front
+        of the tokens) or the encdec's frame embeddings (the encoder's
+        input)."""
+        if embeds is not None:
+            kw["embeds"] = embeds
         return self._mod.forward(self.cfg, params, tokens, return_cache=return_cache, **kw)
 
     def decode_step(self, params, cache, tokens: torch.Tensor):

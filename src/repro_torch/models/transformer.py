@@ -1,7 +1,9 @@
 """Decoder-only transformer (GQA, qk_norm, granite scalars; a SwiGLU FFN
-or, for the moe family, routed plus shared experts), mirroring the dense
-and MoE parts of ``repro.models.transformer``. Params are a dict with the
-reference's key names; layer params are stacked on a leading layer axis.
+or, for the moe family, routed plus shared experts), mirroring the dense,
+MoE and VLM parts of ``repro.models.transformer`` (the vlm family is this
+backbone with stub patch embeddings spliced in front of the tokens).
+Params are a dict with the reference's key names; layer params are stacked
+on a leading layer axis.
 
 Decode (``decode_step``) runs the reference's local path: one token per
 batch row against a KV cache, through the flash-decode kernel K5
@@ -99,9 +101,11 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None,
 
 def attn_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
                positions: Optional[torch.Tensor] = None,
-               causal_offset: Optional[int] = 0):
+               causal_offset: Optional[int] = 0, attend=None):
     """Pre-norm attention block over a whole sequence. Returns
-    (residual_out, k, v)."""
+    (residual_out, k, v). ``attend(q, k, v, scale=)`` replaces the oracle
+    ``naive_attention`` when given; only for ``causal_offset=None`` (the
+    whisper encoder's bidirectional layers, which run K1 non-causal)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     hn = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -121,7 +125,11 @@ def attn_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
     scale = cfg.attention_multiplier or None
-    att = L.naive_attention(q, k, v, causal_offset=causal_offset, scale=scale)
+    if attend is None:
+        att = L.naive_attention(q, k, v, causal_offset=causal_offset, scale=scale)
+    else:
+        assert causal_offset is None, "attend is the non-causal attention"
+        att = attend(q, k, v, scale=scale)
     out = torch.matmul(att.reshape(b, s, -1), lp["wo"])
     return x + cfg.residual_multiplier * out, k, v
 
@@ -153,15 +161,20 @@ def ffn_block(cfg: ModelConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def layer_apply(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
-                positions=None, causal_offset=0):
+                positions=None, causal_offset=0, attend=None):
     x, k, v = attn_block(cfg, lp, x, positions=positions,
-                         causal_offset=causal_offset)
+                         causal_offset=causal_offset, attend=attend)
     return ffn_block(cfg, lp, x), k, v
 
 
-def embed_tokens(cfg: ModelConfig, params: Params,
-                 tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+                 embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens [B, St]; ``embeds`` [B, Si, d] (the vlm's stub patch
+    embeddings) are spliced in front; the embedding multiplier applies
+    after the splice, to both."""
     x = L.embed_lookup(params["embed"], tokens)
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
     if cfg.embedding_multiplier != 1.0:
         x = x * cfg.embedding_multiplier
     return x
@@ -174,11 +187,12 @@ def logits_head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tens
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
-            return_cache: bool = False):
-    """Full-sequence forward; returns fp32 logits [B, S, Vpad] and, with
-    ``return_cache``, also the cache {"k", "v": [L,B,S,KVH,D], "pos": [B]
-    int32 = S}."""
-    x = embed_tokens(cfg, params, tokens)
+            embeds: Optional[torch.Tensor] = None, return_cache: bool = False):
+    """Full-sequence forward of ``embeds`` (optional, [B, Si, d]) then
+    ``tokens`` [B, St]; returns fp32 logits [B, S, Vpad], S = Si + St, and,
+    with ``return_cache``, also the cache {"k", "v": [L,B,S,KVH,D], "pos":
+    [B] int32 = S}."""
+    x = embed_tokens(cfg, params, tokens, embeds=embeds)
     layers = params["layers"]
     ks, vs = [], []
     for i in range(cfg.num_layers):

@@ -166,10 +166,11 @@ def kernel_tag_times(frame: Dict) -> Dict[str, float]:
     return out
 
 
-def measure_prefill(cfg, staged, tokens, plan, *, device=None,
+def measure_prefill(cfg, staged, tokens, plan, *, device=None, embeds=None,
                     warmup: int = 1, timed_kernels: bool = False):
     """Timed run of the tick loop: ``prefill_pipeline`` with a
-    ``tick_hook``; returns ``(logits, MeasuredProfile)``.
+    ``tick_hook`` (and ``embeds``, the vlm's or encdec's stub frontend,
+    passed on); returns ``(logits, MeasuredProfile)``.
 
     ``warmup`` untimed runs first (allocator, library handles, the
     kernels' first build); ``timed_kernels=True`` runs the timed call
@@ -181,7 +182,7 @@ def measure_prefill(cfg, staged, tokens, plan, *, device=None,
 
     def run():
         return pl.prefill_pipeline(cfg, staged, tokens, plan, device=device,
-                                   tick_hook=col.note)
+                                   embeds=embeds, tick_hook=col.note)
 
     for _ in range(max(int(warmup), 0)):
         run()

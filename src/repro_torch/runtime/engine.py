@@ -254,10 +254,19 @@ class TorchExecutor:
     (an ``obs.health.HealthMonitor``) arms the non-finite sentinel and, with
     telemetry on, checks each wave's occupancy against the analytic twin.
     Each wave runs inside a ``torch.profiler.record_function`` range named
-    ``prefill_wave seq<S> b<B>``."""
+    ``prefill_wave seq<S> b<B>``.
+
+    As the reference's ``JaxExecutor``, it passes no frontend embeddings:
+    a vlm (llava-next-34b) is served text-only, and an encdec model
+    (whisper-small), which cannot run without its frames, is refused."""
 
     def __init__(self, cfg: ModelConfig, staged_params, run: RunConfig, *,
                  device=None):
+        if cfg.family == "encdec":
+            raise ValueError(
+                f"{cfg.arch}: TorchExecutor serves token prompts only, and the "
+                "encdec family needs frame embeddings; run it through "
+                "prefill_pipeline(embeds=)")
         self.device = devices.resolve(device)
         self.cfg, self.run_cfg = cfg, run
         self.staged = staged_params

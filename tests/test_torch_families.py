@@ -212,6 +212,8 @@ def test_configs_match_reference(arch):
                 assert {k: getattr(got, k) for k in got.__dataclass_fields__} == \
                     {k: getattr(want, k) for k in got.__dataclass_fields__}
                 assert got.real_experts == want.real_experts
+            elif field == "frontend":          # each package's own dataclass
+                assert (got.kind, got.num_embeds) == (want.kind, want.num_embeds)
             else:
                 assert got == want, (field, got, want)
         assert cfg.param_count() == rcfg.param_count()

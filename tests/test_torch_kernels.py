@@ -535,6 +535,57 @@ def test_paged_group_axis_reads_each_stage_pages():
             assert torch.equal(a[rows], b)
 
 
+def _masked_stack(q, k, v, valid, kv_len, k_scale=None, v_scale=None):
+    """K2's plain version as it was first written: every (group, slot) of
+    the stack scored, the invalid ones and the keys past kv_len masked to
+    -1e30 before the softmax."""
+    gb, c, h, d = q.shape
+    s_n, _, t, kvh, _ = k.shape
+    ok = (valid[None] if valid.ndim == 1 else valid) != 0
+    ok = ok.repeat_interleave(gb // ok.shape[0], dim=0)
+    tok = torch.arange(t) < kv_len
+    mask = (ok[:, :, None] & tok[None, None, :]).reshape(gb, 1, 1, 1, s_n * t)
+
+    def flat(x, sc):
+        x = x.float() if sc is None else x.float() * sc[..., None]
+        return x.permute(1, 0, 2, 3, 4).reshape(gb, s_n * t, kvh, d)
+    return ref._state(q, flat(k, k_scale), flat(v, v_scale), mask, 1.0 / math.sqrt(d))
+
+
+@pytest.mark.parametrize("valid", [[[1, 0, 1, 1], [0, 0, 0, 0], [0, 1, 0, 0]],
+                                   [[1, 1, 1, 1]] * 3, [[0, 0, 1, 0]] * 3],
+                         ids=["mixed", "all", "one_slot"])
+@pytest.mark.parametrize("kind", ["float32", "int8"])
+def test_k2_k3_plain_score_only_the_valid_pairs(valid, kind):
+    """K2's and K3's plain versions score each group's valid slots only
+    (K3 on float pages); their state equals the masked whole stack's (``_masked_stack``) to
+    1e-6 of each output's max|ref| (fp32 summation order over fewer
+    terms), and an all-invalid group's is exactly (-1e30, 0, 0)."""
+    g, s, kv_len = 3, 4, C - 3
+    valid = torch.tensor(valid)
+    q = torch.from_numpy(_randn(g * B, C, H, D))
+    k = torch.from_numpy(_randn(s, g * B, C, KVH, D, seed=3))
+    v = torch.from_numpy(_randn(s, g * B, C, KVH, D, seed=4))
+    kw = {}
+    if kind == "int8":
+        (k, _, ks), (v, _, vs) = (_quant(x.numpy(), kind, (2, 4)) for x in (k, v))
+        kw = dict(k_scale=torch.from_numpy(ks[..., 0].repeat(C, 2)),
+                  v_scale=torch.from_numpy(vs[..., 0].repeat(C, 2)))
+    want = _masked_stack(q, k, v, valid, kv_len, **kw)
+    got = ops.pool_attention(q, k, v, valid, kv_len=kv_len, **kw)
+    outs = [got]
+    if kind == "float32":   # K3 over the same slots: a page of C tokens a slot and stage
+        pages = lambda x: x.reshape(s, g, B, C, KVH, D).transpose(0, 1)   # noqa: E731
+        outs.append(ops.pool_attention_paged(q, pages(k), pages(v), torch.arange(s),
+                                             valid, ppc=1, kv_len=kv_len))
+    for out in outs:
+        _close(out, [w.numpy() for w in want], 1e-6, scaled=True)
+    dead = ~valid.any(1).repeat_interleave(B)
+    m, l, acc = got
+    assert bool((m[dead] == NEG_INF).all() and (l[dead] == 0).all()
+                and (acc[dead] == 0).all())
+
+
 # --------------------------------------------------------- wrapper checks
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
@@ -554,14 +605,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 
 
 @pytest.mark.parametrize("h,kvh,d,refused",
-                         [(4, 2, 64, True), (4, 2, 80, True), (6, 2, 16, True),
-                          (24, 8, 64, True), (10, 2, 16, False)],
-                         ids=["d64", "d80", "g3", "d64_g3", "g5_taken"])
+                         [(4, 2, 64, True), (8, 2, 80, True), (6, 2, 16, True),
+                          (24, 8, 64, False), (10, 2, 16, False), (6, 2, 112, True),
+                          (2, 2, 80, False), (14, 2, 128, False)],
+                         ids=["d64", "d80", "g3", "d64_g3", "g5_taken", "d112_g3",
+                              "d80_g1_taken", "d128_g7_taken"])
 def test_k5_refuses_head_dims_and_groups_of_k1_to_k3_alone(h, kvh, d, refused):
-    """K1-K3 take head dims 64 and 80 and G = 3; K5 does not, and says so
-    with its own message on the CPU already (never reaching the CUDA side's
-    cudaErrorInvalidValue), while K1 takes the same q / k / v. G 5 at D 16
-    (the smoke qwen3-14b's grouping; qwen3-14b's at D 128) K5 takes."""
+    """K1-K3 take any group at head dims 16, 64, 80, 112 and 128; K5 is
+    built only for its decode paths' (D, G) pairs (``_DECODE_GROUPS``) and
+    refuses the others (here G 2 at D 64, G 4 at D 80, G 3 at D 16 and
+    112) with its own message on the CPU already (never reaching the CUDA
+    side's cudaErrorInvalidValue), while K1 takes the same q / k / v. It
+    takes G 3 at D 64 (granite-moe-3b-a800m), G 1 at D 80 (stablelm-3b),
+    G 7 at D 128 (llava-next-34b) and G 5 at D 16 (the smoke qwen3-14b)."""
     q = torch.zeros(2, h, d)
     k = torch.zeros(2, 8, kvh, d)
     kv_len = torch.tensor([3, 8], dtype=torch.int32)
@@ -575,13 +631,17 @@ def test_k5_refuses_head_dims_and_groups_of_k1_to_k3_alone(h, kvh, d, refused):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("g,d", [(5, 128), (12, 128), (16, 128), (5, 16)],
-                         ids=["g5", "g12", "g16", "g5_d16"])
+@pytest.mark.parametrize("g,d", [(5, 128), (12, 128), (16, 128), (5, 16), (7, 128),
+                                 (1, 64), (3, 64), (4, 64), (1, 80)],
+                         ids=["g5", "g12", "g16", "g5_d16", "g7", "d64_g1", "d64_g3",
+                              "d64_g4", "d80_g1"])
 def test_k5_plain_matches_pallas_at_the_new_groups(g, d, dtype):
     """K5's plain version (what ``ops.decode_attention`` takes on the CPU)
     against the reference Pallas flash-decode in interpret mode at GQA
     groups 5, 12 and 16 (qwen3-14b; mistral-123b; qwen3-235b and
-    llama3-405b), 2 kv heads, ragged lengths with the tail past each
+    llama3-405b), 7 (llava-next-34b), and at head dims 64 (G 1, 3, 4:
+    whisper-small, granite-moe-3b-a800m, granite-3-2b) and 80 (G 1:
+    stablelm-3b), 2 kv heads, ragged lengths with the tail past each
     length set to 1e4: 2e-5 in fp32, 3e-2 in bf16 (the tolerances of
     ``tests/test_kernels.py::test_decode_attention``)."""
     b, kvh, s = 3, 2, 192
