@@ -57,7 +57,12 @@ prints no result line):
      SDPA's non-causal call (``k1_whisper_shapes``); and K1-K3 at the
      shapes whisper-small's pipeline launches them (C = 56, pages of 56
      tokens: K3's CUDA-core body), held and timed
-     (``whisper_pipeline_shapes``);
+     (``whisper_pipeline_shapes``); K1-K3 at the kv_split shard of
+     qwen3-14b at tp 16 (3 query heads, 1 kv head of 128, 256 rows), with
+     the planted K2 faults; at qwen3-8b's shape, G 5 and that G 3, K2's
+     and K3's function also timed as one call of PyTorch's
+     memory-efficient attention with an attn_bias over the invalid slots
+     (``sdpa_pool_ms``);
    - K4 the Mamba2 SSD scan at zamba2-7b's and mamba2-130m's shapes in
      bf16 and fp32, with a non-zero init_state, one a_log / d_skip row per
      stage (Gs = 8), x, b and c dense and as strided views of one
@@ -95,8 +100,9 @@ prints no result line):
    to 8 layers (one a stage, ``bf16_layers``; at full depth they do not
    fit the card) under qship/cuda and fetch/paged, bf16 only, one wave of
    2 requests a run, K1-K3 held per launch. The fp32 runs of qwen3-8b,
-   zamba2-7b (one group a stage), qwen2-moe-a2.7b and qwen3-14b take one
-   layer a stage (``fp32_layers``); the others' run at full depth. Each
+   zamba2-7b (one group a stage), granite-3-2b, stablelm-3b,
+   qwen2-moe-a2.7b, granite-moe-3b-a800m and qwen3-14b take one layer a
+   stage (``fp32_layers``); mamba2-130m's run at full depth. Each
    model's peak device memory is printed. Each model's bf16 runs are
    its main path: the kernels' launch counters are set to 0 just before
    them and read just after, and every kernel of the path must have
@@ -152,8 +158,8 @@ prints no result line):
    and ``ContinuousEngine`` (EDF, an SLO, Poisson arrivals, waves of 2;
    K1 and K2): logits against MOCAP's (GPipe's argmax held where MOCAP's
    top-2 margin is above the measured bf16 spread), planted K1 faults, the waves in
-   admission order, the four paths' wall times; then GPipe in fp32 against
-   the ``torch`` backends (see ``baselines_phase``);
+   admission order, the four paths' wall times; then GPipe in fp32 (one
+   layer a stage) against the ``torch`` backends (see ``baselines_phase``);
 9. prefix: cross-request prefix KV reuse on qwen3-8b at full width and
    depth in bf16 (k = 6 shared chunks of 512): ``prefill_pipeline`` seeded
    from a ``return_kv`` pool with garbage in the hit region, bit-identical
@@ -179,7 +185,17 @@ prints no result line):
     argmax equal to a single cell's on the same pages and seed, an
     ``--options-in`` replay equal, the merged trace's rows per cell; then
     one cell drained with requests in flight through ``FleetFabric`` (see
-    ``fleet_phase``).
+    ``fleet_phase``);
+12. tp: the manual tensor-parallel lowering (``TorchExecutor(layout=)``,
+    the params through ``shard_params``), the card's name and power limit
+    printed beside it: qwen3-8b at full width and depth at N 8 x tp 2
+    under qship/cuda and fetch/paged against the tp 1 runs of the same
+    weights (bf16; fp32 at one layer a stage within 1e-5), the ``tp``
+    ledger bytes against their closed form; qwen3-14b at 8 layers in the
+    kv_split view at tp 16 = (kv 8, qg 2), 40 -> 48 query heads (K1-K3 at
+    G 3, D 128, held per launch, planted K2 faults); qwen2-moe-a2.7b at 8
+    layers with expert parallelism at tp 8, 60 -> 64 experts, against tp 1
+    (router flips reported; fp32 argmax held) (see ``tp_phase``).
 
 Then one JSON line of per-kernel numbers and, last, the result line.
 """
@@ -396,17 +412,66 @@ def pool_case(label: str, kind: str, kernel, plain, *args, **kw):
     got = kernel(*args, **kw)
     err = compare(label, got, plain(*args, **kw), kind)
     m, l, acc = got
-    check(not bool(args[-1][0].any()), f"{label}: group 0 has a valid slot")
-    check(bool((m[:BATCH] == -1e30).all() and (l[:BATCH] == 0).all()
-               and (acc[:BATCH] == 0).all()),
+    valid = args[-1]
+    rows = m.shape[0] // valid.shape[0]          # a group's rows
+    check(not bool(valid[0].any()), f"{label}: group 0 has a valid slot")
+    check(bool((m[:rows] == -1e30).all() and (l[:rows] == 0).all()
+               and (acc[:rows] == 0).all()),
           f"{label}: an all-invalid group is not exactly (-1e30, 0, 0)")
     return got, err
 
 
+def sdpa_pool_ms(q, k, v, valid, got) -> Optional[float]:
+    """The time of one call of PyTorch's memory-efficient attention
+    (``aten._scaled_dot_product_efficient_attention``, compute_log_sumexp)
+    computing K2's (and K3's) function on the same inputs: each row's
+    queries against the keys of every slot of its stack [S, GB, C, KVH, D],
+    the slots its group may not read masked through ``attn_bias`` (-inf);
+    its (out, lse) is K2's state normalised (out = acc / l, lse = m +
+    log l). The GQA heads are expanded and the bias built outside the timed
+    call. Its output is compared with the kernel's normalised state ``got``
+    on the rows that read a slot (logged, not held). None, with the reason
+    logged, if the call cannot run on these inputs."""
+    import torch
+    s, gb, c, kvh, d = k.shape
+    h = q.shape[2]
+    groups = valid.shape[0]
+
+    def keys(x):
+        x = x.permute(1, 3, 0, 2, 4).reshape(gb, kvh, 1, s * c, d)
+        return x.expand(gb, kvh, h // kvh, s * c, d).reshape(gb, h, s * c, d)
+    qt, kt, vt = q.transpose(1, 2).contiguous(), keys(k), keys(v)
+    mask = (~valid).repeat_interleave(gb // groups, 0)[:, :, None].expand(gb, s, c)
+    bias = torch.zeros((gb, 1, c, s * c), dtype=q.dtype, device=q.device)
+    bias.masked_fill_(mask.reshape(gb, 1, 1, s * c), float("-inf"))
+    bias = bias.expand(gb, h, c, s * c)
+
+    def call():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            qt, kt, vt, bias, True, 0.0, False, scale=1.0 / math.sqrt(d))
+    try:
+        out = call()[0]
+        ms = time_ms(call)
+    except RuntimeError as e:
+        log(f"  sdpa (memory-efficient, attn_bias) cannot run here: {str(e)[:160]}")
+        return None
+    m, l, acc = got
+    rows = valid.repeat_interleave(gb // groups, 0).any(1)
+    norm = acc / l.transpose(1, 2)[..., None]
+    err = (out.transpose(1, 2)[rows].float() - norm[rows]).abs().max().item()
+    log(f"  sdpa (memory-efficient, attn_bias over {s} slots): {ms:.4f} ms a call; its out "
+        f"vs the kernel's acc / l: max abs err {err:.3e} (max|acc / l| "
+        f"{norm[rows].abs().max().item():.3e})")
+    del qt, kt, vt, bias
+    return ms
+
+
 def attention_phase(results: dict, h: int, kvh: int, d: int, key=None,
-                    fp32: bool = True, k2_faults: bool = False) -> None:
-    """K1-K3 at one model's attention shape: q [16, 512, h, d] (8 stages x
-    batch 2 folded into the rows), k/v with kvh heads. ``key`` None
+                    fp32: bool = True, k2_faults: bool = False,
+                    batch: int = BATCH) -> None:
+    """K1-K3 at one model's attention shape: q [8 x batch, 512, h, d] (8
+    stages x ``batch`` rows folded into the rows: batch 2, or the manual TP
+    lowering's tp x 2), k/v with kvh heads. ``key`` None
     (qwen3-8b, d 128) records the kernels' main times; otherwise the times
     go under ``results[kernel][key]`` (zamba2-7b "d112"; granite-3-2b
     "d64", granite-moe-3b-a800m "d64_g3", stablelm-3b "d80",
@@ -419,14 +484,16 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, key=None,
     128 and 16 tokens and a partial last page. At d 80 the planted faults
     of ``pad_faults`` run too. ``k2_faults``: the planted K2 faults
     (``planted_faults``) on the tensor-core body's bf16 stack, each of
-    which must break ``compare``'s limit."""
+    which must break ``compare``'s limit. At SDPA_POOL_SHAPES the K2 / K3
+    function is also timed as one call of PyTorch's memory-efficient
+    attention (``sdpa_pool_ms``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    gb, c = N_STAGES * BATCH, CHUNK
+    gb, c = N_STAGES * batch, CHUNK
     floats = (("bfloat16", torch.bfloat16), ("float32", torch.float32)) if fp32 \
         else (("bfloat16", torch.bfloat16),)
 
@@ -545,11 +612,12 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, key=None,
             log(f"  torch.profiler: attn_tc_kernel<StackWalk> {seen} launches, "
                 + (f"{prof_ms:.4f} ms device time each" if seen else "no device time seen"))
             plain = time_ms(lambda: ref.pool_attention_plain(q, k, v, valid), **PLAIN_TIMING)
-            kv_read = 2.0 * n_valid * BATCH * c * kvh * d * k.element_size()
-            ops_n = 4.0 * d * n_valid * BATCH * h * c * c
+            kv_read = 2.0 * n_valid * batch * c * kvh * d * k.element_size()
+            ops_n = 4.0 * d * n_valid * batch * h * c * c
             b_ms, by = bound_ms(nbytes(q, valid, *got) + kv_read, ops_n, name)
+            lib = sdpa_pool_ms(q, k, v, valid, got) if key in SDPA_POOL_SHAPES else None
             record("pool_attention", ms=ms, windowed_ms=win_ms, profiler_ms=prof_ms,
-                   plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=by)
+                   plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=by)
             log(f"  time: kernel {ms:.4f} ms ({win_ms:.4f} ms a call in windows of "
                 f"back-to-back calls), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({by}), "
                 f"{n_valid} valid (stage, slot), {ops_n / 1e9:.1f} GFLOP")
@@ -611,14 +679,14 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, key=None,
     # ---------------- K3: pages read in place from a strided stage-stacked pool
     npages, lps = slots + 1, 2
     log(f"[kernels] K3 pool_attention_paged  layer view of a "
-        f"[{N_STAGES},{npages},{lps},{BATCH},{c},{kvh},{d}] pool")
+        f"[{N_STAGES},{npages},{lps},{batch},{c},{kvh},{d}] pool")
     k3_err = 0.0
     k3_fns = (ops.pool_attention_paged, ref.pool_attention_paged_plain)
     handles = torch.arange(slots, dtype=torch.int32, device=dev)
     for name, dt in floats:
         q = randn(gb, c, h, d, dtype=dt)
-        kp = randn(N_STAGES, npages, lps, BATCH, c, kvh, d, dtype=dt)
-        vp = randn(N_STAGES, npages, lps, BATCH, c, kvh, d, dtype=dt)
+        kp = randn(N_STAGES, npages, lps, batch, c, kvh, d, dtype=dt)
+        vp = randn(N_STAGES, npages, lps, batch, c, kvh, d, dtype=dt)
         k_l, v_l = kp[:, :, 1], vp[:, :, 1]           # strided views
         got, err = pool_case(f"paged {name}", name, *k3_fns, q, k_l, v_l, handles, valid, ppc=1)
         k3_err = max(k3_err, err)
@@ -630,19 +698,23 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, key=None,
                 + (f"{prof_ms:.4f} ms device time each" if seen else "no device time seen"))
             plain = time_ms(lambda: ref.pool_attention_paged_plain(
                 q, k_l, v_l, handles, valid, ppc=1), **PLAIN_TIMING)
-            kv_read = 2.0 * n_valid * BATCH * c * kvh * d * kp.element_size()
-            ops_n = 4.0 * d * n_valid * BATCH * h * c * c
+            kv_read = 2.0 * n_valid * batch * c * kvh * d * kp.element_size()
+            ops_n = 4.0 * d * n_valid * batch * h * c * c
             b_ms, by = bound_ms(nbytes(q, valid, handles, *got) + kv_read, ops_n, name)
+            lib = None
+            if key in SDPA_POOL_SHAPES:    # the same function: K2's stack of the same slots
+                lib = sdpa_pool_ms(q, k_l[:, :slots].movedim(1, 0).flatten(1, 2),
+                                   v_l[:, :slots].movedim(1, 0).flatten(1, 2), valid, got)
             record("pool_attention_paged", ms=ms, windowed_ms=win_ms, profiler_ms=prof_ms,
-                   plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=by)
+                   plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=by)
             log(f"  time: kernel {ms:.4f} ms ({win_ms:.4f} ms a call in windows of "
                 f"back-to-back calls), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({by})")
         del kp, vp
     # quantized pages with per-page scales read through the same handles
     q = randn(gb, c, h, d, dtype=torch.bfloat16)
     for kind in K1_KINDS:
-        kp, ksp = quantize(randn(N_STAGES, npages, lps, BATCH, c, kvh, d), kind, (4, 6))
-        vp, vsp = quantize(randn(N_STAGES, npages, lps, BATCH, c, kvh, d), kind, (4, 6))
+        kp, ksp = quantize(randn(N_STAGES, npages, lps, batch, c, kvh, d), kind, (4, 6))
+        vp, vsp = quantize(randn(N_STAGES, npages, lps, batch, c, kvh, d), kind, (4, 6))
         _, err = pool_case(f"paged {kind} pages", kind, *k3_fns, q, kp[:, :, 0], vp[:, :, 0],
                            handles, valid, ppc=1, k_scale=ksp[:, :, 0], v_scale=vsp[:, :, 0])
         k3_err = max(k3_err, err)
@@ -657,8 +729,8 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, key=None,
         cases = (("float32", "float32"),) if fp32 and pt == c // 4 else ()
         for name, kind in cases + (("bfloat16", "bfloat16"), ("int8", "int8")):
             dt = torch.float32 if name == "float32" else torch.bfloat16
-            kp = randn(N_STAGES, npages * ppc, lps, BATCH, pt, kvh, d)
-            vp = randn(N_STAGES, npages * ppc, lps, BATCH, pt, kvh, d)
+            kp = randn(N_STAGES, npages * ppc, lps, batch, pt, kvh, d)
+            vp = randn(N_STAGES, npages * ppc, lps, batch, pt, kvh, d)
             kw = dict(ppc=ppc, kv_len=kv_len)
             if kind == "int8":
                 kp, ksp = quantize(kp, kind, (4, 6))
@@ -1149,8 +1221,15 @@ ATTN_SHAPES = {"d64": (32, 8, 64, True),        # granite-3-2b (G 4)
                "g7": (56, 8, 128, False),       # llava-next-34b
                "g8": (64, 8, 128, False),       # llama3-70b
                "g12": (96, 8, 128, False),      # mistral-123b
-               "g16": (64, 4, 128, False)}      # qwen3-235b (llama3-405b: 128 / 8)
-K2_FAULT_SHAPES = ("g7", "g16")
+               "g16": (64, 4, 128, False),      # qwen3-235b (llama3-405b: 128 / 8)
+               # qwen3-14b's kv_split shard at tp 16: 3 query heads, 1 kv head
+               "g3_d128": (3, 1, 128, False)}
+# rows a stage where a shape's path folds more than BATCH (the tp shards)
+ATTN_BATCH = {"g3_d128": 16 * BATCH}
+# where K2's and K3's function is also timed as one library call
+# (``sdpa_pool_ms``): qwen3-8b's shape (key None), G 5 and G 3
+SDPA_POOL_SHAPES = (None, "g5", "g3_d128")
+K2_FAULT_SHAPES = ("g7", "g16", "g3_d128")
 # whisper-small's non-causal K1 shapes (12 heads of 64, MHA): the decoder's
 # cross-attention, a chunk of WHISPER_C queries of N_STAGES x BATCH rows
 # against the F = DECODE_CROSS_S encoder frames, and the encoder, F queries
@@ -1294,7 +1373,8 @@ def kernel_phase(results: dict) -> None:
     for key, (h, kvh, d, fp32) in ATTN_SHAPES.items():
         t0 = time.perf_counter()
         attention_phase(results, h=h, kvh=kvh, d=d, key=key, fp32=fp32,
-                        k2_faults=key in K2_FAULT_SHAPES)
+                        k2_faults=key in K2_FAULT_SHAPES,
+                        batch=ATTN_BATCH.get(key, BATCH))
         log(f"[kernels] K1-K3 at {key} (H {h}, KVH {kvh}): {time.perf_counter() - t0:.1f} s")
     k1_whisper_shapes(results)
     whisper_pipeline_shapes(results)
@@ -1376,7 +1456,9 @@ def smoke_parity_phase() -> None:
 # stage, for the hybrid one group a stage). The fp32 runs hold each
 # launch's summation order, which depth does not change: qwen3-8b's and
 # zamba2-7b's take one layer a stage for the script's time (their fp32
-# waves at 36 and 81 layers took 6.0-9.6 s), qwen2-moe-a2.7b's and
+# waves at 36 and 81 layers took 6.0-9.6 s), and so do granite-3-2b's,
+# stablelm-3b's and granite-moe-3b-a800m's (their fp32 serves at 40, 32 and
+# 32 layers took some 20-36 s each), qwen2-moe-a2.7b's and
 # qwen3-14b's for the card's memory (24 fp32 layers of experts are ~57 GB,
 # 40 of qwen3-14b's ~59 GB). The paper's four models do not fit the card at
 # full depth (llama3-70b's 80 layers are ~141 GB in bf16), so their bf16
@@ -1401,11 +1483,12 @@ SERVE_MODELS = {
                 ("qship", "cuda", "cuda", "int8")],
         # its logits hardly see attention (embedding x 12, attention scale
         # 1/64, residual x 0.22): the K2 faults stay under the bf16 spread
-        kernels=ATTN_KERNELS, faults="pool_attention", per_launch=ATTN_KERNELS),
+        kernels=ATTN_KERNELS, faults="pool_attention", per_launch=ATTN_KERNELS,
+        fp32_layers=N_STAGES),
     "stablelm-3b": dict(
         combos=[("fetch", "cuda", "cuda", "auto", "terapipe"),
                 ("qship", "cuda", "paged", "auto", "mocap")],
-        kernels=ATTN_KERNELS, faults="pool_attention", wave=False),
+        kernels=ATTN_KERNELS, faults="pool_attention", wave=False, fp32_layers=N_STAGES),
     "qwen2-moe-a2.7b": dict(
         combos=[("qship", "cuda", "cuda", "auto"), ("fetch", "cuda", "paged", "auto")],
         kernels=ATTN_KERNELS, faults="pool_attention", per_launch=ATTN_KERNELS,
@@ -1413,7 +1496,7 @@ SERVE_MODELS = {
     "granite-moe-3b-a800m": dict(
         combos=[("fetch", "cuda", "cuda", "auto"), ("qship", "cuda", "paged", "auto")],
         kernels=ATTN_KERNELS, faults="pool_attention", per_launch=ATTN_KERNELS,
-        wave=False),
+        wave=False, fp32_layers=N_STAGES),
     # GQA group 5: K1-K3 held per launch; 40 fp32 layers are ~59 GB
     "qwen3-14b": dict(
         combos=[("qship", "cuda", "cuda", "auto"), ("fetch", "cuda", "paged", "auto"),
@@ -2297,10 +2380,10 @@ def baselines_phase(results: dict) -> None:
     and the wall time of each path on the same requests beside the card's
     clocks (recorded, not held: on one card the stage axis is a batch, not
     a pipeline of chips). The scheduler's TTFT is the analytic model's and
-    is printed under its profile's name. Then fp32, where summation order
-    moves the logits by ~1e-5 of max|logit|: GPipe on K1 against MOCAP on
-    the ``torch`` backends, every request's argmax equal and the logits
-    within FP32_LOGIT_TOL."""
+    is printed under its profile's name. Then fp32 at one layer a stage,
+    where summation order moves the logits by ~1e-5 of max|logit|: GPipe on
+    K1 against MOCAP on the ``torch`` backends, every request's argmax equal
+    and the logits within FP32_LOGIT_TOL."""
     import numpy as np
     import torch
     from repro_torch.configs import RunConfig, get_config, replace
@@ -2448,8 +2531,8 @@ def baselines_phase(results: dict) -> None:
     del staged
     torch.cuda.empty_cache()
 
-    # ---- fp32: GPipe on K1 against MOCAP on the torch backends
-    cfg32 = replace(cfg, dtype="float32")
+    # ---- fp32 (one layer a stage): GPipe on K1 against MOCAP on the torch backends
+    cfg32 = replace(depth(cfg, n), dtype="float32")
     plan32 = pp.build_plan(cfg32, n, seq, runs(cfg32)["mocap"])
     staged = init_staged(cfg32, plan32, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
@@ -2463,6 +2546,366 @@ def baselines_phase(results: dict) -> None:
         failures.append(f"gpipe fp32: logits err {err}, argmax equal {same}")
     del staged
     torch.cuda.empty_cache()
+    check(not failures, "; ".join(failures))
+
+
+# ---------------------------------------------------------------------- tp
+
+# the manual tensor-parallel lowering on the card (``tp_phase``), every run
+# at the serve geometry (N = M = 8, C = 512, S = 4096), random weights from
+# seed 0, through PrefillEngine + TorchExecutor(layout=): (a) qwen3-8b at
+# full width and depth, tp 2 on the plain TP axis, 4 requests in waves of 2;
+# (b) qwen3-14b cut to 8 layers (one a stage) in the kv_split view at tp 16
+# = (kv 8, qg 2), its 40 query heads padded to 48 (each shard 1 kv head
+# and 3 query heads: G 3 at D 128), one wave of 2; (c) qwen2-moe-a2.7b cut
+# to 8 layers with expert parallelism at tp 8 = (kv 8, qg 1), its 60
+# routed experts padded to 64 (8 a shard), the shared experts f-sharded,
+# one wave of 2
+TP_COMBOS = (("qship", "cuda", "cuda"), ("fetch", "cuda", "paged"))
+TP_FP32_TOL = 1e-5                 # (a) fp32, one layer a stage: tp 2 vs tp 1
+TP_NUMBERS: dict = {}              # the phase's numbers, printed as one JSON line
+
+
+def tp_serve(cfg, staged, layout, combo, n_req: int, tag: str):
+    """``n_req`` requests (seed 0) through PrefillEngine + TorchExecutor
+    at ``layout``'s tp under ``combo`` (remote, attn, pool): (logits,
+    each wave's wall seconds)."""
+    import numpy as np
+    from repro_torch.configs import RunConfig
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.layers import pad_vocab
+    from repro_torch.runtime.engine import EngineConfig, PrefillEngine, TorchExecutor
+    seq = N_CHUNKS * CHUNK
+    run = RunConfig(num_chunks=N_CHUNKS, num_stages=N_STAGES, remote_attn=combo[0],
+                    attn_backend=combo[1], pool_backend=combo[2], tp_lowering="auto")
+    ex = TorchExecutor(cfg, staged, run, device="cuda", layout=layout)
+    eng = PrefillEngine(EngineConfig(model=cfg, num_stages=N_STAGES, tp=layout.tp,
+                                     num_chunks=N_CHUNKS, max_batch=BATCH, buckets=(seq,),
+                                     partition="uniform"), ex)
+    for r in make_requests(n_req, seq, cfg.vocab_size, seed=0):
+        eng.submit(r)
+    eng.run_until_drained()
+    done = sorted(eng.done, key=lambda r: r.rid)
+    name = f"{tag} {cfg.dtype} tp {layout.tp} {'/'.join(combo)}"
+    check(len(done) == n_req, f"{name}: {len(done)} of {n_req} answered")
+    logits = np.stack([r.result for r in done])
+    check(logits.shape == (n_req, pad_vocab(cfg.vocab_size)), f"{name}: logits shape")
+    check(bool(np.isfinite(logits).all()), f"{name}: non-finite logits")
+    walls = [w["dur"] for w in ex.waves]
+    log(f"  {name}: argmax {logits.argmax(-1).tolist()}, wave wall s "
+        f"{[round(w, 4) for w in walls]}")
+    return logits, walls
+
+
+def tp_against(got, want, what: str, spread=None) -> tuple:
+    """Logged: max abs err of max|logit|, argmax equal, the top-2 margins of
+    ``want``. With ``spread`` (a bf16 spread the same run measured between
+    two summation orders of tp 1), the requests whose margin exceeds it,
+    whose argmax must then be equal. Returns (err, argmax equal, held
+    requests whose argmax differs)."""
+    import numpy as np
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    margin = (top2[:, 1] - top2[:, 0]) / np.abs(want).max()
+    same = got.argmax(-1) == want.argmax(-1)
+    held = margin > spread if spread is not None else np.ones(len(want), bool)
+    bad = [int(i) for i in np.flatnonzero(held & ~same)]
+    log(f"    vs {what}: max abs err {err:.3e} of max|logit|, argmax equal "
+        f"{int(same.sum())}/{len(want)}, top-2 margins "
+        f"{[round(float(x), 5) for x in margin]}"
+        + ("" if spread is None else f", held (margin > spread {spread:.3e}) "
+           f"{[int(i) for i in np.flatnonzero(held)]}, differing among them {bad}"))
+    return err, int(same.sum()), bad
+
+
+def tp_weights(cfg, plan):
+    import torch
+    from repro_torch.core.staging import init_staged
+    t0 = time.perf_counter()
+    staged = init_staged(cfg, plan, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    torch.cuda.synchronize()
+    log(f"  {cfg.dtype} weights, {cfg.num_layers} layers: {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    return staged
+
+
+def tp_shard(cfg, plan, staged, layout):
+    """``staged`` in ``layout``'s manual TP layout (``shard_params``): the
+    plan, and the params (the tp 1 copies of the sharded groups freed)."""
+    import torch
+    from repro_torch.core.staging import manual_tp_plan, shard_params
+    t0 = time.perf_counter()
+    mtp = manual_tp_plan(cfg, plan, layout)
+    out = shard_params(cfg, staged, mtp)
+    staged.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"  {mtp}: shard_params {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    return mtp, out
+
+
+def tp_main_path(results: dict, path: str, fn, kernels=ATTN_KERNELS):
+    """``fn()`` as the path's main path: the launch counters set to 0 just
+    before it and read just after; each of ``kernels`` must have
+    launched."""
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    out = fn()
+    launches = dict(ops.LAUNCHES)
+    log(f"  launches on the {path} main path: {launches}")
+    for name in kernels:
+        check(launches[name] > 0, f"kernel {name} was not launched on the {path} main path")
+        results[name].setdefault("launches_by_path", {})[path] = launches[name]
+    return out
+
+
+def tp_dense(results: dict, failures: list) -> None:
+    """(a) qwen3-8b at full width and depth (36 layers), bf16, N 8 x tp 2
+    on the plain TP axis (8 / 4 heads and 6144 of 12288 FFN columns a
+    shard), qship/``cuda`` and fetch/``paged``, 4 requests in waves of 2,
+    against the tp 1 runs of the same weights and prompts: within
+    BF16_LOGIT_TOL of max|logit|, and the argmax equal for every request
+    whose tp 1 top-2 margin exceeds the bf16 spread this run measures
+    between the two tp 1 combinations (two summation orders). Each wave's
+    wall time at tp 1 and tp 2, the ``tp`` ledger bytes of one direct
+    ``prefill_pipeline`` wave beside their closed form (per active (stage,
+    phase) and layer, two psums of 2(k-1)/k x the [B, C, d] partial on
+    each of the k chips), the peak memory. Then fp32 at one layer a stage:
+    tp 2 within TP_FP32_TOL of tp 1, every argmax equal."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import RunConfig, get_config, replace
+    from repro_torch.core import pipeline as pp
+    from repro_torch.core.staging import TPLayout
+    from repro_torch.launch.serve import make_requests
+    arch, path = "qwen3-8b", "tp qwen3-8b"
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    seq = N_CHUNKS * CHUNK
+    base = RunConfig(num_chunks=N_CHUNKS, num_stages=N_STAGES, tp_lowering="auto")
+    plan = pp.build_plan(cfg, N_STAGES, seq, base)
+    layout = TPLayout(2)
+    log(f"[tp] (a) {arch} d={cfg.d_model} layers={cfg.num_layers} heads={cfg.num_heads}/"
+        f"{cfg.num_kv_heads} d_ff={cfg.d_ff} N={N_STAGES} x tp {layout.tp} M={N_CHUNKS} "
+        f"C={CHUNK} lps={plan.layers_per_stage} tp_lowering={plan.tp_lowering}")
+    staged = tp_weights(cfg, plan)
+    tp1 = {combo: tp_serve(cfg, staged, TPLayout(1), combo, REQUESTS, arch)
+           for combo in TP_COMBOS}
+    spread, _, _ = tp_against(tp1[TP_COMBOS[1]][0], tp1[TP_COMBOS[0]][0],
+                              "tp 1 qship/cuda (the bf16 spread of two summation orders)")
+    mtp, staged2 = tp_shard(cfg, plan, staged, layout)
+    check(mtp.attn and mtp.kv_div == 2 and mtp.ffn, f"{arch} tp 2: {mtp}")
+    tp2 = tp_main_path(results, path, lambda: {
+        combo: tp_serve(cfg, staged2, layout, combo, REQUESTS, arch) for combo in TP_COMBOS})
+    for combo in TP_COMBOS:
+        (got, w2), (want, w1) = tp2[combo], tp1[combo]
+        log(f"  bf16 {'/'.join(combo)}: wave wall s tp 1 {[round(w, 4) for w in w1]}, "
+            f"tp 2 {[round(w, 4) for w in w2]} (x{np.mean(w2[1:]) / np.mean(w1[1:]):.3f} "
+            f"on the waves after the first)")
+        err, _, bad = tp_against(got, want, "tp 1", spread)
+        if err > BF16_LOGIT_TOL[arch] or bad:
+            failures.append(f"{path} bf16 {'/'.join(combo)}: err {err}, held argmax "
+                            f"differ for {bad}")
+        TP_NUMBERS[f"{path} {'/'.join(combo)}"] = dict(
+            wave_s_tp1=w1, wave_s_tp2=w2, err=err)
+    # the tp ledger key of one wave against its closed form
+    toks = np.stack([r.tokens for r in make_requests(BATCH, seq, cfg.vocab_size, seed=0)])
+    run = RunConfig(num_chunks=N_CHUNKS, num_stages=N_STAGES, remote_attn="qship",
+                    attn_backend="cuda", pool_backend="cuda")
+    _, led = pp.prefill_pipeline(cfg, staged2, toks, pp.build_plan(cfg, N_STAGES, seq, run),
+                                 device="cuda", return_ledger=True, layout=layout)
+    k = layout.tp
+    closed = (N_STAGES * N_CHUNKS * plan.layers_per_stage * 2 * 2.0 * (k - 1) / k
+              * BATCH * CHUNK * cfg.d_model * 2 * k)
+    log(f"  ledger of one wave (2 rows): tp {led['tp']:.6e} B, closed form 2(k-1)/k "
+        f"{closed:.6e} B; ring {led['ring']:.6e}, spill {led['spill']:.6e}, qship_q "
+        f"{led['qship_q']:.6e}, qship_state {led['qship_state']:.6e}")
+    check(abs(led["tp"] - closed) <= 1e-9 * closed, f"{path}: tp ledger {led['tp']} vs {closed}")
+    TP_NUMBERS[f"{path} ledger"] = dict(tp=led["tp"], closed_form=closed)
+    del staged2
+    torch.cuda.empty_cache()
+    log(f"  {path} bf16 peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB (torch.cuda.max_memory_allocated)")
+
+    # fp32, one layer a stage
+    cfg32 = replace(depth(cfg, N_STAGES), dtype="float32")
+    plan32 = pp.build_plan(cfg32, N_STAGES, seq, base)
+    staged = tp_weights(cfg32, plan32)
+    ref32 = {c: tp_serve(cfg32, staged, TPLayout(1), c, REQUESTS, arch)[0] for c in TP_COMBOS}
+    _, staged2 = tp_shard(cfg32, plan32, staged, layout)
+    for combo in TP_COMBOS:
+        err, same, _ = tp_against(tp_serve(cfg32, staged2, layout, combo, REQUESTS, arch)[0],
+                                  ref32[combo], "tp 1")
+        if err >= TP_FP32_TOL or same != REQUESTS:
+            failures.append(f"{path} fp32 {'/'.join(combo)}: err {err}, argmax equal {same}")
+    del staged2
+    torch.cuda.empty_cache()
+
+
+def tp_kv_split(results: dict, failures: list) -> None:
+    """(b) qwen3-14b (40 / 8 heads of 128) cut to 8 layers, bf16, the
+    kv_split view at tp 16 = (kv 8, qg 2): ``pad_q_heads`` pads 40 -> 48
+    query heads (g 5 -> 6, exact: zero ``wq`` columns and ``wo`` rows), so
+    each shard runs 1 kv head and 3 query heads, K1-K3 at G 3, D 128 over
+    8 x 16 x 2 = 256 rows; one wave of 2 under qship/``cuda`` and
+    fetch/``paged`` (the main path), against the unpadded tp 1 wave within
+    BF16_LOGIT_TOL. Then every K1, K2 and K3 launch of both combinations is
+    held against its plain version on its own inputs (``shadowed``), which
+    the real kernels must pass and each planted K2 fault must break."""
+    import torch
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core import pipeline as pp
+    from repro_torch.core.staging import TPLayout
+    from repro_torch.kernels import ops
+    arch, path = "qwen3-14b", "tp qwen3-14b kv_split"
+    torch.cuda.reset_peak_memory_stats()
+    cfg = depth(get_config(arch), N_STAGES)
+    seq = N_CHUNKS * CHUNK
+    base = RunConfig(num_chunks=N_CHUNKS, num_stages=N_STAGES)
+    kv, qg, g_pad = pp.kv_split_axes(cfg, 16)
+    layout = TPLayout(16, kv=kv)
+    log(f"[tp] (b) {arch} {cfg.num_layers} layers of {get_config(arch).num_layers}, "
+        f"heads {cfg.num_heads}/{cfg.num_kv_heads}, kv_split tp 16 = (kv {kv}, qg {qg}), "
+        f"g {cfg.num_heads // cfg.num_kv_heads} -> {g_pad}")
+    staged = tp_weights(cfg, pp.build_plan(cfg, N_STAGES, seq, base))
+    want = tp_serve(cfg, staged, TPLayout(1), TP_COMBOS[0], BATCH, arch)[0]
+    cfg_p, staged = pp.pad_q_heads(cfg, staged, g_pad)
+    plan_p = pp.build_plan(cfg_p, N_STAGES, seq, base)
+    mtp, staged = tp_shard(cfg_p, plan_p, staged, layout)
+    local_h, local_kv = cfg_p.num_heads // mtp.tp, cfg_p.num_kv_heads // mtp.kv_div
+    log(f"  each shard: {local_kv} kv head, {local_h} query heads (G {local_h // local_kv}), "
+        f"D {cfg_p.resolved_head_dim}; K1-K3 rows {N_STAGES * mtp.tp * BATCH}")
+    check(mtp.attn and (local_kv, local_h) == (1, 3), f"{path}: {mtp}")
+    runs = tp_main_path(results, path, lambda: {
+        combo: tp_serve(cfg_p, staged, layout, combo, BATCH, arch) for combo in TP_COMBOS})
+    for combo, (got, walls) in runs.items():
+        err, _, _ = tp_against(got, want, "tp 1 (unpadded)")
+        if err > BF16_LOGIT_TOL[arch]:
+            failures.append(f"{path} {'/'.join(combo)}: err {err}")
+        TP_NUMBERS[f"{path} {'/'.join(combo)}"] = dict(wave_s=walls, err=err)
+    label = lambda q, k, *_, **__: ("K2 / K3" if k.ndim != 4 else "K1")
+    faults = [(f, fn) for f, fn in planted_faults("pool_attention", ops.pool_attention).items()]
+    for fault, fn, combo in ([("none (the kernels themselves)", None, c) for c in TP_COMBOS]
+                             + [(f, fn, TP_COMBOS[0]) for f, fn in faults]):
+        worst, by = [0.0], {}
+        with contextlib.ExitStack() as stack:
+            for k in ATTN_KERNELS:
+                real = fn if (fn is not None and k == "pool_attention") else getattr(ops, k)
+                stack.enter_context(swapped(ops, k, shadowed(real, k, worst, by, label)))
+            tp_serve(cfg_p, staged, layout, combo, BATCH, arch)
+        log(f"  per launch, planted fault: {fault} ({'/'.join(combo)}): every K1-K3 launch "
+            f"vs its plain version at G 3: worst {worst[0]:.3e} of its tolerance "
+            f"{ {k: round(v, 4) for k, v in by.items()} }")
+        if (worst[0] > 1.0) != (fn is not None):
+            failures.append(f"{path} per-launch check, planted fault '{fault}': "
+                            f"{worst[0]} of the tolerance")
+        if fn is not None:
+            results["pool_attention"].setdefault("planted", {})[
+                f"{path} per launch: {fault}"] = worst[0]
+    del staged
+    torch.cuda.empty_cache()
+    log(f"  {path} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+
+
+def tp_expert_parallel(results: dict, failures: list) -> None:
+    """(c) qwen2-moe-a2.7b (16 / 16 heads, 60 experts top-4 + 4 shared)
+    cut to 8 layers, expert parallelism at tp 8 = (kv 8, qg 1):
+    ``pad_experts`` pads 60 -> 64 routed experts (masked in the router:
+    never routable), 8 a shard; the shared experts f-sharded; routing
+    computed once, each shard's partial combine summed over the tp axis.
+    bf16, one wave of 2 under qship/``cuda`` (the main path: K1, K2), against the
+    tp 1 wave of the unpadded weights: the logits' error, the argmax and
+    the router's (token, slot) choices that differ, reported (BF16_LOGIT_TOL
+    holds no limit for this model: its router flips experts near ties
+    under any change of summation order), and the argmax held where the
+    tp 1 margin exceeds the spread of that wave against tp 1 fetch/paged.
+    fp32 (the same 8 layers): every argmax equal to tp 1's and the logits
+    within FP32_LOGIT_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import RunConfig, get_config, replace
+    from repro_torch.core import pipeline as pp
+    from repro_torch.core.staging import TPLayout
+    from repro_torch.models import layers as layers_mod
+    arch, path = "qwen2-moe-a2.7b", "tp qwen2-moe-a2.7b ep"
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(arch)
+    seq = N_CHUNKS * CHUNK
+    base = RunConfig(num_chunks=N_CHUNKS, num_stages=N_STAGES)
+    layout = TPLayout(8, kv=8)
+    e_pad = -(-full.moe.num_experts // layout.tp) * layout.tp
+    route = layers_mod.moe_route
+    choices: list = []
+
+    def record(*args, **kw):
+        w, picked = route(*args, **kw)
+        choices.append(picked.to(torch.uint8))
+        return w, picked
+
+    def recorded(fn):
+        choices.clear()
+        with swapped(layers_mod, "moe_route", record):
+            out = fn()
+        return out, list(choices)
+
+    for dtype in ("bfloat16", "float32"):
+        cfg = replace(depth(full, N_STAGES), dtype=dtype)
+        log(f"[tp] (c) {arch} {dtype}, {cfg.num_layers} layers of {full.num_layers}, "
+            f"experts {cfg.moe.num_experts} -> {e_pad}, EP at tp {layout.tp} = "
+            f"(kv {layout.kv}, qg {layout.qg})")
+        staged = tp_weights(cfg, pp.build_plan(cfg, N_STAGES, seq, base))
+        (want, _), picked1 = recorded(
+            lambda: tp_serve(cfg, staged, TPLayout(1), TP_COMBOS[0], BATCH, arch))
+        spread = None
+        if dtype == "bfloat16":
+            other = tp_serve(cfg, staged, TPLayout(1), TP_COMBOS[1], BATCH, arch)[0]
+            spread, _, _ = tp_against(other, want, "tp 1 qship/cuda (the bf16 spread)")
+        cfg_e, staged = pp.pad_experts(cfg, staged, e_pad)
+        mtp, staged = tp_shard(cfg_e, pp.build_plan(cfg_e, N_STAGES, seq, base), staged,
+                               layout)
+        check(mtp.moe_ep and mtp.shared_moe and mtp.attn and mtp.kv_div == 8,
+              f"{path}: {mtp}")
+        if dtype == "bfloat16":
+            got = tp_main_path(results, path, lambda: tp_serve(
+                cfg_e, staged, layout, TP_COMBOS[0], BATCH, arch),
+                kernels=ATTN_KERNELS[:2])[0]
+        (got2, _), picked8 = recorded(
+            lambda: tp_serve(cfg_e, staged, layout, TP_COMBOS[0], BATCH, arch))
+        if dtype == "bfloat16":
+            check(np.array_equal(got, got2), f"{path}: two EP runs differ")
+        n = sum(int((a != b).sum()) for a, b in zip(picked8, picked1))
+        total = sum(a.numel() for a in picked1)
+        check(len(picked8) == len(picked1) and all(int(a.max()) < cfg.moe.num_experts
+                                                   for a in picked8),
+              f"{path}: a padded expert was routed, or the routing calls differ")
+        log(f"    router choices differing from tp 1: {n} of {total} (token, slot)")
+        err, same, bad = tp_against(got2, want, "tp 1", spread)
+        if dtype == "float32" and (err >= FP32_LOGIT_TOL[arch] or same != BATCH):
+            failures.append(f"{path} fp32: err {err}, argmax equal {same}")
+        if dtype == "bfloat16" and bad:
+            failures.append(f"{path} bf16: held argmax differ for {bad}")
+        TP_NUMBERS[f"{path} {dtype}"] = dict(err=err, router_flips=n,
+                                                              router_choices=total)
+        del staged
+        torch.cuda.empty_cache()
+    log(f"  {path} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+
+
+def tp_phase(results: dict) -> None:
+    """The manual TP lowering's three runs (see TP_COMBOS' comment), the
+    card's name and power limit beside their numbers; fails if any check
+    of the three failed."""
+    log(f"[tp] {card_line()}")
+    failures: list = []
+    for fn in (tp_dense, tp_kv_split, tp_expert_parallel):
+        t0 = time.perf_counter()
+        fn(results, failures)
+        log(f"[tp] {fn.__name__} {time.perf_counter() - t0:.1f} s")
+    log(f"[tp] numbers {json.dumps(TP_NUMBERS)}")
     check(not failures, "; ".join(failures))
 
 
@@ -3665,6 +4108,9 @@ def main() -> int:
         t0 = time.perf_counter()
         fleet_phase(results)
         log(f"[fleet] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        tp_phase(results)
+        log(f"[tp] {time.perf_counter() - t0:.1f} s")
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

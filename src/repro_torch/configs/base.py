@@ -152,6 +152,9 @@ class RunConfig:
     ssm_backend: str = "torch"
     kv_dtype: str = "auto"            # auto | bfloat16 | float32 | int8 | fp8
     kv_page_tokens: int = 0           # 0 = one page per chunk
+    # tensor-parallel lowering: auto | manual (explicit psums over an
+    # emulated tp axis; ``core.plan.resolve_tp_lowering``)
+    tp_lowering: str = "auto"
 
 
 ATTN_BACKENDS = ("torch", "cuda")

@@ -15,6 +15,10 @@ port takes its chunk-attention kernel K1 at full-sequence causal shape
 ``attn_backend="cuda"`` launches K1 once per (layer, tick) over the N*bm
 rows of the tick; ``"torch"`` runs K1's plain version (as any wrapper does
 on the CPU).
+
+The manual TP lowering works here too (``layout``), through the same
+per-stage layer helpers and ``ManualTPApply`` hooks as the stage programs:
+the shards' partials are summed over the tp axis; GPipe has no ledger.
 """
 from __future__ import annotations
 
@@ -27,16 +31,18 @@ from repro_torch import device as devices
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import costmodel as cm
 from repro_torch.core.plan import PipelinePlan
+from repro_torch.core.staging import check_layout, layer_params, manual_tp_plan
 from repro_torch.core.stagestep import stage_out_ffn, stage_qkv
 from repro_torch.kernels import ops, ref
 from repro_torch.kvstore.quant import torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.obs import telemetry as obs_t
 
 
 @torch.no_grad()
 def gpipe_prefill(cfg: ModelConfig, staged, tokens, plan: PipelinePlan, *,
-                  device=None, return_telemetry: bool = False):
+                  device=None, return_telemetry: bool = False, layout=None):
     """GPipe prefill of ``tokens`` [B, S], B divisible by the plan's M
     microbatches; returns the fp32 next-token logits [B, Vpad]. Dense
     family only (the reference's stage body is the transformer layer).
@@ -53,6 +59,9 @@ def gpipe_prefill(cfg: ModelConfig, staged, tokens, plan: PipelinePlan, *,
         raise ValueError(f"params on {staged['embed'].device}, run on {dev}")
     tokens = torch.as_tensor(np.asarray(tokens) if not torch.is_tensor(tokens)
                              else tokens, device=dev).long()
+    mtp = manual_tp_plan(cfg, plan, layout)
+    check_layout(staged, mtp)
+    tpa = None if mtp is None else T.manual_tp_apply(mtp, lambda y: y.sum(dim=1))
     n, m, lps = plan.num_stages, plan.num_chunks, plan.layers_per_stage
     b, s_full = tokens.shape
     if b % m:
@@ -76,10 +85,10 @@ def gpipe_prefill(cfg: ModelConfig, staged, tokens, plan: PipelinePlan, *,
             x_emb = x_emb * cfg.embedding_multiplier
         x[0] = x_emb.to(dt)
         for li in range(lps):
-            lp = {k: w[:, li] for k, w in layers.items()}
-            q, k, v = stage_qkv(cfg, lp, x, cos, sin)
+            lp = layer_params(layers, li, mtp)
+            q, k, v = stage_qkv(cfg, lp, x, cos, sin, mtp)
             att = attention(q, k, v, causal_offset=0, scale=scale)
-            x = stage_out_ffn(cfg, lp, x, att)
+            x, _ = stage_out_ffn(cfg, lp, x, att, mtp=mtp, tpa=tpa)
         # the last stage's last-token state of microbatch t - (N - 1)
         phase = t - (n - 1)
         if 0 <= phase < m:

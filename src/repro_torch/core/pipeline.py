@@ -8,6 +8,13 @@ dimension: the stage-stacked params ``[N, lps, ...]``, the stage-stacked
 paged KV pool, the SSM state and the activations ``[N, B, C, d]``. Each
 tick runs every stage as batched ops, the fill/drain bubble included as in
 the reference, and the ring shift is a roll by one on the stage axis.
+
+The reference's manual tensor-parallel lowering (a stage = tp chips that
+split each layer, explicit psums) runs as a tp axis after the stage axis
+(``layout``, ``core.staging.TPLayout`` / ``ManualTP``): the params in the
+``shard_params`` layout, the pool and the attention rows at the local
+heads with the shards folded into the batch rows, the residual stream
+replicated (stored once) and the psums summed over the tp axis.
 """
 from __future__ import annotations
 
@@ -23,10 +30,13 @@ from repro_torch.core import transport as tx
 from repro_torch.core.attention import get_backend
 from repro_torch.core.gpipe import gpipe_prefill
 from repro_torch.core.plan import PipelinePlan, build_plan  # noqa: F401
-from repro_torch.core.stagestep import (StageCtx, hybrid_stage_step,
+from repro_torch.core.stagestep import (StageCtx, fold_shards, hybrid_stage_step,
                                        ssm_stage_step, tfm_stage_step)
 from repro_torch.core.staging import (Params, alloc_kv_pool,  # noqa: F401
-                                      alloc_ssm_state, stage_params)
+                                      alloc_ssm_state, check_layout,
+                                      kv_split_axes, layer_params,
+                                      manual_tp_plan, pad_experts, pad_q_heads,
+                                      stage_params, TPLayout)
 from repro_torch.kvstore import pages as kvpages
 from repro_torch.kvstore.pages import POOL_FIELDS, PagedPool
 from repro_torch.kvstore.quant import torch_dtype
@@ -41,7 +51,8 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
                      return_telemetry: bool = False,
                      prefix_chunks: int = 0,
                      prefix_pool: Optional[PagedPool] = None,
-                     return_kv: bool = False, tick_hook=None, health=None):
+                     return_kv: bool = False, tick_hook=None, health=None,
+                     layout: Optional[TPLayout] = None):
     """Chunked-pipeline prefill of ``tokens`` [B, S]; returns the fp32
     next-token logits [B, Vpad] (prefill only: one output token).
 
@@ -101,7 +112,17 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
     differ from the unseeded run's once ``prefix_chunks`` reaches a lent
     slot, chunk 4 at N = M = 8.) The put-back moves no telemetry residency:
     that follows the plan's lifecycle. Return order is
-    ``logits[, ledger][, telemetry][, kv]``, as the reference's."""
+    ``logits[, ledger][, telemetry][, kv]``, as the reference's.
+
+    ``layout`` (``core.staging.TPLayout``, the counterpart of the
+    reference's ``topo``): with tp > 1 the manual TP lowering
+    (``manual_tp_plan``) runs, and ``staged`` must be in its layout
+    (``shard_params``). The ledger then counts every tp chip's bytes, as
+    the reference's does after its collect over the stage and tp axes (the
+    ``tp`` key: the psums). The pool and ``return_kv``'s snapshot hold a
+    pool a shard, the shards folded into the batch axis ([N, P, lps,
+    tp * B, pt, kvh // kv_div, D]); the prefix path needs kv_div == tp, as
+    the reference asserts."""
     armed = bool(prefix_chunks) or prefix_pool is not None or return_kv
     if plan.mode == "gpipe":
         if return_ledger:
@@ -114,12 +135,17 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
         if embeds is not None:
             raise ValueError("gpipe runs the dense family, which takes no embeds")
         return gpipe_prefill(cfg, staged, tokens, plan, device=device,
-                             return_telemetry=return_telemetry)
+                             return_telemetry=return_telemetry, layout=layout)
     if plan.mode not in ("mocap", "terapipe"):
         raise ValueError(f"unknown mode {plan.mode!r}")
     if armed and cfg.family not in ("dense", "moe"):
         raise ValueError("the prefix KV cache needs the pure paged-pool "
                          f"families (dense / moe), not {cfg.family!r}")
+    mtp = manual_tp_plan(cfg, plan, layout)
+    check_layout(staged, mtp)
+    if armed and mtp is not None and mtp.kv_div != mtp.tp:
+        raise ValueError("prefix pool I/O under manual TP needs kv_div == tp "
+                         f"(kv_div {mtp.kv_div}, tp {mtp.tp})")
     if prefix_chunks and prefix_pool is None:
         raise ValueError("prefix_chunks > 0 requires a seeded prefix_pool")
     if not 0 <= prefix_chunks <= min(plan.p2, plan.num_chunks - 1):
@@ -147,7 +173,8 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
         raise ValueError(f"{n_front} embeds + tokens {tuple(tokens.shape)} "
                          f"vs plan {m} x {c}")
     dt = torch_dtype(cfg.dtype)
-    transport = tx.StageAxisTransport()
+    tp = 1 if mtp is None else mtp.tp
+    transport = tx.StageAxisTransport(replicas=tp)
     scale = cfg.attention_multiplier or 1.0 / math.sqrt(cfg.resolved_head_dim or 1)
     stages = np.arange(n)
     first_half = stages < n // 2
@@ -158,9 +185,9 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
     if family == "encdec":         # the encoder runs once, outside the tick loop
         enc_out = W.encode(cfg, staged, embeds,
                            attend=get_backend(plan.attn_backend).full_block)
-        cross = stage_cross_kv(cfg, staged["stage_layers"], enc_out)
+        cross = stage_cross_kv(cfg, staged["stage_layers"], enc_out, mtp)
         del enc_out
-    pool = alloc_kv_pool(cfg, plan, b, device=dev)          # None for ssm
+    pool = alloc_kv_pool(cfg, plan, b, device=dev, mtp=mtp)  # None for ssm
     if prefix_pool is not None:
         _check_seed(pool, prefix_pool)
     lent = []      # own chunks in slots the pair's spill overwrites later
@@ -171,16 +198,18 @@ def prefill_pipeline(cfg: ModelConfig, staged: Params, tokens, plan: PipelinePla
     led = tx.ledger_init()
     rec = obs_t.TelemetryRecorder(n) if return_telemetry else None
     tel = None if rec is None else rec.tel
-    # one chunk's STORED pool bytes (the telemetry's residency price)
+    # one chunk's STORED pool bytes (the telemetry's residency price), over
+    # the stage's tp shards at their local kv heads
     chunk_bytes = 0.0 if family == "ssm" else obs_t.chunk_stored_bytes(
-        plan, plan.layers_per_stage, b, c, cfg.num_kv_heads, cfg.resolved_head_dim)
+        plan, plan.layers_per_stage, tp * b, c,
+        cfg.num_kv_heads // (1 if mtp is None else mtp.kv_div), cfg.resolved_head_dim)
     bad = (torch.zeros((n, plan.num_ticks), dtype=torch.int32, device=dev)
            if health is not None else None)
     for t in range(plan.num_ticks):
         phase = t - stages
         ctx = StageCtx(cfg=cfg, plan=plan, stage=stages, phase=phase,
                        first_half=first_half, scale=scale, transport=transport,
-                       prefix_chunks=prefix_chunks, prefix_pool=prefix_pool)
+                       prefix_chunks=prefix_chunks, prefix_pool=prefix_pool, mtp=mtp)
         # stage 0 embeds chunk clip(t); the others take the ring buffer
         tc = min(max(t, 0), m - 1)
         x_emb = chunk_embed(staged["embed"], tokens, embeds if n_front else None,
@@ -262,22 +291,32 @@ def chunk_embed(embed: torch.Tensor, tokens: torch.Tensor,
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
-def stage_cross_kv(cfg: ModelConfig, layers: Params, enc_out: torch.Tensor):
+def stage_cross_kv(cfg: ModelConfig, layers: Params, enc_out: torch.Tensor,
+                   mtp=None):
     """Every stage's cross K/V of the encoder output ``enc_out`` [B, F, d]
     through its own ``xwk`` / ``xwv`` [N, lps, d, KVH*D]: (xk, xv), each
     [N, lps, B, F, KVH, D] on the stage axis, laid out layer-major in
     memory, so that a layer's slice ``[:, li]`` is one contiguous
     [N, B, F, KVH, D] block that the cross-attention kernel reads in
-    place."""
-    n, lps = layers["xwk"].shape[:2]
+    place. Under the manual TP lowering (``mtp``) each shard's own K/V at
+    its local heads, the shards folded into the batch axis: [N, lps,
+    tp * B, F, KVH / kv_div, D]."""
+    w0 = layers["xwk"]
+    n, lps = w0.shape[0], w0.shape[1 if mtp is None else 2]
     b, f, d = enc_out.shape
-    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
+    tp = 1 if mtp is None else mtp.tp
     flat = enc_out.reshape(1, b * f, d)
 
-    def one(w: torch.Tensor) -> torch.Tensor:
-        per = [torch.matmul(flat, w[:, li]).reshape(n, b, f, kvh, hd) for li in range(lps)]
+    def one(key: str) -> torch.Tensor:
+        per = []
+        for li in range(lps):
+            w = layer_params({key: layers[key]}, li, mtp)[key]
+            y = torch.matmul(flat if w.ndim == 3 else flat[None], w)
+            y = fold_shards(y.reshape(n, -1, b, f, y.shape[-1] // hd, hd), tp)
+            per.append(y.reshape(n, tp * b, *y.shape[1:]))
         return torch.stack(per).transpose(0, 1)
-    return one(layers["xwk"]), one(layers["xwv"])
+    return one("xwk"), one("xwv")
 
 
 def nonfinite_per_stage(x: torch.Tensor) -> torch.Tensor:

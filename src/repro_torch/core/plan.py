@@ -1,6 +1,5 @@
 """Static pipeline planning: everything decided before the tick loop runs
-(mirrors ``repro.core.plan``; the TP lowering knob is dropped — the port
-runs tp = 1).
+(mirrors ``repro.core.plan``).
 
 A ``PipelinePlan`` pins the pipeline geometry (N stages x M chunks x C
 tokens), the MBKR slot plan and its static numpy lookup tables, the KV page
@@ -37,6 +36,7 @@ class PipelinePlan:
     attn_backend: str = "torch"
     pool_backend: str = "torch"  # resolved, never "auto"
     ssm_backend: str = "torch"
+    tp_lowering: str = "manual"  # resolved (``resolve_tp_lowering``)
     spill_dtype: str = "bfloat16"
     ship_dtype: str = "bfloat16"
     kv_dtype: str = "bfloat16"   # resolved storage knob
@@ -83,6 +83,15 @@ def _invert(table: np.ndarray, num_slots: int, lo: int, hi: int) -> np.ndarray:
     return inv
 
 
+def resolve_tp_lowering(requested: str = "auto") -> str:
+    """``RunConfig.tp_lowering`` on one card: "manual" (the explicit psums
+    over the emulated tp axis, ``core.staging.ManualTP``). "auto" resolves
+    to "manual" too: one card has no GSPMD partitioner to hand TP to."""
+    if requested not in ("auto", "manual", "", None):
+        raise ValueError(f"unknown tp_lowering {requested!r}; choose 'auto' or 'manual'")
+    return "manual"
+
+
 def build_plan(cfg: ModelConfig, num_stages: int, seq_len: int,
                run: RunConfig, *, mode: Optional[str] = None) -> PipelinePlan:
     """Derive the static pipeline plan for one (arch, shape, run) cell."""
@@ -97,13 +106,15 @@ def build_plan(cfg: ModelConfig, num_stages: int, seq_len: int,
         raise ValueError(f"unknown pool_backend {run.pool_backend!r}")
     if run.ssm_backend not in ("torch", "cuda"):
         raise ValueError(f"unknown ssm_backend {run.ssm_backend!r}")
+    tp_lowering = resolve_tp_lowering(run.tp_lowering)
     m = run.num_chunks
     if mode == "gpipe":
         return PipelinePlan(mode, num_stages, m, 0,
                             _layers_per_stage(cfg, num_stages), 0, m,
                             attn_backend=run.attn_backend,
                             pool_backend=pool_backend,
-                            ssm_backend=run.ssm_backend)
+                            ssm_backend=run.ssm_backend,
+                            tp_lowering=tp_lowering)
     assert seq_len % m == 0, f"seq_len {seq_len} must divide into {m} chunks"
     c = seq_len // m
     use_mbkr = mode == "mocap" and not cfg.attn_free and num_stages >= 2 and m >= 2
@@ -120,6 +131,7 @@ def build_plan(cfg: ModelConfig, num_stages: int, seq_len: int,
         attn_backend=run.attn_backend,
         pool_backend=pool_backend,
         ssm_backend=run.ssm_backend,
+        tp_lowering=tp_lowering,
         spill_dtype=run.kv_spill_dtype,
         ship_dtype=cfg.dtype,
         kv_dtype=codec.name, page_tokens=geom.page_tokens,

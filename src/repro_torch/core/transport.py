@@ -8,7 +8,9 @@ tensor on one GPU, so:
 - ``ring_shift``  (perm i -> i+1) is ``torch.roll(x, 1, dims=0)``: stage j
   receives stage j-1's tensor;
 - ``pair_shift``  (perm i -> i+N/2) is ``torch.roll(x, N//2, dims=0)``;
-- ``stage_psum``  is a sum over dim 0, broadcast back.
+- ``stage_psum``  is a sum over dim 0, broadcast back;
+- ``tp_psum``     (the manual TP lowering's psum over a stage's tp chips)
+  is a sum over the tp axis, dim 1 of a [N, tp, ...] partial.
 
 The ledger keeps the reference's per-chip byte model: each call charges the
 bytes ONE stage's slice puts on the wire, once for every stage whose
@@ -16,6 +18,15 @@ bytes ONE stage's slice puts on the wire, once for every stage whose
 predicate and then sums over chips). The predicates depend only on the tick
 and the stage index, so they are host-side numpy arrays and the ledger is a
 dict of Python floats.
+
+Under the manual TP lowering a stage is tp chips, each charging its own
+bytes (the reference's ``ledger_collect`` sums over the stage and tp
+axes). A stage's slice of a sharded tensor holds all tp shards (the pool,
+the queries and the attention state fold them into the batch rows; a
+partial carries them on dim 1), so its bytes are already the sum over the
+shards. The residual stream and the final hidden state are replicated over
+the shards and stored once: ``ring_shift`` and ``stage_psum`` charge them
+``replicas`` (= tp) times.
 """
 from __future__ import annotations
 
@@ -67,6 +78,9 @@ class StageAxisTransport:
 
     name = "stage_axis"
 
+    def __init__(self, replicas: int = 1):
+        self.replicas = replicas
+
     @staticmethod
     def _all(x: torch.Tensor) -> np.ndarray:
         return np.ones(x.shape[0], bool)
@@ -75,7 +89,7 @@ class StageAxisTransport:
                    active=None) -> Tuple[torch.Tensor, Ledger]:
         """Activation advance to the next stage (ring +1)."""
         act = self._all(x) if active is None else active
-        return _roll(x, 1), charge(led, "ring", nbytes(x), act)
+        return _roll(x, 1), charge(led, "ring", self.replicas * nbytes(x), act)
 
     def pair_shift(self, x: torch.Tensor, led: Ledger = None, *, tag: str,
                    active=None) -> Tuple[torch.Tensor, Ledger]:
@@ -92,7 +106,18 @@ class StageAxisTransport:
         k = x.shape[0]
         act = self._all(x) if active is None else active
         out = x.sum(dim=0, keepdim=True).expand_as(x)
-        return out, charge(led, "collect", 2.0 * (k - 1) / k * nbytes(x), act)
+        return out, charge(led, "collect",
+                           self.replicas * 2.0 * (k - 1) / k * nbytes(x), act)
+
+    def tp_psum(self, x: torch.Tensor, led: Ledger = None, *,
+                active=None) -> Tuple[torch.Tensor, Ledger]:
+        """All-reduce over the tp axis: the partial x [N, tp, ...] summed
+        over dim 1 -> [N, ...] in x's dtype. Ring model, as the reference:
+        2(k-1)/k of the local partial's bytes per chip, k = tp chips a
+        stage, once per stage whose ``active`` flag is set."""
+        k = x.shape[1]
+        act = self._all(x) if active is None else active
+        return x.sum(dim=1), charge(led, "tp", 2.0 * (k - 1) / k * nbytes(x), act)
 
 
 def analytic_wire_bytes(plan, cfg, b: int) -> Dict[str, float]:
@@ -103,9 +128,10 @@ def analytic_wire_bytes(plan, cfg, b: int) -> Dict[str, float]:
     Logical bytes, whole run, all stages, useful-gated exactly like the
     ledger: a transfer counts when its payload is consumed (fetch chunk j at
     phase p counts iff j < p; qship counts iff p > p2; spill counts iff the
-    shipped chunk index is in [p2, M)). The ``tp`` category (the
-    reference's manual TP lowering) is not modeled; the port runs tp = 1.
-    Every chunk is shipped whole: the runtime only ships uniform chunks."""
+    shipped chunk index is in [p2, M)). These are tp = 1 totals; the
+    ``tp`` category (the manual TP lowering's psums) is not modeled, as in
+    the reference. Every chunk is shipped whole: the runtime only ships
+    uniform chunks."""
     n, m, c = plan.num_stages, plan.num_chunks, plan.chunk_len
     lps = plan.layers_per_stage
     kvh, hd, h = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_heads

@@ -14,12 +14,14 @@ serve surface (the port's copy of ``repro.launch.options``).
   cell's overrides applied (heterogeneous cells by construction).
 
 The fields are the port's serve flags, under the reference's names where
-it has one. The reference's TPU-only fields have no counterpart here, since
-nothing on one card can honour them: its ``jax`` executor, its
-``tp_lowering`` and ``transport`` (a torch cell runs tp = 1: ``TorchExecutor``
-refuses more), its ``fetch_batch`` (the port's fetch is always one batched
-launch) and its ``kv_page_tokens`` (the port serves one page a chunk). The
-reference's ``preset`` is the port's ``smoke`` flag.
+it has one. ``tp`` (each stage's tensor-parallel degree, an emulated tp
+axis on one card; the reference derives it from its device count) and the
+reference's ``tp_lowering`` reach a torch cell ("auto" resolves to the
+manual lowering on the card). The reference's TPU-only fields have no
+counterpart here, since nothing on one card can honour them: its ``jax``
+executor, its ``transport``, its ``fetch_batch`` (the port's fetch is
+always one batched launch) and its ``kv_page_tokens`` (the port serves one
+page a chunk). The reference's ``preset`` is the port's ``smoke`` flag.
 """
 from __future__ import annotations
 
@@ -49,6 +51,8 @@ class ServeOptions:
     seq: int = 4096
     num_chunks: int = 8
     num_stages: int = 8
+    tp: int = 1                        # each stage's tp degree (torch executor)
+    tp_lowering: str = "auto"          # auto | manual (auto -> manual on the card)
     max_batch: int = 4
     seed: int = 0
     buckets: Optional[Tuple[int, ...]] = None   # None = --seq (sim: SIM_BUCKETS)
@@ -153,6 +157,11 @@ def add_serve_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--seq", type=int, default=S)
     ap.add_argument("--num-chunks", type=int, default=S)
     ap.add_argument("--num-stages", type=int, default=S)
+    ap.add_argument("--tp", type=int, default=S,
+                    help="tensor-parallel degree of each stage (torch executor: "
+                         "the manual TP lowering over an emulated tp axis)")
+    ap.add_argument("--tp-lowering", choices=("auto", "manual"), default=S,
+                    help="auto resolves to manual: one card has no GSPMD")
     ap.add_argument("--remote-attn", choices=("qship", "fetch"), default=S)
     ap.add_argument("--attn-backend", choices=ATTN_BACKENDS, default=S)
     ap.add_argument("--pool-backend", choices=POOL_BACKENDS, default=S)

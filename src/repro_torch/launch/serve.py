@@ -7,7 +7,11 @@
     python -m repro_torch.launch.serve --arch mamba2-130m   # attention-free
 
 runs on the card (``--device cpu`` for the CPU; ``--smoke`` for the small
-config). Weights are random, drawn from ``--seed`` straight into the
+config). ``--tp 2`` splits each stage's layers over an emulated tp axis of
+2 shards (the reference's manual TP lowering: sharded heads and FFN,
+explicit psums charged to the ledger's ``tp`` key):
+
+    python -m repro_torch.launch.serve --tp 2 --requests 4 Weights are random, drawn from ``--seed`` straight into the
 stage-stacked layout. Prints each request's argmax token and the wave wall
 times.
 
@@ -90,7 +94,8 @@ from repro_torch import device as devices
 from repro_torch.configs.base import RunConfig, get_config, get_smoke_config
 from repro_torch.core import costmodel as cm
 from repro_torch.core import pipeline as pp
-from repro_torch.core.staging import init_staged
+from repro_torch.core.staging import (TPLayout, init_staged, manual_tp_plan,
+                                      shard_params)
 from repro_torch.launch.options import (SIM_BUCKETS, ServeOptions, add_serve_args,
                                         options_from_args, resolve_fleet)
 from repro_torch.runtime.engine import (ContinuousEngine, EngineConfig,
@@ -151,12 +156,19 @@ def build(args: ServeOptions):
                         remote_attn=args.remote_attn,
                         attn_backend=args.attn_backend,
                         pool_backend=args.pool_backend,
-                        ssm_backend=args.ssm_backend, kv_dtype=args.kv_dtype)
+                        ssm_backend=args.ssm_backend, kv_dtype=args.kv_dtype,
+                        tp_lowering=args.tp_lowering)
         plan = pp.build_plan(cfg, args.num_stages, args.seq, run)
         gen = torch.Generator(device=dev).manual_seed(args.seed)
-        staged = init_staged(cfg, plan, gen, device=dev)
-        executor = TorchExecutor(cfg, staged, run, device=dev)
-        ec = EngineConfig(model=cfg, num_stages=args.num_stages, tp=1,
+        layout = TPLayout(args.tp)
+        mtp = manual_tp_plan(cfg, plan, layout)
+        staged = shard_params(cfg, init_staged(cfg, plan, gen, device=dev), mtp)
+        if mtp is not None:
+            print(f"[transport] {plan.tp_lowering} TP lowering (tp={args.tp}, attn "
+                  f"{mtp.attn}, kv_div {mtp.kv_div}, ffn {mtp.ffn}, moe_ffn "
+                  f"{mtp.moe_ffn}, shared_moe {mtp.shared_moe})")
+        executor = TorchExecutor(cfg, staged, run, device=dev, layout=layout)
+        ec = EngineConfig(model=cfg, num_stages=args.num_stages, tp=args.tp,
                           num_chunks=args.num_chunks,
                           buckets=args.buckets or (args.seq,),
                           partition="uniform", **knobs)

@@ -142,7 +142,8 @@ def moe_dispatch(choices: torch.Tensor, weights: torch.Tensor, num_experts: int,
 
 
 def moe_layer(params, x: torch.Tensor, *, num_experts: int, top_k: int,
-              capacity_factor: float, num_real: int = 0) -> torch.Tensor:
+              capacity_factor: float, num_real: int = 0, sharded: bool = False,
+              ep: bool = False) -> torch.Tensor:
     """Token-choice top-k MoE with per-row capacity-bounded sort dispatch
     (the reference's ``moe_layer``, default layout). x [B, S, d] with
     router [d, E], wg / wu [E, d, f], wd [E, f, d]; or, stage-stacked,
@@ -156,7 +157,18 @@ def moe_layer(params, x: torch.Tensor, *, num_experts: int, top_k: int,
     weights at every call. The combine inverts the dispatch: each token
     sums its k slots' weighted outputs in slot order in fp32, then casts
     to x's dtype (the reference scatter-adds in x's dtype; this is
-    deterministic and at most one rounding from it)."""
+    deterministic and at most one rounding from it).
+
+    ``sharded`` (the manual TP lowering, stage-stacked only): the expert
+    weights carry a tp axis after G, [G, tp, E / tp, d, f] under expert
+    parallelism (``ep``: shard t holds experts [t E / tp, (t + 1) E / tp),
+    kv-major as the reference slices them) or [G, tp, E, d, f / tp]
+    (f-sharded). Routing and dispatch are computed once, replicated, as in
+    the reference; each shard runs its own expert rows, and the return is
+    every shard's PARTIAL combine [G, tp, B, S, d] (its own experts' slots,
+    or its f-slice of every slot), which the caller sums over the tp axis
+    (the reference's psum). Padded experts are never routable
+    (``num_real``)."""
     grouped = params["router"].ndim == 3
     if not grouped:
         params = {n: w[None] for n, w in params.items()}
@@ -172,17 +184,47 @@ def moe_layer(params, x: torch.Tensor, *, num_experts: int, top_k: int,
     xd = xr.gather(1, tok.reshape(g * b, e * cap, 1).long().expand(-1, -1, d))
     xd = xd * valid.reshape(g * b, e * cap, 1).to(x.dtype)
     xd = xd.reshape(g, b, e, cap, d).transpose(1, 2).reshape(g, e, b * cap, d)
-    y = xd.new_empty((g, e, b * cap, d))
-    for i in range(g):
-        h = F.silu(torch.matmul(xd[i], params["wg"][i])) * torch.matmul(xd[i], params["wu"][i])
-        torch.matmul(h, params["wd"][i], out=y[i])
-    y = y.reshape(g, e, b, cap, d).transpose(1, 2).reshape(g * b, e * cap, d)
-    y = y * (wgt * valid).reshape(g * b, e * cap, 1).to(y.dtype)
-    kept = pos < e * cap
-    pairs = y.gather(1, torch.where(kept, pos, 0)[..., None].expand(-1, -1, d))
-    pairs = torch.where(kept[..., None], pairs, 0)
-    out = pairs.reshape(g, b, s, k, d).float().sum(3).to(x.dtype)
-    return out if grouped else out[0]
+
+    def experts(xs, wg, wu, wd, out) -> None:
+        h = F.silu(torch.matmul(xs, wg)) * torch.matmul(xs, wu)
+        torch.matmul(h, wd, out=out)
+
+    def pairs_of(y: torch.Tensor) -> torch.Tensor:
+        """Each (token, slot)'s weighted output [G, B, S, k, d] of the
+        expert outputs y [G, E, B*cap, d] (zero for a dropped pair)."""
+        y = y.reshape(g, e, b, cap, d).transpose(1, 2).reshape(g * b, e * cap, d)
+        y = y * (wgt * valid).reshape(g * b, e * cap, 1).to(y.dtype)
+        kept = pos < e * cap
+        pairs = y.gather(1, torch.where(kept, pos, 0)[..., None].expand(-1, -1, d))
+        return torch.where(kept[..., None], pairs, 0).reshape(g, b, s, k, d)
+
+    if not sharded:
+        y = xd.new_empty((g, e, b * cap, d))
+        for i in range(g):
+            experts(xd[i], params["wg"][i], params["wu"][i], params["wd"][i], y[i])
+        out = pairs_of(y).float().sum(3).to(x.dtype)
+        return out if grouped else out[0]
+    shards = params["wg"].shape[1]
+    if ep:
+        e_loc = e // shards
+        y = xd.new_empty((g, e, b * cap, d))
+        for i in range(g):
+            for t in range(shards):
+                rows = slice(t * e_loc, (t + 1) * e_loc)
+                experts(xd[i, rows], params["wg"][i, t], params["wu"][i, t],
+                        params["wd"][i, t], y[i, rows])
+        pairs = pairs_of(y)
+        owner = (choices.reshape(g, b, s, k) // e_loc)[..., None]
+        parts = [torch.where(owner == t, pairs, 0).float().sum(3) for t in range(shards)]
+    else:
+        parts = []
+        for t in range(shards):
+            y = xd.new_empty((g, e, b * cap, d))
+            for i in range(g):
+                experts(xd[i], params["wg"][i, t], params["wu"][i, t],
+                        params["wd"][i, t], y[i])
+            parts.append(pairs_of(y).float().sum(3))
+    return torch.stack(parts, dim=1).to(x.dtype)
 
 
 def pad_vocab(v: int, multiple: int = 128) -> int:

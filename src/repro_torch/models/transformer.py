@@ -13,7 +13,8 @@ batch row against a KV cache, through the flash-decode kernel K5
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -23,6 +24,35 @@ from repro_torch.kvstore.quant import torch_dtype
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
+
+
+@dataclass(frozen=True)
+class ManualTPApply:
+    """Manual-TP hooks of the FFN (mirrors the reference's
+    ``ManualTPApply``): which param groups arrive sharded, so that their
+    outputs are partials [G, tp, ...] that ``reduce`` sums over the tp
+    axis (the reference's psum, a transport closure supplied by the
+    caller, which charges its ledger). ``ep``: manual expert parallelism
+    (each shard holds its own experts), the reference's ``ep_axes``.
+    The attention's psum after the o-projection is the stage programs'
+    (``core.stagestep.stage_out``). ``None`` everywhere else: the
+    unsharded path."""
+    reduce: Callable[[torch.Tensor], torch.Tensor]
+    attn: bool = False        # wq/wk/wv/wo head-sharded -> reduce after wo
+    dense: bool = False       # wg/wu/wd f-sharded -> reduce after wd
+    moe: bool = False         # expert output partial (f- or expert-sharded)
+    shared: bool = False      # shared-experts s_w* f-sharded
+    ep: bool = False          # manual EP: each shard's own experts
+
+
+def manual_tp_apply(mtp, reduce: Callable[[torch.Tensor], torch.Tensor]
+                    ) -> ManualTPApply:
+    """The one mapping from a ``core.staging.ManualTP`` plan (duck-typed:
+    this layer sits below core) to the hooks; the stage programs and GPipe
+    both build through here."""
+    return ManualTPApply(reduce=reduce, attn=mtp.attn, dense=mtp.ffn,
+                         moe=(mtp.moe_ffn or mtp.moe_ep), shared=mtp.shared_moe,
+                         ep=mtp.moe_ep)
 
 
 def init_layers(cfg: ModelConfig, generator: torch.Generator, device=None,
@@ -134,30 +164,61 @@ def attn_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
     return x + cfg.residual_multiplier * out, k, v
 
 
-def ffn_out(cfg: ModelConfig, lp: Params, hn: torch.Tensor) -> torch.Tensor:
+def ffn_out(cfg: ModelConfig, lp: Params, hn: torch.Tensor,
+            tp: Optional[ManualTPApply] = None) -> torch.Tensor:
     """The FFN of the normed input ``hn`` [B, S, d] (or stage-stacked
     [G, B, S, d] with ``lp`` leaves [G, ...]): SwiGLU, or the routed
     experts (``moe_layer``, each row dispatching over its own S tokens)
-    plus the shared experts' SwiGLU."""
-    def swiglu(prefix: str) -> torch.Tensor:
+    plus the shared experts' SwiGLU.
+
+    Under the manual TP lowering (``tp``, stage-stacked only) a sharded
+    part's leaves carry a tp axis ([G, tp, ...], or [tp, ...] for the
+    hybrid's unstacked shared block) and its output is a partial
+    [G, tp, B, S, d]; as in the reference, the sharded parts are summed and
+    reduced with ONE ``tp.reduce``, and the replicated parts add after it,
+    so a replicated output is never counted tp times."""
+    partial, replicated = None, None
+
+    def acc(out, sharded: bool) -> None:
+        nonlocal partial, replicated
+        if sharded:
+            partial = out if partial is None else partial + out
+        else:
+            replicated = out if replicated is None else replicated + out
+
+    def swiglu(prefix: str, sharded: bool) -> torch.Tensor:
         w = {n: lp[prefix + n] for n in ("wg", "wu", "wd")}
         if hn.ndim == 3:
             return L.swiglu(w, hn)
         g, b, s, d = hn.shape                 # stage-stacked: [G, B*S, d] products
-        return L.swiglu(w, hn.reshape(g, b * s, d)).reshape(g, b, s, d)
+        if not sharded:
+            return L.swiglu(w, hn.reshape(g, b * s, d)).reshape(g, b, s, d)
+        shards = w["wg"].shape[-3]            # one partial a shard: [G, tp, B*S, d]
+        x = hn.reshape(g, 1, b * s, d).expand(g, shards, b * s, d).contiguous()
+        return L.swiglu(w, x).reshape(g, shards, b, s, d)
 
+    on = tp is not None
     if cfg.moe is None:
-        return swiglu("")
-    m = cfg.moe
-    out = L.moe_layer({"router": lp["router"], "wg": lp["e_wg"], "wu": lp["e_wu"],
-                       "wd": lp["e_wd"]}, hn, num_experts=m.num_experts, top_k=m.top_k,
-                      capacity_factor=m.capacity_factor, num_real=m.real_experts)
-    return out + swiglu("s_") if m.num_shared_experts else out
+        acc(swiglu("", on and tp.dense), on and tp.dense)
+    else:
+        m = cfg.moe
+        sharded = on and tp.moe
+        acc(L.moe_layer({"router": lp["router"], "wg": lp["e_wg"], "wu": lp["e_wu"],
+                         "wd": lp["e_wd"]}, hn, num_experts=m.num_experts, top_k=m.top_k,
+                        capacity_factor=m.capacity_factor, num_real=m.real_experts,
+                        sharded=sharded, ep=sharded and tp.ep), sharded)
+        if m.num_shared_experts:
+            acc(swiglu("s_", on and tp.shared), on and tp.shared)
+    out = replicated
+    if partial is not None:
+        out = tp.reduce(partial) if out is None else tp.reduce(partial) + out
+    return out
 
 
-def ffn_block(cfg: ModelConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
+def ffn_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+              tp: Optional[ManualTPApply] = None) -> torch.Tensor:
     hn = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + cfg.residual_multiplier * ffn_out(cfg, lp, hn)
+    return x + cfg.residual_multiplier * ffn_out(cfg, lp, hn, tp)
 
 
 def layer_apply(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,

@@ -31,9 +31,16 @@ The stage predicates (``ctx.phase``, ``ctx.first_half``, ``ctx.active``)
 are host numpy arrays ([N], known before a tick runs), so telemetry is
 host arithmetic: per key a float64 ``[N]`` accumulator, snapshotted every
 tick into the ``[N, T]`` profile. It adds no device op and no synchronize;
-disabled (``tel=None``) every charge is a no-op. The reference's
-``telemetry_collect`` (a psum over the manual TP axes) has no counterpart:
-the port runs tp = 1 with no TP axis to sum over.
+disabled (``tel=None``) every charge is a no-op.
+
+Under the manual TP lowering the reference charges each of a stage's tp
+chips 1/tp of every count and the bytes of its own shard, and its
+``telemetry_collect`` psums the chips back into per-stage values. Here a
+stage's counts are restored from the shards by construction: a count is
+charged once a stage (the sum of its shards' 1/tp), and ``kv_bytes`` is
+priced at the pool's folded geometry (``chunk_stored_bytes`` over tp * B
+rows at the local kv heads: the sum of the shards' bytes), so no collect
+step remains.
 """
 from __future__ import annotations
 

@@ -49,6 +49,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import costmodel as cm
 from repro_torch.core import lbcp, mbkr
 from repro_torch.core import pipeline as pp
+from repro_torch.core.staging import TPLayout
 from repro_torch.kvstore import quant as kvquant
 from repro_torch.kvstore.pages import POOL_FIELDS, PagedPool
 from repro_torch.kvstore.prefix import (DeviceSeedCache, PrefixPageCache,
@@ -258,10 +259,17 @@ class TorchExecutor:
 
     As the reference's ``JaxExecutor``, it passes no frontend embeddings:
     a vlm (llava-next-34b) is served text-only, and an encdec model
-    (whisper-small), which cannot run without its frames, is refused."""
+    (whisper-small), which cannot run without its frames, is refused.
+
+    ``layout`` (``core.staging.TPLayout``): the tp axis of each stage. At
+    tp > 1 the waves run the manual TP lowering (the plans take
+    ``run.tp_lowering``, "auto" resolving to "manual" on the card), and
+    ``staged_params`` must be in its layout (``core.staging.
+    shard_params``); ``run`` is then called with that tp. A prefix
+    snapshot holds the request's rows of every shard's pool."""
 
     def __init__(self, cfg: ModelConfig, staged_params, run: RunConfig, *,
-                 device=None):
+                 device=None, layout: Optional[TPLayout] = None):
         if cfg.family == "encdec":
             raise ValueError(
                 f"{cfg.arch}: TorchExecutor serves token prompts only, and the "
@@ -269,6 +277,7 @@ class TorchExecutor:
                 "prefill_pipeline(embeds=)")
         self.device = devices.resolve(device)
         self.cfg, self.run_cfg = cfg, run
+        self.layout = layout or TPLayout()
         self.staged = staged_params
         self._plans: Dict[Tuple[int, int, int], pp.PipelinePlan] = {}
         self.waves: List[Dict[str, Any]] = []
@@ -303,10 +312,11 @@ class TorchExecutor:
 
     def _assemble_seed(self, cache: DeviceSeedCache,
                        chains: List[Tuple[int, ...]], k: int) -> Optional[PagedPool]:
-        """Stack each request's cached batch element on axis 3 into one
-        stage-stacked ``PagedPool`` [N, P, lps, B, ...] on the device, the
-        ``prefix_pool`` input of ``prefill_pipeline``. None if any element
-        is missing."""
+        """Stack each request's cached batch element on the batch axis into
+        one stage-stacked ``PagedPool`` [N, P, lps, B, ...] on the device
+        (at tp > 1 [N, P, lps, tp * B, ...]: shard-major rows, as the pool
+        folds them), the ``prefix_pool`` input of ``prefill_pipeline``.
+        None if any element is missing."""
         elems = [cache.lookup(ch, k) for ch in chains]
         if any(e is None for e in elems):
             return None
@@ -314,12 +324,16 @@ class TorchExecutor:
         def stack(f):
             if elems[0][f] is None:
                 return None
-            return kvquant.stack([e[f].to(self.device, non_blocking=True)
-                                  for e in elems], dim=3)
+            xs = [e[f].to(self.device, non_blocking=True) for e in elems]
+            if self.layout.tp == 1:
+                return kvquant.stack(xs, dim=3)
+            return kvquant.stack(xs, dim=4).flatten(3, 4)
         return PagedPool(*(stack(f) for f in POOL_FIELDS))
 
     def _snapshot(self, kv: PagedPool, i: int) -> Dict[str, Optional[torch.Tensor]]:
-        """Batch element ``i`` of the final pool, copied to host memory."""
+        """Batch element ``i`` of the final pool ([N, P, lps, ...]; at
+        tp > 1 its rows of every shard's pool, [N, P, lps, tp, ...]),
+        copied to host memory."""
         pin = self.device.type == "cuda"
         out: Dict[str, Optional[torch.Tensor]] = {}
         for f in POOL_FIELDS:
@@ -327,7 +341,9 @@ class TorchExecutor:
             if x is None:
                 out[f] = None
                 continue
-            src = kvquant.as_bytes(x)[:, :, :, i]
+            src = kvquant.as_bytes(x)
+            src = (src[:, :, :, i] if self.layout.tp == 1
+                   else src.unflatten(3, (self.layout.tp, -1))[:, :, :, :, i])
             host = torch.empty(src.shape, dtype=src.dtype, pin_memory=pin)
             out[f] = host.copy_(src, non_blocking=True).view(x.dtype)
         return out
@@ -335,8 +351,9 @@ class TorchExecutor:
     def run(self, requests: Sequence[Request], chunks: Sequence[int],
             num_stages: int, tp: int) -> Tuple[float, np.ndarray]:
         """Returns (wave wall seconds, per-stage average chunk time [N])."""
-        if tp != 1:
-            raise ValueError("this slice runs tp = 1")
+        if tp != self.layout.tp:
+            raise ValueError(f"tp {tp}: this executor's params are laid out for "
+                             f"tp = {self.layout.tp} (TorchExecutor(layout=))")
         if len(set(chunks)) != 1:
             raise ValueError(f"uniform chunks only, got {list(chunks)}")
         seq = int(sum(chunks))
@@ -378,7 +395,7 @@ class TorchExecutor:
                 self.cfg, self.staged, toks, plan, device=self.device,
                 return_telemetry=collect, prefix_chunks=k, prefix_pool=seed,
                 return_kv=armed, tick_hook=None if col is None else col.note,
-                health=health)
+                health=health, layout=self.layout)
         res = res if isinstance(res, tuple) else (res,)
         out = res[0]
         tel = res[1] if collect else None

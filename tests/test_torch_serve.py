@@ -104,6 +104,8 @@ def test_bucket_of():
 
 
 def test_executor_refuses_tp_and_ragged_chunks():
+    """A tp other than the one its params are laid out for (tp 1 here: no
+    ``layout``), and a non-uniform chunk list, are refused."""
     cfg = replace(get_smoke_config("qwen3-8b"), dtype="float32")
     run = RunConfig(num_chunks=M, num_stages=N)
     staged = init_staged(cfg, pp.build_plan(cfg, N, SEQ, run),
@@ -116,6 +118,34 @@ def test_executor_refuses_tp_and_ragged_chunks():
         ex.run(req, [8, 24] + [16] * (M - 2), N, tp=1)
 
 
+@pytest.mark.parametrize("remote,pool", [("qship", "cuda"), ("fetch", "paged")])
+def test_executor_at_tp2_matches_tp1(remote, pool):
+    """``TorchExecutor`` at tp 2 (params through ``shard_params``) through
+    ``PrefillEngine``: the tp 1 executor's argmaxes, and its logits within
+    max rel err 2e-3 (fp32)."""
+    from repro_torch.core.staging import TPLayout, manual_tp_plan, shard_params
+    cfg = replace(get_smoke_config("qwen3-8b"), dtype="float32")
+    run = RunConfig(num_chunks=M, num_stages=N, remote_attn=remote,
+                    attn_backend="cuda", pool_backend=pool)
+    plan = pp.build_plan(cfg, N, SEQ, run)
+    staged = init_staged(cfg, plan, torch.Generator().manual_seed(0), device="cpu")
+    out = {}
+    for tp in (1, 2):
+        layout = TPLayout(tp)
+        ex = TorchExecutor(cfg, shard_params(cfg, staged, manual_tp_plan(cfg, plan, layout)),
+                           run, device="cpu", layout=layout)
+        eng = PrefillEngine(EngineConfig(model=cfg, num_stages=N, tp=tp, num_chunks=M,
+                                         max_batch=2, buckets=(SEQ,),
+                                         partition="uniform"), ex)
+        for r in make_requests(4, SEQ, cfg.vocab_size, seed=3):
+            eng.submit(r)
+        eng.run_until_drained()
+        assert len(eng.done) == 4 and len(ex.waves) == 2
+        out[tp] = np.stack([r.result for r in sorted(eng.done, key=lambda r: r.rid)])
+    assert (out[2].argmax(-1) == out[1].argmax(-1)).all()
+    assert (np.abs(out[2] - out[1]) / (np.abs(out[1]) + 1e-3)).max() < 2e-3
+
+
 def test_serve_cli_on_cpu():
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke", "--device", "cpu",
@@ -126,6 +156,22 @@ def test_serve_cli_on_cpu():
     assert r.returncode == 0, r.stdout + r.stderr
     assert sum(line.startswith("request ") for line in r.stdout.splitlines()) == 4
     assert "wave wall s:" in r.stdout
+
+
+def test_serve_cli_tp2_on_cpu():
+    """``--tp 2``: the manual TP lowering's line, and the tp 1 run's
+    argmaxes."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    argmax = {}
+    for tp in ("1", "2"):
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke", "--device",
+               "cpu", "--requests", "2", "--seq", "128", "--num-chunks", "8",
+               "--num-stages", "8", "--tp", tp, "--tp-lowering", "auto"]
+        r = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=300)
+        assert r.returncode == 0, r.stdout + r.stderr
+        assert ("[transport] manual TP lowering (tp=2" in r.stdout) == (tp == "2")
+        argmax[tp] = re.findall(r"request \d+: argmax (\d+)", r.stdout)
+    assert len(argmax["2"]) == 2 and argmax["2"] == argmax["1"]
 
 
 def test_serve_cli_continuous_on_cpu():
