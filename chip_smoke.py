@@ -59,10 +59,10 @@ prints no result line):
      tokens: K3's CUDA-core body), held and timed
      (``whisper_pipeline_shapes``); K1-K3 at the kv_split shard of
      qwen3-14b at tp 16 (3 query heads, 1 kv head of 128, 256 rows), with
-     the planted K2 faults; at qwen3-8b's shape, G 5 and that G 3, K2's
-     and K3's function also timed as one call of PyTorch's
-     memory-efficient attention with an attn_bias over the invalid slots
-     (``sdpa_pool_ms``);
+     the planted K2 faults; at every K2 / K3 shape (whisper's pipeline
+     shape included), K2's and K3's function also timed as one call of
+     PyTorch's memory-efficient attention with an attn_bias over the
+     invalid slots (``sdpa_pool_ms``);
    - K4 the Mamba2 SSD scan at zamba2-7b's and mamba2-130m's shapes in
      bf16 and fp32, with a non-zero init_state, one a_log / d_skip row per
      stage (Gs = 8), x, b and c dense and as strided views of one
@@ -93,7 +93,7 @@ prints no result line):
    under qship/cuda, fetch/paged and qship/cuda int8; stablelm-3b (32)
    under terapipe fetch/cuda and mocap qship/paged; qwen2-moe-a2.7b (24)
    and granite-moe-3b-a800m (32) under two of qship/fetch x cuda/paged;
-   qwen3-14b (40, GQA group 5; K1-K3 held per launch) under qship/cuda,
+   qwen3-14b (16 of 40 layers, GQA group 5; K1-K3 held per launch) under qship/cuda,
    fetch/paged and qship/cuda int8; the paper's four models, llama3-70b
    (G 8; also int8 pages and a profiled wave), mistral-123b (G 12),
    qwen3-235b (MoE, 128 experts top 8, G 16) and llama3-405b (G 16), cut
@@ -195,7 +195,18 @@ prints no result line):
     kv_split view at tp 16 = (kv 8, qg 2), 40 -> 48 query heads (K1-K3 at
     G 3, D 128, held per launch, planted K2 faults); qwen2-moe-a2.7b at 8
     layers with expert parallelism at tp 8, 60 -> 64 experts, against tp 1
-    (router flips reported; fp32 argmax held) (see ``tp_phase``).
+    (router flips reported; fp32 argmax held) (see ``tp_phase``);
+13. train (``repro_torch.train``, the card's name and power limit beside
+    it): one fp32 step of each family's smoke config (qwen3-8b,
+    qwen2-moe-a2.7b, mamba2-130m, zamba2-7b, llava-next-34b, whisper-small)
+    on the card against the same on the CPU (loss, every gradient leaf,
+    the params after the step); grad_accum 4 against 1 on the card;
+    qwen3-8b at full width cut to 8 layers in bf16, 4 steps of 2 x 4096
+    tokens in 2 microbatches with remat (step 0's loss against ln V and an
+    fp32 forward; step time, tokens/s, peak memory); the train CLI as a
+    subprocess (stablelm-3b, 100m preset, 40 steps, checkpoints every 20)
+    and a second one resumed from its step-20 checkpoint; no kernel
+    launched over the phase (see ``train_phase``).
 
 Then one JSON line of per-kernel numbers and, last, the result line.
 """
@@ -484,9 +495,9 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, key=None,
     128 and 16 tokens and a partial last page. At d 80 the planted faults
     of ``pad_faults`` run too. ``k2_faults``: the planted K2 faults
     (``planted_faults``) on the tensor-core body's bf16 stack, each of
-    which must break ``compare``'s limit. At SDPA_POOL_SHAPES the K2 / K3
-    function is also timed as one call of PyTorch's memory-efficient
-    attention (``sdpa_pool_ms``)."""
+    which must break ``compare``'s limit. The K2 / K3 function is also
+    timed as one call of PyTorch's memory-efficient attention
+    (``sdpa_pool_ms``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -615,7 +626,7 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, key=None,
             kv_read = 2.0 * n_valid * batch * c * kvh * d * k.element_size()
             ops_n = 4.0 * d * n_valid * batch * h * c * c
             b_ms, by = bound_ms(nbytes(q, valid, *got) + kv_read, ops_n, name)
-            lib = sdpa_pool_ms(q, k, v, valid, got) if key in SDPA_POOL_SHAPES else None
+            lib = sdpa_pool_ms(q, k, v, valid, got)
             record("pool_attention", ms=ms, windowed_ms=win_ms, profiler_ms=prof_ms,
                    plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=by)
             log(f"  time: kernel {ms:.4f} ms ({win_ms:.4f} ms a call in windows of "
@@ -701,10 +712,9 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, key=None,
             kv_read = 2.0 * n_valid * batch * c * kvh * d * kp.element_size()
             ops_n = 4.0 * d * n_valid * batch * h * c * c
             b_ms, by = bound_ms(nbytes(q, valid, handles, *got) + kv_read, ops_n, name)
-            lib = None
-            if key in SDPA_POOL_SHAPES:    # the same function: K2's stack of the same slots
-                lib = sdpa_pool_ms(q, k_l[:, :slots].movedim(1, 0).flatten(1, 2),
-                                   v_l[:, :slots].movedim(1, 0).flatten(1, 2), valid, got)
+            # the same function: K2's stack of the same slots
+            lib = sdpa_pool_ms(q, k_l[:, :slots].movedim(1, 0).flatten(1, 2),
+                               v_l[:, :slots].movedim(1, 0).flatten(1, 2), valid, got)
             record("pool_attention_paged", ms=ms, windowed_ms=win_ms, profiler_ms=prof_ms,
                    plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=by)
             log(f"  time: kernel {ms:.4f} ms ({win_ms:.4f} ms a call in windows of "
@@ -1226,9 +1236,6 @@ ATTN_SHAPES = {"d64": (32, 8, 64, True),        # granite-3-2b (G 4)
                "g3_d128": (3, 1, 128, False)}
 # rows a stage where a shape's path folds more than BATCH (the tp shards)
 ATTN_BATCH = {"g3_d128": 16 * BATCH}
-# where K2's and K3's function is also timed as one library call
-# (``sdpa_pool_ms``): qwen3-8b's shape (key None), G 5 and G 3
-SDPA_POOL_SHAPES = (None, "g5", "g3_d128")
 K2_FAULT_SHAPES = ("g7", "g16", "g3_d128")
 # whisper-small's non-causal K1 shapes (12 heads of 64, MHA): the decoder's
 # cross-attention, a chunk of WHISPER_C queries of N_STAGES x BATCH rows
@@ -1304,7 +1311,8 @@ def whisper_pipeline_shapes(results: dict) -> None:
     the CUDA-core body (``paged_tc_fits`` wants pages that fill 64-key
     tiles). Each is held against its plain version (``compare``) and timed
     as ``attention_phase`` times its kernel (SDPA's causal call beside
-    K1); recorded under ``results[kernel]["whisper_pipe"]``."""
+    K1, the memory-efficient SDPA call of ``sdpa_pool_ms`` beside K2 and
+    K3); recorded under ``results[kernel]["whisper_pipe"]``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -1335,11 +1343,14 @@ def whisper_pipeline_shapes(results: dict) -> None:
              ("pool_attention", "StackWalk", "tensor-core",
               lambda: ops.pool_attention(q, k_st, v_st, valid),
               lambda: ref.pool_attention_plain(q, k_st, v_st, valid),
-              lambda got: nbytes(q, valid, *got) + pool_read, pool_ops, None),
+              lambda got: nbytes(q, valid, *got) + pool_read, pool_ops,
+              lambda got: sdpa_pool_ms(q, k_st, v_st, valid, got)),
              ("pool_attention_paged", "paged_attn_kernel", "CUDA-core",
               lambda: ops.pool_attention_paged(q, k_pg, v_pg, handles, valid, ppc=1),
               lambda: ref.pool_attention_paged_plain(q, k_pg, v_pg, handles, valid, ppc=1),
-              lambda got: nbytes(q, valid, handles, *got) + pool_read, pool_ops, None))
+              lambda got: nbytes(q, valid, handles, *got) + pool_read, pool_ops,
+              lambda got: sdpa_pool_ms(q, *(x[:, :slots].movedim(1, 0).flatten(1, 2)
+                                           for x in (k_pg, v_pg)), valid, got)))
     for kernel, tag, body, call, plain_call, bytes_of, ops_n, lib_call in cases:
         log(f"[kernels] {kernel} at whisper-small's pipeline shape: q [{gb},{c},{h},{d}], "
             f"{body} body")
@@ -1350,7 +1361,8 @@ def whisper_pipeline_shapes(results: dict) -> None:
         ms, win_ms = time_ms(call), windowed_ms(call)
         prof_ms, seen = profiled_ms(call, tag)
         plain = time_ms(plain_call, **PLAIN_TIMING)
-        lib = time_ms(lib_call) if lib_call else None
+        lib = (time_ms(lib_call) if kernel == "chunk_attention"
+               else lib_call(got))        # K2 / K3: the memory-efficient SDPA call
         b_ms, by = bound_ms(bytes_of(got), ops_n, "bfloat16")
         res["whisper_pipe"] = dict(heads=h, kv_heads=h, head_dim=d, rows=gb, queries=c,
                                    page_tokens=c, body=body, ms=ms, windowed_ms=win_ms,
@@ -1460,7 +1472,9 @@ def smoke_parity_phase() -> None:
 # stablelm-3b's and granite-moe-3b-a800m's (their fp32 serves at 40, 32 and
 # 32 layers took some 20-36 s each), qwen2-moe-a2.7b's and
 # qwen3-14b's for the card's memory (24 fp32 layers of experts are ~57 GB,
-# 40 of qwen3-14b's ~59 GB). The paper's four models do not fit the card at
+# 40 of qwen3-14b's ~59 GB); qwen3-14b's bf16 runs take two layers a stage
+# (at 40 layers, holding each K1-K3 launch took 128 s of the script's time;
+# its full depth runs in the decode phase). The paper's four models do not fit the card at
 # full depth (llama3-70b's 80 layers are ~141 GB in bf16), so their bf16
 # runs take one layer a stage at full width, one wave of BATCH requests a
 # run, and they have no fp32 runs (their fp32 parity is the CPU tests')
@@ -1497,12 +1511,13 @@ SERVE_MODELS = {
         combos=[("fetch", "cuda", "cuda", "auto"), ("qship", "cuda", "paged", "auto")],
         kernels=ATTN_KERNELS, faults="pool_attention", per_launch=ATTN_KERNELS,
         wave=False, fp32_layers=N_STAGES),
-    # GQA group 5: K1-K3 held per launch; 40 fp32 layers are ~59 GB
+    # GQA group 5: K1-K3 held per launch; 40 fp32 layers are ~59 GB; the
+    # bf16 runs take 16 of 40 layers (two a stage) for the script's time
     "qwen3-14b": dict(
         combos=[("qship", "cuda", "cuda", "auto"), ("fetch", "cuda", "paged", "auto"),
                 ("qship", "cuda", "cuda", "int8")],
         kernels=ATTN_KERNELS, faults="pool_attention", per_launch=ATTN_KERNELS,
-        fp32_layers=N_STAGES, wave=False),
+        bf16_layers=2 * N_STAGES, fp32_layers=N_STAGES, wave=False),
     # the paper's four models (G 8, 12, 16, 16), 8 layers at full width
     "llama3-70b": dict(
         combos=[("qship", "cuda", "cuda", "auto"), ("fetch", "cuda", "paged", "auto"),
@@ -3987,6 +4002,366 @@ def fleet_phase(results: dict) -> None:
 
 # ------------------------------------------------------------------- build
 
+# ------------------------------------------------------------------- train
+
+# card against CPU: one fp32 step of each family's smoke config
+TRAIN_FAMILIES = ("qwen3-8b", "qwen2-moe-a2.7b", "mamba2-130m", "zamba2-7b",
+                  "llava-next-34b", "whisper-small")
+# qwen3-8b at full width cut to TRAIN_LAYERS layers, bf16: batch x seq tokens
+# a step in TRAIN_ACCUM microbatches, remat on, TRAIN_STEPS steps, warmup 1,
+# at TRAIN_LR: with warmup 1 the first AdamW step moves every weight by about
+# the LR, and at the default 3e-4 a 4096-wide product's output moves by ~1
+# (the loss rose 12.74 -> 25.35 in 4 steps on the card)
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 8, 2, 4096, 2, 4
+TRAIN_LR = 1e-5
+# the train CLI: stablelm-3b at the 100m preset, a checkpoint every
+# TRAIN_CLI_EVERY of TRAIN_CLI_STEPS steps, then --resume from the first
+TRAIN_CLI_STEPS, TRAIN_CLI_EVERY = 40, 20
+TRAIN_NUMBERS: dict = {}
+
+
+def train_batch(cfg, device, rows: int, seq: int, seed: int) -> dict:
+    """One batch of the seeded synthetic stream on ``device`` (and, for the
+    vlm and encdec, stub embeddings from a CPU generator)."""
+    import torch
+    from repro_torch.data import SyntheticLM
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in SyntheticLM(cfg.vocab_size, seq, rows, seed=seed).next_batch().items()}
+    if cfg.frontend.kind != "none" or cfg.family == "encdec":
+        nf = cfg.frontend.num_embeds or 16
+        gen = torch.Generator().manual_seed(seed)
+        batch["embeds"] = (torch.randn((rows, nf, cfg.d_model), generator=gen) * 0.02).to(device)
+    return batch
+
+
+def train_grads(model, params, batch, rows=slice(None)):
+    """(loss, gradient leaves in ``optim.leaves`` order) of ``Model.loss``
+    at ``params`` on ``batch``'s ``rows``, as the train step takes them."""
+    import torch
+    from repro_torch.train.optim import leaves, tree_map
+    tree = tree_map(lambda p: p.detach().clone().requires_grad_(True), params)
+    kw = {"embeds": batch["embeds"][rows]} if "embeds" in batch else {}
+    loss = model.loss(tree, batch["tokens"][rows], batch["labels"][rows], **kw)
+    return loss.detach(), torch.autograd.grad(loss, leaves(tree))
+
+
+def step_errors(params, want_params, grads, want_grads, lr: float) -> tuple:
+    """(worst gradient error over its leaf's max|g|, worst parameter error
+    over its limit, elements whose gradients may differ in sign) of one
+    step against another. A first AdamW step moves an element by lr * u,
+    u = g / (|g| + eps); two gradients dg apart give u's at most
+    min(2, 2 |dg| / |g_want|) apart, so an element's limit is 2e-5 + lr
+    times that: 2e-5 where the gradients agree, up to 2 lr + 2e-5 where
+    their signs may differ (|g_want| < |dg|; counted)."""
+    import torch
+    from repro_torch.train.optim import leaves
+    g_err, p_over, flips = 0.0, 0.0, 0
+    for p, wp, g, wg in zip(leaves(params), leaves(want_params), grads, want_grads):
+        p, wp, g, wg = (t.detach().float().cpu() for t in (p, wp, g, wg))
+        dg = (g - wg).abs()
+        g_err = max(g_err, (dg.max() / wg.abs().max().clamp(min=1e-30)).item())
+        limit = 2e-5 + lr * torch.clamp(2 * dg / wg.abs().clamp(min=1e-30), max=2.0)
+        p_over = max(p_over, ((p - wp).abs() / limit).max().item())
+        flips += int((wg.abs() < dg).sum())
+    return g_err, p_over, flips
+
+
+def train_card_vs_cpu(failures: list) -> None:
+    """(a) each family's fp32 smoke config: loss, every gradient leaf and
+    the params after one step on the card against the same on the CPU."""
+    import copy
+    import torch
+    from repro_torch.configs import get_smoke_config, replace
+    from repro_torch.models.api import build_model
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.train.optim import tree_map
+    opt = AdamWConfig(warmup_steps=0, total_steps=10)
+    for arch in TRAIN_FAMILIES:
+        cfg = replace(get_smoke_config(arch), dtype="float32")
+        model = build_model(cfg)
+        cpu = init_train_state(model, torch.Generator().manual_seed(0), device="cpu")
+        card = tree_map(lambda t: t.cuda(), cpu)
+        b_cpu = train_batch(cfg, "cpu", 4, 32, seed=5)
+        b_card = {k: v.cuda() for k, v in b_cpu.items()}
+        loss, grads = train_grads(model, cpu["params"], b_cpu)
+        c_loss, c_grads = train_grads(model, card["params"], b_card)
+        step = make_train_step(model, opt)
+        s_cpu, m_cpu = step(copy.deepcopy(cpu), b_cpu)
+        s_card, m_card = step(card, b_card)
+        rel = abs(m_card["loss"].item() - m_cpu["loss"].item()) / abs(m_cpu["loss"].item())
+        g_err, p_over, flips = step_errors(s_card["params"], s_cpu["params"], c_grads, grads,
+                                           m_cpu["lr"].item())
+        ok = rel <= 1e-5 and g_err <= 1e-4 and p_over <= 1.0 and torch.isfinite(c_loss)
+        TRAIN_NUMBERS.setdefault("card_vs_cpu", {})[arch] = dict(
+            loss_rel=rel, grad_err=g_err, param_over_limit=p_over, sign_may_differ=flips)
+        log(f"  (a) {arch}: fp32 step, card vs CPU: loss {m_card['loss'].item():.6f} rel err "
+            f"{rel:.2e} (limit 1e-5), worst gradient leaf {g_err:.2e} of its max|g| (1e-4), "
+            f"params {p_over:.3f} of their limit, {flips} elements whose gradient sign may "
+            f"differ"
+            + ("" if ok else "  FAILED"))
+        if not ok:
+            failures.append(f"train (a) {arch}: card vs CPU")
+
+
+def train_grad_accum(failures: list) -> None:
+    """(b) grad_accum 4 against 1 on the card (qwen3-8b smoke, fp32, 8 rows)."""
+    import copy
+    import torch
+    from repro_torch.configs import get_smoke_config, replace
+    from repro_torch.models.api import build_model
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+    cfg = replace(get_smoke_config("qwen3-8b"), dtype="float32")
+    model = build_model(cfg)
+    state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    batch = train_batch(cfg, "cuda", 8, 32, seed=5)
+    opt = AdamWConfig(warmup_steps=0, total_steps=10)
+    _, g1 = train_grads(model, state["params"], batch)
+    g4 = None
+    for i in range(4):
+        _, g = train_grads(model, state["params"], batch, slice(2 * i, 2 * i + 2))
+        g4 = [x.float() for x in g] if g4 is None else [a + x.float() for a, x in zip(g4, g)]
+    g4 = [a / 4 for a in g4]
+    s1, m1 = make_train_step(model, opt, grad_accum=1)(copy.deepcopy(state), batch)
+    s4, m4 = make_train_step(model, opt, grad_accum=4)(state, batch)
+    rel = abs(m4["loss"].item() - m1["loss"].item()) / abs(m1["loss"].item())
+    g_err, p_over, flips = step_errors(s4["params"], s1["params"], g4, g1, m1["lr"].item())
+    ok = rel <= 1e-5 and p_over <= 1.0
+    TRAIN_NUMBERS["grad_accum"] = dict(loss_rel=rel, grad_err=g_err, param_over_limit=p_over,
+                                       sign_may_differ=flips)
+    log(f"  (b) grad_accum 4 vs 1 on the card: loss rel err {rel:.2e} (limit 1e-5), "
+        f"gradients {g_err:.2e} of max|g|, params {p_over:.3f} of their limit, {flips} "
+        f"elements whose gradient sign may differ" + ("" if ok else "  FAILED"))
+    if not ok:
+        failures.append("train (b): grad_accum 4 vs 1")
+
+
+def train_full_width(failures: list) -> None:
+    """(c) qwen3-8b at full width, TRAIN_LAYERS layers, bf16: TRAIN_STEPS
+    steps of TRAIN_BATCH x TRAIN_SEQ tokens in TRAIN_ACCUM microbatches,
+    remat on. Step 0's loss within 0.5 of what random weights give and
+    within 2e-2 of an fp32 forward of the same weights; every loss and
+    grad norm finite; step time, tokens/s and peak memory printed beside
+    the card's name and limit. Random weights give logits of variance
+    s2 = d * 0.02^2 (the final norm's unit RMS times the head's std
+    0.02), whose cross-entropy is ln V + s2 / 2 (12.75 at d 4096, V
+    151936), not ln V (11.93)."""
+    import math
+    import torch
+    from repro_torch.configs import get_config, replace
+    from repro_torch.models.api import build_model
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.train.optim import leaves, tree_map
+    cfg = depth(get_config("qwen3-8b"), TRAIN_LAYERS)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_params = sum(p.numel() for p in leaves(params))
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in data.next_batch().items()}
+               for _ in range(TRAIN_STEPS)]
+    with torch.no_grad():            # an fp32 forward of the same weights, a row at a time
+        p32 = tree_map(lambda t: t.float(), params)
+        m32 = build_model(replace(cfg, dtype="float32"))
+        ref = sum(m32.loss(p32, batches[0]["tokens"][i:i + 1], batches[0]["labels"][i:i + 1],
+                           remat=False).item() for i in range(TRAIN_BATCH)) / TRAIN_BATCH
+        del p32
+    torch.cuda.empty_cache()
+    state = {"params": params, "opt": adamw_init(params)}
+    step = make_train_step(model, AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                              total_steps=TRAIN_STEPS),
+                           grad_accum=TRAIN_ACCUM, remat=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, norms = [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = statistics.mean(times[1:])
+    ln_v = math.log(cfg.vocab_size)
+    expect = ln_v + cfg.d_model * 0.02 ** 2 / 2
+    rel = abs(losses[0] - ref) / ref
+    ok = (abs(losses[0] - expect) <= 0.5 and rel <= 2e-2
+          and all(math.isfinite(x) for x in losses + norms))
+    TRAIN_NUMBERS["full_width"] = dict(
+        params=n_params, layers=TRAIN_LAYERS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        grad_accum=TRAIN_ACCUM, step_s=times, steady_step_s=steady,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / steady, peak_gib=peak, losses=losses,
+        grad_norms=norms, fp32_loss0=ref, expected_loss0=expect, lr=TRAIN_LR, card=card_line())
+    log(f"  (c) qwen3-8b full width, {TRAIN_LAYERS} layers ({n_params / 1e9:.3f} B params), "
+        f"bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in {TRAIN_ACCUM} microbatches, "
+        f"remat: losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in norms]} (lr {TRAIN_LR}); step 0 loss {losses[0]:.4f} "
+        f"(random weights: ln V + s2 / 2 = {expect:.4f}, limit 0.5; ln V {ln_v:.4f}), fp32 "
+        f"forward {ref:.4f}: rel {rel:.2e} (limit 2e-2)" + ("" if ok else "  FAILED"))
+    log(f"  (c) step time {times[0]:.3f} s (first), {steady:.3f} s (mean of steps 1-"
+        f"{TRAIN_STEPS - 1}), {TRAIN_BATCH * TRAIN_SEQ / steady:,.0f} tokens/s, peak memory "
+        f"{peak:.2f} GiB on {card_line()}")
+    del state, batches
+    torch.cuda.empty_cache()
+    if not ok:
+        failures.append("train (c): full width")
+
+
+class TrainCli:
+    """(d) ``python -m repro_torch.launch.train --arch stablelm-3b --preset
+    100m`` as a subprocess on the card: TRAIN_CLI_STEPS steps with a
+    checkpoint every TRAIN_CLI_EVERY; as soon as the first checkpoint is
+    written, a second subprocess ``--resume``s from a copy of it, beside
+    the first. ``start`` spawns the first (a fresh process spends ~20 s
+    importing torch, torch._dynamo and warming up before its GPU work, so
+    the caller overlaps that with its own); ``finish`` restores that
+    checkpoint, waits for both and holds: the loss falls (last 5 below the first 5 minus 0.3, as
+    ``tests/test_train.py``), the first checkpoint restored on the card
+    and saved again gives the same files, and the resumed run's losses
+    equal the uninterrupted run's to 1e-5 relative. Each line the two
+    print is logged with its time since the first started."""
+
+    def __init__(self):
+        import os
+        import tempfile
+        (ROOT / "build").mkdir(exist_ok=True)
+        self.work = Path(tempfile.mkdtemp(prefix="train_cli_", dir=ROOT / "build"))
+        self.env = dict(os.environ, PYTHONPATH=str(SRC), PYTHONUNBUFFERED="1")
+        self.argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "stablelm-3b",
+                     "--preset", "100m", "--steps", str(TRAIN_CLI_STEPS), "--ckpt-every",
+                     str(TRAIN_CLI_EVERY), "--log-every", "10"]
+        self.first = self.work / "full" / f"step_{TRAIN_CLI_EVERY:08d}"
+        self.lines: list = []
+        self.procs: list = []
+        self.threads: list = []
+        self.t0 = time.perf_counter()
+
+    def _spawn(self, name: str, extra: list) -> None:
+        import threading
+        proc = subprocess.Popen(self.argv + extra, env=self.env, text=True,
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+        def pump():
+            for line in proc.stdout:
+                self.lines.append(f"    {time.perf_counter() - self.t0:6.2f} s {name}: "
+                                  f"{line.rstrip()}")
+        self.procs.append(proc)
+        self.threads.append(threading.Thread(target=pump, daemon=True))
+        self.threads[-1].start()
+
+    def _resume_when_ready(self) -> None:
+        import shutil
+        while (not self.first.exists() and self.procs[0].poll() is None
+               and time.perf_counter() - self.t0 < 300):
+            time.sleep(0.05)
+        if self.first.exists():
+            self.lines.append(f"    {time.perf_counter() - self.t0:6.2f} s checkpoint "
+                              f"{TRAIN_CLI_EVERY} written")
+            shutil.copytree(self.first, self.work / "half" / self.first.name)
+            self._spawn("resumed", ["--ckpt-dir", str(self.work / "half"), "--resume",
+                                    "--metrics-out", str(self.work / "half.jsonl")])
+
+    def start(self) -> None:
+        import threading
+        log(f"  (d) {' '.join(self.argv[1:])} --ckpt-dir ...; then --resume from step "
+            f"{TRAIN_CLI_EVERY}")
+        self.t0 = time.perf_counter()
+        self._spawn("run", ["--ckpt-dir", str(self.work / "full"), "--metrics-out",
+                            str(self.work / "full.jsonl")])
+        self.watcher = threading.Thread(target=self._resume_when_ready, daemon=True)
+        self.watcher.start()
+
+    def _kill(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    def stop(self) -> None:
+        """Kills the CLI processes still running (when the script ends
+        early) and removes their directory."""
+        import shutil
+        self._kill()
+        shutil.rmtree(self.work, ignore_errors=True)
+
+    def finish(self, failures: list) -> None:
+        from repro_torch.runtime import restore_checkpoint, save_checkpoint
+        try:
+            self.watcher.join(timeout=330)
+            # the first checkpoint restored on the card and saved again
+            t1 = time.perf_counter()
+            same = False
+            if self.first.exists():
+                tree, extra = restore_checkpoint(str(self.work / "full"), TRAIN_CLI_EVERY,
+                                                 device="cuda")
+                again = Path(save_checkpoint(str(self.work / "again"), TRAIN_CLI_EVERY,
+                                             tree, extra=extra))
+                manifest = lambda d: json.load(open(d / "manifest.json"))
+                same = manifest(self.first) == manifest(again)
+                del tree
+            t_restore = time.perf_counter() - t1
+            for proc in self.procs:
+                proc.wait(timeout=600)
+            for thread in self.threads:
+                thread.join(timeout=60)
+        finally:
+            self._kill()
+            log("\n".join(self.lines))
+        check(len(self.procs) == 2, f"the train CLI wrote no checkpoint at step {TRAIN_CLI_EVERY}")
+        for name, proc in zip(("run", "resumed run"), self.procs):
+            check(proc.returncode == 0, f"train CLI {name} exited {proc.returncode}")
+        read = lambda f: [json.loads(x) for x in open(f)]
+        full, half = read(self.work / "full.jsonl"), read(self.work / "half.jsonl")
+        losses = [r["loss"] for r in full]
+        drop = statistics.mean(losses[:5]) - statistics.mean(losses[-5:])
+        resumed = [abs(a["loss"] - b["loss"]) / abs(a["loss"])
+                   for a, b in zip(full[TRAIN_CLI_EVERY:], half)]
+        ok = (drop > 0.3 and same and len(half) == TRAIN_CLI_STEPS - TRAIN_CLI_EVERY
+              and max(resumed) <= 1e-5)
+        TRAIN_NUMBERS["cli"] = dict(loss_first5=statistics.mean(losses[:5]),
+                                    loss_last5=statistics.mean(losses[-5:]),
+                                    resumed_max_rel=max(resumed), restore_bit_exact=same)
+        log(f"  (d) loss {statistics.mean(losses[:5]):.4f} (first 5) -> "
+            f"{statistics.mean(losses[-5:]):.4f} (last 5): drop {drop:.4f} (needs > 0.3); "
+            f"checkpoint {TRAIN_CLI_EVERY} restored on the card and saved again "
+            f"({t_restore:.1f} s): "
+            f"{'the same files (every sha256)' if same else 'DIFFERENT files'}; resumed run's "
+            f"{len(half)} losses vs the uninterrupted run's: max rel err {max(resumed):.2e} "
+            f"(limit 1e-5)" + ("" if ok else "  FAILED"))
+        if not ok:
+            failures.append("train (d): the CLI")
+
+
+def train_phase(results: dict, cli: "TrainCli") -> None:
+    """Training on the card (``repro_torch.train``): (a) each family's fp32
+    smoke step against the CPU's, (b) grad accumulation, (c) qwen3-8b at
+    full width cut to 8 layers in bf16, (d) the train CLI with a
+    checkpoint and ``--resume``, whose processes ``main`` started beside
+    the build (``cli.start()``: a fresh process spends ~20 s importing
+    torch and torch._dynamo and warming up on the host, and the build
+    leaves the card idle), here collected and held, (e) no kernel
+    launched over the whole phase (the training
+    path holds none, as the reference's: its attention is
+    ``flash_attention_xla``, its SSD the torch scan), recorded as each
+    kernel's ``launches_by_path["train"]`` = 0."""
+    from repro_torch.kernels import ops
+    log(f"[train] {card_line()}")
+    failures: list = []
+    ops.reset_launches()
+    for name, fn in (("card vs CPU", train_card_vs_cpu), ("grad accum", train_grad_accum),
+                     ("full width", train_full_width), ("CLI", cli.finish)):
+        t0 = time.perf_counter()
+        fn(failures)
+        log(f"[train] {name} {time.perf_counter() - t0:.1f} s")
+    launches = dict(ops.LAUNCHES)
+    log(f"  (e) kernel launches over the phase: {launches}")
+    for name in results:
+        results[name].setdefault("launches_by_path", {})["train"] = launches[name]
+    log(f"[train] numbers {json.dumps(TRAIN_NUMBERS)}")
+    check(not any(launches.values()), f"the training path launched kernels: {launches}")
+    check(not failures, "; ".join(failures))
+
+
 # the tensor-core body (K1-K3) and K5: (mangled template argument, name) of
 # their element types
 TC_KV_TYPES = (("13__nv_bfloat16", "bf16"), ("a", "int8"), ("13__nv_fp8_e4m3", "fp8"),
@@ -4071,6 +4446,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
+    cli = TrainCli()
     try:
         log(card_line())
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -4078,6 +4454,7 @@ def main() -> int:
         log(f"torch {torch.__version__} cuda {torch.version.cuda} "
             f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
+        cli.start()      # the train phase's CLI runs (d) beside the build (GPU idle)
         build_phase()
 
         results: dict = {}
@@ -4111,10 +4488,15 @@ def main() -> int:
         t0 = time.perf_counter()
         tp_phase(results)
         log(f"[tp] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        train_phase(results, cli)
+        log(f"[train] {time.perf_counter() - t0:.1f} s")
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        cli.stop()
 
     kernels = []
     base = ("launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -53,6 +53,18 @@ def staged_from_numpy(tree: Dict[str, Any], device=None,
     return params_from_numpy(tree, device, dtype)
 
 
+def train_state_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """A reference train state {"params", "opt": {"m", "v", "step"}} of
+    numpy leaves -> the port's (``train.step.TrainState``), every dtype
+    kept: the params and the fp32 moments through ``params_from_numpy``'s
+    key-for-key mapping, ``step`` an int32 scalar."""
+    opt = tree["opt"]
+    return {"params": params_from_numpy(tree["params"], device),
+            "opt": {"m": params_from_numpy(opt["m"], device),
+                    "v": params_from_numpy(opt["v"], device),
+                    "step": tensor_from_numpy(np.asarray(opt["step"]), device)}}
+
+
 def cache_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     """A reference KV cache or decode state (numpy leaves: int32 ``pos``,
     fp32 SSM state, k/v in the model's dtype) -> the same dict of tensors

@@ -10,6 +10,8 @@ version in ``kernels.ref``; a CUDA tensor launches the kernel or raises —
 there is no fallback. ``LAUNCHES`` counts kernel launches per tag, and only
 those. Inside a ``timed_launches`` frame each wrapper also stamps its
 launch (a CUDA event) or its plain version's return (the host clock).
+No kernel has a backward: a wrapper given an input that requires grad,
+with grad enabled, raises on every device (``_no_grad``).
 """
 from __future__ import annotations
 
@@ -146,6 +148,18 @@ def _call(lib_name: str, name: str, tag: str, on, *args) -> None:
     _note(tag, True)
 
 
+def _no_grad(tag: str, *ts) -> None:
+    """Raises, on every device, when grad is enabled and an input requires
+    grad: K1-K5 have no backward (nor have the reference's Pallas kernels),
+    and a ctypes launch inside autograd would return an output with no
+    ``grad_fn``, losing the gradient without a sound."""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                       for t in ts):
+        raise RuntimeError(f"{tag}: the kernel has no backward; call it under "
+                           f"torch.no_grad() or on inputs that do not require grad "
+                           f"(training runs layers.attention / the torch SSD)")
+
+
 def _attn_lib(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
     return f"chunk_attn.{_COMBOS[(q_dtype, kv_dtype)]}"
 
@@ -230,6 +244,7 @@ def chunk_attention(q, k, v, *, causal_offset: int = 0,
     chunk_attn_tc.cuh``: wgmma on TMA-fed tiles, P·V split hi + lo); fp32
     q and head dim 16 run the CUDA-core body (``flash_block``). Neither
     falls back on the other."""
+    _no_grad("chunk_attention", q, k, v, k_scale, v_scale)
     b, c, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -281,6 +296,7 @@ def pool_attention(q, k, v, valid, *, scale: Optional[float] = None,
     tiles of the valid slots, P·V split hi + lo; there at most 64 groups and
     G x ceil(S / 32) <= 1024); fp32 q and head dim 16 run the CUDA-core
     body (``flash_block``). Neither falls back on the other."""
+    _no_grad("pool_attention", q, k, v, k_scale, v_scale)
     gb, c, h, d = q.shape
     s, _, t, kvh, _ = k.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -335,6 +351,7 @@ def pool_attention_paged(q, k_pages, v_pages, handles, valid, *, ppc: int,
     (``tc::paged_tc_fits``), so that K2 and K3 sum a slot stack in the same
     order; fp32 q, head dim 16 and other page shapes run the CUDA-core
     body (``flash_block``). Neither falls back on the other."""
+    _no_grad("pool_attention_paged", q, k_pages, v_pages, k_scale, v_scale)
     gb, c, h, d = q.shape
     grouped = k_pages.ndim == 6
     kp = k_pages if grouped else k_pages[None]
@@ -427,6 +444,7 @@ def ssd(x, dt, a_log, b, c, d_skip, *, chunk: int = 128, init_state=None):
     on TMA-fed tiles, the masked half skipped, the state update split
     hi + lo); fp32, (16, 16) and other chunks run the CUDA-core body
     (``ssd_kernel``). Neither falls back on the other."""
+    _no_grad("ssd", x, dt, a_log, b, c, d_skip, init_state)
     r, t, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     a2 = a_log if a_log.ndim == 2 else a_log[None]
@@ -566,6 +584,7 @@ def decode_attention(q, k, v, kv_len, *, scale: Optional[float] = None):
     memory and merges a pair's partial states in the block that finishes
     it last. Its scratch is cached per device, so launches of it are
     ordered on one stream."""
+    _no_grad("decode_attention", q, k, v)
     b, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     if (k.shape != (b, s, kvh, d) or v.shape != k.shape or tuple(kv_len.shape) != (b,)

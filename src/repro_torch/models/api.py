@@ -45,6 +45,18 @@ class Model:
             kw["embeds"] = embeds
         return self._mod.forward(self.cfg, params, tokens, return_cache=return_cache, **kw)
 
+    def loss(self, params, tokens: torch.Tensor, labels: torch.Tensor, *,
+             impl: str = "xla_flash", remat: bool = True, **kw) -> torch.Tensor:
+        """Mean next-token cross-entropy (fp32 scalar) of ``forward`` on
+        ``tokens`` against ``labels`` [B, St], with the reference's
+        ``model.loss`` defaults (the blocked flash attention, remat). The
+        vlm's patches and the encdec's frames (``embeds=``) carry no
+        labels: only the last St positions are scored."""
+        logits = self.forward(params, tokens, impl=impl, remat=remat, **kw)
+        if logits.shape[1] != labels.shape[1]:
+            logits = logits[:, logits.shape[1] - labels.shape[1]:]
+        return L.cross_entropy(logits, labels, self.cfg.vocab_size)
+
     def decode_step(self, params, cache, tokens: torch.Tensor):
         """One token per row: (logits [B, Vpad], cache); the cache tensors
         are updated in place, ``pos + 1`` is a new tensor."""

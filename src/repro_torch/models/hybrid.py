@@ -51,28 +51,39 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None,
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            *, ssd_impl: str = "torch", return_cache: bool = False):
+            *, impl: str = "naive", remat: bool = False, ssd_impl: str = "torch",
+            return_cache: bool = False):
     """Full-sequence forward; returns fp32 logits [B, S, Vpad] (the head is
     the transposed embedding, as in the reference) and, with
-    ``return_cache``, also the cache of ``init_cache_shape`` with pos = S."""
+    ``return_cache``, also the cache of ``init_cache_shape`` with pos = S.
+    ``impl``: the shared block's attention; ``remat``: each group (its
+    Mamba2 layers and the shared block) and each tail layer under
+    ``layers.remat_call``, as the reference checkpoints its group and tail
+    bodies."""
     h = cfg.hybrid
     scfg = T_single_cfg(cfg)
     x = L.embed_lookup(params["embed"], tokens)
     shared = params["shared"]
-    groups, tail = params["mamba_groups"], params["mamba_tail"]
     ks, vs, g_sts, t_sts = [], [], [], []
-    for g in range(h.num_groups):
-        for i in range(h.ssm_per_group):
-            x, st = S.block_apply(cfg, {k: w[g, i] for k, w in groups.items()}, x,
-                                  ssd_impl=ssd_impl)
-            g_sts.append(st)
-        x, k, v = T.attn_block(scfg, shared, x)
-        x = T.ffn_block(scfg, shared, x)
+
+    def group_body(xc, g_lp):
+        sts = []
+        for lp in L.unstack(g_lp)[:h.ssm_per_group]:
+            xc, st = S.block_apply(cfg, lp, xc, ssd_impl=ssd_impl)
+            sts.append(st)
+        xc, k, v = T.attn_block(scfg, shared, xc, impl=impl)
+        return T.ffn_block(scfg, shared, xc), k, v, sts
+
+    def tail_body(xc, lp):
+        return S.block_apply(cfg, lp, xc, ssd_impl=ssd_impl)
+
+    for g_lp in L.unstack(params["mamba_groups"])[:h.num_groups]:
+        x, k, v, sts = L.remat_call(group_body, remat, x, g_lp)
+        g_sts += sts
         ks.append(k)
         vs.append(v)
-    for i in range(h.tail_ssm_layers):
-        x, st = S.block_apply(cfg, {k: w[i] for k, w in tail.items()}, x,
-                              ssd_impl=ssd_impl)
+    for lp in L.unstack(params["mamba_tail"])[:h.tail_ssm_layers]:
+        x, st = L.remat_call(tail_body, remat, x, lp)
         t_sts.append(st)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = L.unembed_logits(x, params["embed"].T)

@@ -1,6 +1,17 @@
 """Shared layers: RMSNorm, RoPE, SwiGLU, the token-choice MoE, embedding /
-unembedding and the materialized-scores attention oracle (mirrors
-``repro.models.layers``).
+unembedding, the attention implementations and the cross-entropy loss
+(mirrors ``repro.models.layers``).
+
+Attention has two implementations, selected by ``impl``:
+
+- ``"naive"``     the materialized-scores oracle (the default of the
+                  forwards, which the serve and decode paths hold to);
+- ``"xla_flash"`` the blocked online softmax over key blocks of
+                  ``DEFAULT_BLOCK_K`` (the reference's training default),
+                  plain torch ops, so autograd differentiates it.
+
+The reference's third, ``"pallas"``, is K1, which has no backward: the
+chunked pipeline reaches it through ``kernels.ops``.
 
 Weights are plain tensors. Products go through ``torch.matmul``, which
 broadcasts a leading stage axis: ``[N, B*C, d] @ [N, d, f]`` runs all N
@@ -13,6 +24,9 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+DEFAULT_BLOCK_K = 1024
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -63,6 +77,66 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
     return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal_offset: Optional[int] = 0, scale: Optional[float] = None,
+                        block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
+    """Blocked online-softmax attention over key blocks of ``block_k`` (the
+    reference's ``lax.scan`` as a Python loop); memory O(Sq * block_k)
+    instead of O(Sq * Skv). Scores, p and the accumulator are fp32 (the
+    reference's ``preferred_element_type``: q, k and v are widened before
+    each product, p is rounded to v's dtype first, as there). The naive
+    oracle when ``Skv <= block_k``."""
+    b, sq, h, d = q.shape
+    skv, kheads = k.shape[1], k.shape[2]
+    if skv <= block_k:
+        return naive_attention(q, k, v, causal_offset=causal_offset, scale=scale)
+    scale = scale or (1.0 / math.sqrt(d))
+    nblk = -(-skv // block_k)
+    pad = nblk * block_k - skv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    g = h // kheads
+    qg = q.reshape(b, sq, kheads, g, d).float()
+    qpos = torch.arange(sq, device=q.device)[:, None] + (
+        0 if causal_offset is None else causal_offset)
+    m = torch.full((b, kheads, g, sq), float("-inf"), device=q.device)
+    l = torch.zeros((b, kheads, g, sq), device=q.device)
+    acc = torch.zeros((b, kheads, g, sq, d), device=q.device)
+    for j in range(nblk):
+        kj = k[:, j * block_k:(j + 1) * block_k]
+        vj = v[:, j * block_k:(j + 1) * block_k]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kj.float()) * scale
+        kpos = j * block_k + torch.arange(block_k, device=q.device)[None, :]
+        valid = kpos < skv
+        if causal_offset is not None:
+            valid = valid & (kpos <= qpos)
+        s = s.masked_fill(~valid, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # guard fully-masked rows (m_new == -inf)
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - m_safe[..., None])
+        corr = torch.exp(torch.where(torch.isfinite(m), m - m_safe, float("-inf")))
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(vj.dtype).float(), vj.float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def attention(q, k, v, *, causal_offset: Optional[int] = 0,
+              scale: Optional[float] = None, impl: str = "naive",
+              block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
+    """``naive_attention`` or ``flash_attention_xla`` by ``impl``."""
+    if impl == "naive":
+        return naive_attention(q, k, v, causal_offset=causal_offset, scale=scale)
+    if impl == "xla_flash":
+        return flash_attention_xla(q, k, v, causal_offset=causal_offset, scale=scale,
+                                   block_k=block_k)
+    raise ValueError(f"unknown attention impl {impl!r}; known: naive, xla_flash")
 
 
 def zeros(shapes, device=None):
@@ -141,6 +215,15 @@ def moe_dispatch(choices: torch.Tensor, weights: torch.Tensor, num_experts: int,
             w[:, :drop].reshape(r, e, cap), pos)
 
 
+def expert_ffn(xs: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+               wd: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU of E experts at once: xs [E, n, d] with wg / wu [E, d, f],
+    wd [E, f, d] -> [E, n, d] (``moe_layer``'s expert products; a fresh
+    tensor, so autograd differentiates it)."""
+    h = F.silu(torch.matmul(xs, wg)) * torch.matmul(xs, wu)
+    return torch.matmul(h, wd)
+
+
 def moe_layer(params, x: torch.Tensor, *, num_experts: int, top_k: int,
               capacity_factor: float, num_real: int = 0, sharded: bool = False,
               ep: bool = False) -> torch.Tensor:
@@ -185,10 +268,6 @@ def moe_layer(params, x: torch.Tensor, *, num_experts: int, top_k: int,
     xd = xd * valid.reshape(g * b, e * cap, 1).to(x.dtype)
     xd = xd.reshape(g, b, e, cap, d).transpose(1, 2).reshape(g, e, b * cap, d)
 
-    def experts(xs, wg, wu, wd, out) -> None:
-        h = F.silu(torch.matmul(xs, wg)) * torch.matmul(xs, wu)
-        torch.matmul(h, wd, out=out)
-
     def pairs_of(y: torch.Tensor) -> torch.Tensor:
         """Each (token, slot)'s weighted output [G, B, S, k, d] of the
         expert outputs y [G, E, B*cap, d] (zero for a dropped pair)."""
@@ -199,32 +278,45 @@ def moe_layer(params, x: torch.Tensor, *, num_experts: int, top_k: int,
         return torch.where(kept[..., None], pairs, 0).reshape(g, b, s, k, d)
 
     if not sharded:
-        y = xd.new_empty((g, e, b * cap, d))
-        for i in range(g):
-            experts(xd[i], params["wg"][i], params["wu"][i], params["wd"][i], y[i])
+        y = torch.stack([expert_ffn(xd[i], params["wg"][i], params["wu"][i], params["wd"][i])
+                         for i in range(g)])
         out = pairs_of(y).float().sum(3).to(x.dtype)
         return out if grouped else out[0]
     shards = params["wg"].shape[1]
     if ep:
         e_loc = e // shards
-        y = xd.new_empty((g, e, b * cap, d))
-        for i in range(g):
-            for t in range(shards):
-                rows = slice(t * e_loc, (t + 1) * e_loc)
-                experts(xd[i, rows], params["wg"][i, t], params["wu"][i, t],
-                        params["wd"][i, t], y[i, rows])
+        y = torch.stack([torch.cat([expert_ffn(xd[i, t * e_loc:(t + 1) * e_loc],
+                                               params["wg"][i, t], params["wu"][i, t],
+                                               params["wd"][i, t])
+                                    for t in range(shards)]) for i in range(g)])
         pairs = pairs_of(y)
         owner = (choices.reshape(g, b, s, k) // e_loc)[..., None]
         parts = [torch.where(owner == t, pairs, 0).float().sum(3) for t in range(shards)]
     else:
         parts = []
         for t in range(shards):
-            y = xd.new_empty((g, e, b * cap, d))
-            for i in range(g):
-                experts(xd[i], params["wg"][i, t], params["wu"][i, t],
-                        params["wd"][i, t], y[i])
+            y = torch.stack([expert_ffn(xd[i], params["wg"][i, t], params["wu"][i, t],
+                                        params["wd"][i, t]) for i in range(g)])
             parts.append(pairs_of(y).float().sum(3))
     return torch.stack(parts, dim=1).to(x.dtype)
+
+
+def unstack(stacked: dict, lead: int = 1) -> list:
+    """Stacked layer params (leaves [L, ...], or [G, pg, ...] with
+    ``lead`` 2) -> one dict of views a layer, in order. One ``unbind`` a
+    leaf, so autograd stacks a leaf's gradient once, not one full-size
+    scatter a layer."""
+    names = list(stacked)
+    cols = [stacked[n].flatten(0, lead - 1).unbind(0) for n in names]
+    return [dict(zip(names, ws)) for ws in zip(*cols)]
+
+
+def remat_call(fn, remat: bool, *args):
+    """``fn(*args)``; with ``remat``, under ``torch.utils.checkpoint``
+    (non-reentrant): its activations are recomputed in the backward
+    instead of saved, the counterpart of the reference's
+    ``jax.checkpoint(policy=nothing_saveable)``."""
+    return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
 
 
 def pad_vocab(v: int, multiple: int = 128) -> int:
@@ -251,3 +343,16 @@ def unembed_logits(x: torch.Tensor, w: torch.Tensor, *,
     if scale != 1.0:
         logits = logits / scale
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int) -> torch.Tensor:
+    """Mean token cross-entropy over fp32 logits [B, S, Vpad] (the padded
+    vocab masked to -inf) and labels [B, S]: logsumexp minus the true
+    logit, then the mean (the reference's ``cross_entropy``)."""
+    if logits.shape[-1] > vocab_size:
+        pad = torch.arange(logits.shape[-1], device=logits.device) >= vocab_size
+        logits = logits.masked_fill(pad, float("-inf"))
+    lse = torch.logsumexp(logits, dim=-1)
+    true_logit = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - true_logit)

@@ -288,16 +288,24 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None,
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            *, ssd_impl: str = "torch", return_cache: bool = False):
-    """Full-sequence forward; returns fp32 logits [B, S, Vpad] and, with
-    ``return_cache``, also the state {"conv": [L,B,K-1,C], "ssd":
-    [L,B,H,P,N] fp32, "pos": [B] int32 = S}."""
+            *, embeds: Optional[torch.Tensor] = None, impl: str = "naive",
+            remat: bool = False, ssd_impl: str = "torch", return_cache: bool = False):
+    """Full-sequence forward of ``embeds`` (optional, [B, Si, d], spliced in
+    front as in the reference) then ``tokens``; returns fp32 logits
+    [B, S, Vpad] and, with ``return_cache``, also the state {"conv":
+    [L,B,K-1,C], "ssd": [L,B,H,P,N] fp32, "pos": [B] int32 = S}. ``impl``
+    is taken for the families' common signature (no attention here);
+    ``remat``: each block under ``layers.remat_call``."""
     x = L.embed_lookup(params["embed"], tokens)
-    layers = params["layers"]
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
     sts = []
-    for i in range(cfg.num_layers):
-        x, st = block_apply(cfg, {k: w[i] for k, w in layers.items()}, x,
-                            ssd_impl=ssd_impl)
+
+    def body(xc, lp):
+        return block_apply(cfg, lp, xc, ssd_impl=ssd_impl)
+
+    for lp in L.unstack(params["layers"])[:cfg.num_layers]:
+        x, st = L.remat_call(body, remat, x, lp)
         sts.append(st)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = L.unembed_logits(x, params["embed"].T)

@@ -131,10 +131,11 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None,
 
 def attn_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
                positions: Optional[torch.Tensor] = None,
-               causal_offset: Optional[int] = 0, attend=None):
+               causal_offset: Optional[int] = 0, attend=None, impl: str = "naive"):
     """Pre-norm attention block over a whole sequence. Returns
-    (residual_out, k, v). ``attend(q, k, v, scale=)`` replaces the oracle
-    ``naive_attention`` when given; only for ``causal_offset=None`` (the
+    (residual_out, k, v). The attention is ``layers.attention(impl=)``
+    (the oracle ``naive_attention`` by default); ``attend(q, k, v,
+    scale=)`` replaces it when given, only for ``causal_offset=None`` (the
     whisper encoder's bidirectional layers, which run K1 non-causal)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -156,7 +157,7 @@ def attn_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
     k = L.apply_rope(k, cos, sin)
     scale = cfg.attention_multiplier or None
     if attend is None:
-        att = L.naive_attention(q, k, v, causal_offset=causal_offset, scale=scale)
+        att = L.attention(q, k, v, causal_offset=causal_offset, scale=scale, impl=impl)
     else:
         assert causal_offset is None, "attend is the non-causal attention"
         att = attend(q, k, v, scale=scale)
@@ -222,9 +223,9 @@ def ffn_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
 
 
 def layer_apply(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
-                positions=None, causal_offset=0, attend=None):
+                positions=None, causal_offset=0, attend=None, impl: str = "naive"):
     x, k, v = attn_block(cfg, lp, x, positions=positions,
-                         causal_offset=causal_offset, attend=attend)
+                         causal_offset=causal_offset, attend=attend, impl=impl)
     return ffn_block(cfg, lp, x), k, v
 
 
@@ -248,16 +249,21 @@ def logits_head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tens
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
-            embeds: Optional[torch.Tensor] = None, return_cache: bool = False):
+            embeds: Optional[torch.Tensor] = None, impl: str = "naive",
+            remat: bool = False, return_cache: bool = False):
     """Full-sequence forward of ``embeds`` (optional, [B, Si, d]) then
     ``tokens`` [B, St]; returns fp32 logits [B, S, Vpad], S = Si + St, and,
     with ``return_cache``, also the cache {"k", "v": [L,B,S,KVH,D], "pos":
-    [B] int32 = S}."""
+    [B] int32 = S}. ``impl``: the attention (``layers.attention``);
+    ``remat``: each layer body under ``layers.remat_call``."""
     x = embed_tokens(cfg, params, tokens, embeds=embeds)
-    layers = params["layers"]
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, k, v = layer_apply(cfg, {n: w[i] for n, w in layers.items()}, x)
+
+    def body(xc, lp):
+        return layer_apply(cfg, lp, xc, impl=impl)
+
+    for lp in L.unstack(params["layers"])[:cfg.num_layers]:
+        x, k, v = L.remat_call(body, remat, x, lp)
         if return_cache:
             ks.append(k)
             vs.append(v)

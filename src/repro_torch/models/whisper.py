@@ -90,18 +90,21 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None,
 
 
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
-           attend=None) -> torch.Tensor:
+           attend=None, impl: str = "naive", remat: bool = False) -> torch.Tensor:
     """frames [B, F, d] (stub embeddings) -> encoder output [B, F, d]:
     bidirectional layers, RoPE from position 0, the final ``enc_norm``.
-    ``attend(q, k, v, scale=)`` is the layers' attention (default the
-    oracle; in the pipeline the backend's ``full_block``: K1 non-causal
-    under ``cuda``)."""
+    The layers' attention is ``layers.attention(impl=)`` (default the
+    oracle), or ``attend(q, k, v, scale=)`` when given (in the pipeline the
+    backend's ``full_block``: K1 non-causal under ``cuda``). ``remat``:
+    each layer under ``layers.remat_call``."""
     ecfg = _enc_cfg(cfg)
     x = frames.to(torch_dtype(cfg.dtype))
-    layers = params["enc_layers"]
-    for i in range(ecfg.num_layers):
-        x, _, _ = T.layer_apply(ecfg, {n: w[i] for n, w in layers.items()}, x,
-                                causal_offset=None, attend=attend)
+
+    def body(xc, lp):
+        return T.layer_apply(ecfg, lp, xc, causal_offset=None, attend=attend, impl=impl)[0]
+
+    for lp in L.unstack(params["enc_layers"])[:ecfg.num_layers]:
+        x = L.remat_call(body, remat, x, lp)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -116,33 +119,39 @@ def cross_kv(cfg: ModelConfig, lp: Params, enc_out: torch.Tensor):
 
 
 def _cross_attn(cfg: ModelConfig, lp: Params, x: torch.Tensor, xk: torch.Tensor,
-                xv: torch.Tensor) -> torch.Tensor:
-    """The cross-attention sub-block of the oracle forward: the decoder
-    positions x [B, S, d] attend to every encoder frame."""
+                xv: torch.Tensor, impl: str = "naive") -> torch.Tensor:
+    """The cross-attention sub-block of the forward: the decoder positions
+    x [B, S, d] attend to every encoder frame (``layers.attention(impl=)``;
+    the oracle for one position, as in the reference)."""
     b, s, _ = x.shape
     hn = L.rms_norm(x, lp["lnx"], cfg.norm_eps)
     q = torch.matmul(hn, lp["xwq"]).reshape(b, s, cfg.num_heads, cfg.resolved_head_dim)
-    att = L.naive_attention(q, xk, xv, causal_offset=None)
+    att = L.attention(q, xk, xv, causal_offset=None, impl="naive" if s == 1 else impl)
     return x + torch.matmul(att.reshape(b, s, -1), lp["xwo"])
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
-            embeds: Optional[torch.Tensor] = None, return_cache: bool = False):
+            embeds: Optional[torch.Tensor] = None, impl: str = "naive",
+            remat: bool = False, return_cache: bool = False):
     """``embeds``: the stub frame embeddings [B, F, d]; ``tokens``: the
     decoder tokens [B, S]. Returns fp32 logits [B, S, Vpad] and, with
     ``return_cache``, the cache {"k", "v": [L,B,S,KVH,D], "xk", "xv":
-    [L,B,F,KVH,D], "pos": [B] int32 = S}."""
+    [L,B,F,KVH,D], "pos": [B] int32 = S}. ``impl``: every attention of the
+    encoder and decoder (``layers.attention``); ``remat``: each encoder and
+    decoder layer under ``layers.remat_call``."""
     if embeds is None:
         raise ValueError("whisper requires frame embeddings")
-    enc_out = encode(cfg, params, embeds)
+    enc_out = encode(cfg, params, embeds, impl=impl, remat=remat)
     x = L.embed_lookup(params["embed"], tokens)
-    layers = params["dec_layers"]
     kvs = {"k": [], "v": [], "xk": [], "xv": []}
-    for i in range(cfg.num_layers):
-        lp = {n: w[i] for n, w in layers.items()}
-        x, k, v = T.attn_block(cfg, lp, x)
+
+    def body(xc, lp):
+        xc, k, v = T.attn_block(cfg, lp, xc, impl=impl)
         xk, xv = cross_kv(cfg, lp, enc_out)
-        x = T.ffn_block(cfg, lp, _cross_attn(cfg, lp, x, xk, xv))
+        return T.ffn_block(cfg, lp, _cross_attn(cfg, lp, xc, xk, xv, impl)), k, v, xk, xv
+
+    for lp in L.unstack(params["dec_layers"])[:cfg.num_layers]:
+        x, k, v, xk, xv = L.remat_call(body, remat, x, lp)
         if return_cache:
             for name, t in zip(kvs, (k, v, xk, xv)):
                 kvs[name].append(t)
