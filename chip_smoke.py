@@ -213,6 +213,7 @@ Then one JSON line of per-kernel numbers and, last, the result line.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import json
 import math
@@ -238,8 +239,6 @@ KERNELS = {   # tag: (CUDA source, the TPU kernel it replaces)
     "decode_attention": ("src/repro_torch/csrc/decode_attn.cu",
                          "src/repro/kernels/decode_attn.py:65"),
 }
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # serve-phase geometry; the kernel phases use the same shapes
 N_STAGES, N_CHUNKS, CHUNK, BATCH, REQUESTS = 8, 8, 512, 2, 4
@@ -339,12 +338,18 @@ def profiled_ms(fn, kernel: str, calls: int = 20):
     return (us / 1e3 / n, n) if n and us else (None, 0)
 
 
-def bound_ms(nbytes: float, ops: float, dtype: str):
-    """The least time the card could take: the larger of bytes over the
-    memory rate and operations over the peak rate of the input type."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def bound_ms(tag: str, *args, **kw):
+    """(ms, "bytes" | "operations", flops): the least time the card could
+    take for one call of kernel ``tag`` on these inputs, the larger of
+    bytes over the memory rate and operations over the peak rate of the
+    products' type, from ``roofline.kernel_work`` (the dry run's formula):
+    each input byte read once, each output byte written once, and only the
+    work these inputs need (K2 / K3 the valid (group, slot) pairs, K1 the
+    causal pairs, K5 the rows' kv_len; masks and lengths as host values)."""
+    from repro_torch.roofline import analysis
+    flops, nbytes_, dtype = analysis.kernel_work(tag, *args, **kw)
+    sec, by = analysis.kernel_bound(flops, nbytes_, dtype)
+    return 1e3 * sec, by, flops
 
 
 def nbytes(*ts) -> float:
@@ -538,8 +543,7 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, key=None,
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             lib = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True))
-            pairs = gb * h * c * (c + 1) / 2
-            b_ms, by = bound_ms(nbytes(q, k, v, *got), 4.0 * d * pairs, name)
+            b_ms, by, _ = bound_ms("chunk_attention", q, k, v, return_state=True)
             record("chunk_attention", ms=ms, windowed_ms=win_ms, profiler_ms=prof_ms,
                    plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=by)
             log(f"  time: kernel {ms:.4f} ms ({win_ms:.4f} ms a call in windows of "
@@ -623,9 +627,7 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, key=None,
             log(f"  torch.profiler: attn_tc_kernel<StackWalk> {seen} launches, "
                 + (f"{prof_ms:.4f} ms device time each" if seen else "no device time seen"))
             plain = time_ms(lambda: ref.pool_attention_plain(q, k, v, valid), **PLAIN_TIMING)
-            kv_read = 2.0 * n_valid * batch * c * kvh * d * k.element_size()
-            ops_n = 4.0 * d * n_valid * batch * h * c * c
-            b_ms, by = bound_ms(nbytes(q, valid, *got) + kv_read, ops_n, name)
+            b_ms, by, ops_n = bound_ms("pool_attention", q, k, v, valid.cpu())
             lib = sdpa_pool_ms(q, k, v, valid, got)
             record("pool_attention", ms=ms, windowed_ms=win_ms, profiler_ms=prof_ms,
                    plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=by)
@@ -709,9 +711,8 @@ def attention_phase(results: dict, h: int, kvh: int, d: int, key=None,
                 + (f"{prof_ms:.4f} ms device time each" if seen else "no device time seen"))
             plain = time_ms(lambda: ref.pool_attention_paged_plain(
                 q, k_l, v_l, handles, valid, ppc=1), **PLAIN_TIMING)
-            kv_read = 2.0 * n_valid * batch * c * kvh * d * kp.element_size()
-            ops_n = 4.0 * d * n_valid * batch * h * c * c
-            b_ms, by = bound_ms(nbytes(q, valid, handles, *got) + kv_read, ops_n, name)
+            b_ms, by, _ = bound_ms("pool_attention_paged", q, k_l, v_l, handles.numel(),
+                                   valid.cpu(), ppc=1)
             # the same function: K2's stack of the same slots
             lib = sdpa_pool_ms(q, k_l[:, :slots].movedim(1, 0).flatten(1, 2),
                                v_l[:, :slots].movedim(1, 0).flatten(1, 2), valid, got)
@@ -966,10 +967,8 @@ def ssd_phase(results: dict) -> None:
                 check(seen > 0, f"K4 {arch} bf16: the tensor-core body did not run")
                 plain = time_ms(lambda: ref.ssd_plain(*xs, chunk=SSD_CHUNK, init_state=init),
                                 **PLAIN_TIMING)
-                tri = SSD_CHUNK * (SSD_CHUNK + 1) / 2
-                per_chunk = 2.0 * tri * (n + p) + 4.0 * SSD_CHUNK * p * n
-                ops_n = per_chunk * rows * h * (t // SSD_CHUNK)
-                b_ms, by = bound_ms(nbytes(*args, *got), ops_n, name)
+                b_ms, by, ops_n = bound_ms("ssd", *args,
+                                           chunk=ops.ssd_chunk(t, SSD_CHUNK))
                 times.update(ms=ms, windowed_ms=win_ms, profiler_ms=prof_ms, plain_ms=plain,
                              library_ms=None, bound_ms=b_ms, bound_by=by)
                 log(f"  time: kernel {ms:.4f} ms ({win_ms:.4f} ms a call in windows of "
@@ -1103,7 +1102,7 @@ def decode_kernel_phase(results: dict) -> None:
                       <= 2e-2 * want.float().abs().max().item(),
                       "the SDPA yardstick does not compute K5's function")
                 lib = time_ms(lib_call)
-                b_ms, by = bound_ms(nbytes(q, k, v, full, got), 4.0 * d * s * h * b, name)
+                b_ms, by, _ = bound_ms("decode_attention", q, k, v, full.cpu())
                 times = dict(ms=ms, windowed_ms=win_ms, profiler_ms=prof_ms, plain_ms=plain,
                              library_ms=lib, bound_ms=b_ms,
                              bound_by=by, library=f"scaled_dot_product_attention "
@@ -1202,8 +1201,7 @@ def k1_gpipe_shape(results: dict) -> None:
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                          enable_gqa=True))
-    pairs = rows * h * s * (s + 1) / 2
-    b_ms, by = bound_ms(nbytes(q, k, v, got), 4.0 * d * pairs, "bfloat16")
+    b_ms, by, _ = bound_ms("chunk_attention", q, k, v)
     k1 = results["chunk_attention"]
     k1["gpipe_shape"] = dict(rows=rows, seq=s, ms=ms, windowed_ms=win_ms,
                              profiler_ms=prof_ms, plain_ms=plain, plain_rows=GP_HELD,
@@ -1290,7 +1288,7 @@ def k1_whisper_shapes(results: dict) -> None:
                             **PLAIN_TIMING)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-            b_ms, by = bound_ms(nbytes(q, k, v, got), 4.0 * d * rows * h * c * f, dname)
+            b_ms, by, _ = bound_ms("chunk_attention", q, k, v, causal_offset=f)
             k1[name] = dict(heads=h, kv_heads=h, head_dim=d, rows=rows, queries=c, keys=f,
                             ms=ms, windowed_ms=win_ms, profiler_ms=prof_ms, plain_ms=plain,
                             library_ms=lib, bound_ms=b_ms, bound_by=by)
@@ -1327,31 +1325,29 @@ def whisper_pipeline_shapes(results: dict) -> None:
     valid = torch.zeros((N_STAGES, slots), dtype=torch.bool, device=dev)
     for s in range(N_STAGES):           # stage s at phase s: min(s, 6) slots
         valid[s, :min(s, slots)] = True
-    n_valid = int(valid.sum().item())
     q, k, v = randn(gb, c, h, d), randn(gb, c, h, d), randn(gb, c, h, d)
     k_st, v_st = randn(slots, gb, c, h, d), randn(slots, gb, c, h, d)
     k_pg, v_pg = (randn(N_STAGES, slots + 1, BATCH, c, h, d) for _ in range(2))
     handles = torch.arange(slots, dtype=torch.int32, device=dev)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    pool_read = 2.0 * n_valid * BATCH * c * h * d * 2
-    pool_ops = 4.0 * d * n_valid * BATCH * h * c * c
+    valid_h = valid.cpu()
     cases = (("chunk_attention", "ChunkWalk", "tensor-core",
               lambda: ops.chunk_attention(q, k, v, return_state=True),
               lambda: ref.chunk_attention_plain(q, k, v),
-              lambda got: nbytes(q, k, v, *got), 4.0 * d * gb * h * c * (c + 1) / 2,
+              ((q, k, v), dict(return_state=True)),
               lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
              ("pool_attention", "StackWalk", "tensor-core",
               lambda: ops.pool_attention(q, k_st, v_st, valid),
               lambda: ref.pool_attention_plain(q, k_st, v_st, valid),
-              lambda got: nbytes(q, valid, *got) + pool_read, pool_ops,
+              ((q, k_st, v_st, valid_h), {}),
               lambda got: sdpa_pool_ms(q, k_st, v_st, valid, got)),
              ("pool_attention_paged", "paged_attn_kernel", "CUDA-core",
               lambda: ops.pool_attention_paged(q, k_pg, v_pg, handles, valid, ppc=1),
               lambda: ref.pool_attention_paged_plain(q, k_pg, v_pg, handles, valid, ppc=1),
-              lambda got: nbytes(q, valid, handles, *got) + pool_read, pool_ops,
+              ((q, k_pg, v_pg, handles.numel(), valid_h), dict(ppc=1)),
               lambda got: sdpa_pool_ms(q, *(x[:, :slots].movedim(1, 0).flatten(1, 2)
                                            for x in (k_pg, v_pg)), valid, got)))
-    for kernel, tag, body, call, plain_call, bytes_of, ops_n, lib_call in cases:
+    for kernel, tag, body, call, plain_call, (w_args, w_kw), lib_call in cases:
         log(f"[kernels] {kernel} at whisper-small's pipeline shape: q [{gb},{c},{h},{d}], "
             f"{body} body")
         got = call()
@@ -1363,7 +1359,7 @@ def whisper_pipeline_shapes(results: dict) -> None:
         plain = time_ms(plain_call, **PLAIN_TIMING)
         lib = (time_ms(lib_call) if kernel == "chunk_attention"
                else lib_call(got))        # K2 / K3: the memory-efficient SDPA call
-        b_ms, by = bound_ms(bytes_of(got), ops_n, "bfloat16")
+        b_ms, by, _ = bound_ms(kernel, *w_args, **w_kw)
         res["whisper_pipe"] = dict(heads=h, kv_heads=h, head_dim=d, rows=gb, queries=c,
                                    page_tokens=c, body=body, ms=ms, windowed_ms=win_ms,
                                    profiler_ms=prof_ms, plain_ms=plain, library_ms=lib,
@@ -1762,6 +1758,38 @@ WAVE_CATEGORIES = (
 )
 
 
+def device_spans(prof) -> list:
+    """The device activities (kernels, copies, sets) of a torch.profiler
+    session, sorted: [(start us, end us, name, category)], read from its raw
+    kineto events (an export to a Chrome trace and its parse took ~10 s for
+    a wave's 37k events). The category is the trace's: ``gpu_memcpy`` /
+    ``gpu_memset`` by the activity's name, else ``kernel`` (torch 2.11's
+    events carry no ``activity_type``); user annotations are left out."""
+    from torch.autograd import DeviceType
+    spans = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        name = e.name()
+        cat = ("gpu_memcpy" if name.startswith("Memcpy") else
+               "gpu_memset" if name.startswith("Memset") else "kernel")
+        spans.append((e.start_ns() / 1e3, e.end_ns() / 1e3, name, cat))
+    return sorted(spans)
+
+
+def busy_window(spans: list) -> tuple:
+    """(busy s, window s) of ``device_spans``: the union of the activities'
+    intervals, and the first start to the last end."""
+    busy, (lo, hi) = 0.0, spans[0][:2]
+    for t0, t1, *_ in spans[1:]:
+        if t0 > hi:
+            busy, lo, hi = busy + hi - lo, t0, t1
+        else:
+            hi = max(hi, t1)
+    busy = (busy + hi - lo) / 1e6
+    return busy, (max(span[1] for span in spans) - spans[0][0]) / 1e6
+
+
 def wave_split(arch: str, staged=None,
                combo=("qship", "cuda", "cuda", "auto"), cfg=None) -> dict:
     """One bf16 wave (BATCH requests) of ``arch`` at full width and depth
@@ -1814,39 +1842,29 @@ def wave_split(arch: str, staged=None,
         traced = wave()
         torch.cuda.synchronize()
     clocks = card_clocks()
-    path = ROOT / "build" / f"wave_trace_{arch}.json"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text())["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+    t0 = time.perf_counter()
+    spans = device_spans(prof)
+    read_s = time.perf_counter() - t0
     check(bool(spans), f"{arch}: the traced wave holds no device time")
     split: dict = {}
     by_name: dict = {}
-    for t0, t1, name in spans:
+    for t0, t1, name, _ in spans:
         low = name.lower()
         label = next((lab for lab, keys in WAVE_CATEGORIES if any(k in low for k in keys)),
                      "other")
         split[label] = split.get(label, 0.0) + (t1 - t0) / 1e6
         by_name[name] = by_name.get(name, 0.0) + (t1 - t0) / 1e6
-    busy, (lo, hi) = 0.0, spans[0][:2]
-    for t0, t1, _ in spans[1:]:
-        if t0 > hi:
-            busy, lo, hi = busy + hi - lo, t0, t1
-        else:
-            hi = max(hi, t1)
-    busy = (busy + hi - lo) / 1e6
-    window = (max(t1 for _, t1, _ in spans) - spans[0][0]) / 1e6
+    busy, window = busy_window(spans)
     # K4's launches by body: the tensor-core one, or the CUDA-core one
-    k4 = {body: sum(key in name for _, _, name in spans)
+    k4 = {body: sum(key in span[2] for span in spans)
           for body, key in (("tensor cores", "ssd_tc_kernel"), ("cuda cores", "ssd_kernel"))}
     out = dict(split=split, busy_s=busy, window_s=window, idle_share=1.0 - busy / window,
                wave_s=untraced, traced_wave_s=traced, kernels=len(spans), card=clocks,
                k4_launches=k4)
     log(f"[wave] {arch} bf16 {'/'.join(combo)}: wave {untraced:.4f} s untraced, "
         f"{traced:.4f} s traced; {len(spans)} device activities; busy {busy:.4f} s of a "
-        f"{window:.4f} s window, idle share {1.0 - busy / window:.4f}; card after it "
-        f"(SM clock, its max, power draw, temperature): {clocks}")
+        f"{window:.4f} s window, idle share {1.0 - busy / window:.4f}; spans read in "
+        f"{read_s:.2f} s; card after it (SM clock, its max, power draw, temperature): {clocks}")
     for label, sec in sorted(split.items(), key=lambda x: -x[1]):
         log(f"  {label}: {sec:.4f} s ({sec / busy:.1%} of the device's busy time)")
     if any(k4.values()):
@@ -2143,6 +2161,179 @@ def serve_phase(results: dict) -> None:
         t0 = time.perf_counter()
         serve_model(arch, results)
         log(f"[serve] {arch} {time.perf_counter() - t0:.1f} s")
+
+
+# ----------------------------------------------------------------- roofline
+
+# the profiler's product ops (their ``flops`` with ``with_flops=True``); the
+# counter's products are the same four (``roofline.op_graph``)
+PRODUCT_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+# measured peak <= PEAK_SLACK[0] x counted peak + PEAK_SLACK[1]: the caching
+# allocator rounds every block up to 512 B, and cuBLAS's workspace and a
+# kernel's scratch are allocations the eager program does not make
+PEAK_SLACK = (1.10, 256 * 2 ** 20)
+BOUND_SLACK = 1.05                 # bound_s <= 1.05 x the wave's device busy time
+
+
+def profiled_wave(prof) -> tuple:
+    """(product FLOPs, device spans) of a torch.profiler session with
+    ``with_flops``, read from its raw events (no parse into FunctionEvents).
+    The FLOPs of the product ops count each op once (one inside another
+    product op on its thread is left out); the spans are ``device_spans``."""
+    products = sorted((e.start_thread_id(), e.start_ns(), -e.end_ns(), e.flops())
+                      for e in prof.profiler.kineto_results.events()
+                      if e.name() in PRODUCT_OPS)
+    flops, outer = 0.0, {}
+    for tid, t0, neg_t1, f in products:
+        if tid in outer and t0 < outer[tid]:
+            continue                     # nested in the product op before it
+        outer[tid] = -neg_t1
+        flops += f
+    return flops, device_spans(prof)
+
+
+def roofline_wave():
+    """(cfg, plan, tokens as numpy, wave): the serve phase's qwen3-8b bf16
+    wave (qship, ``cuda`` / ``cuda``, N 8, M 8, C 512, B 2, full depth)
+    through ``prefill_pipeline`` as ``TorchExecutor`` runs it; ``wave(staged,
+    tokens)`` runs it where ``tokens`` lie (the card, or meta)."""
+    import numpy as np
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core import pipeline as pp
+    from repro_torch.launch.serve import make_requests
+    cfg = get_config("qwen3-8b")
+    seq = N_CHUNKS * CHUNK
+    run = RunConfig(num_chunks=N_CHUNKS, num_stages=N_STAGES, remote_attn="qship",
+                    attn_backend="cuda", pool_backend="cuda")
+    plan = pp.build_plan(cfg, N_STAGES, seq, run)
+    toks = np.stack([r.tokens for r in make_requests(BATCH, seq, cfg.vocab_size, seed=0)])
+
+    def wave(staged, tokens):
+        return pp.prefill_pipeline(cfg, staged, tokens, plan, device=tokens.device)
+    return cfg, plan, toks, wave
+
+
+def count_roofline_wave() -> tuple:
+    """(GraphCost, seconds): ``roofline_wave`` counted on meta by
+    ``roofline.op_graph.count`` (K1 / K2 charged their ``kernel_work``).
+    It needs no card: ``main`` runs it in a thread beside the build."""
+    import torch
+    from repro_torch.core.staging import init_staged
+    from repro_torch.roofline import op_graph
+    t0 = time.perf_counter()
+    cfg, plan, toks, wave = roofline_wave()
+    meta = torch.device("meta")
+    with torch.no_grad():
+        cost = op_graph.count(wave, init_staged(cfg, plan, None, device=meta),
+                              torch.empty(toks.shape, dtype=torch.int64, device=meta))
+    return cost, time.perf_counter() - t0
+
+
+def roofline_phase(results: dict, counted=None) -> None:
+    """[roofline]: ``roofline_wave``, the serve phase's qwen3-8b bf16 wave:
+
+    (a) counted on meta (``count_roofline_wave``; ``counted``, its result
+    when ``main`` ran it beside the build, else counted here);
+    (b) run on the card with the weights resident: a warm-up wave, a timed
+    wave (host clock ending in a synchronize), then one wave under
+    torch.profiler (``with_flops``) between ``reset_peak_memory_stats()``
+    and ``max_memory_allocated()`` (less what was allocated before the
+    weights), with the launch counters set to 0 just before it;
+    (c) held: the counted K1 / K2 launches equal ``ops.LAUNCHES``; the
+    counted products outside the kernels equal the profiler's FLOPs of
+    aten::mm / bmm / addmm / baddbmm to rel 1e-6; counted peak <= measured
+    peak <= 1.10 x counted + 256 MiB (PEAK_SLACK); the roofline bound (the
+    larger of the compute and least-traffic terms) <= 1.05 x the traced
+    wave's device busy time, since no reading may beat the chip;
+    (d) printed beside the card's name and power limit: the terms,
+    ``dominant``, ``useful_ratio``, the eager bytes over the HBM rate, the
+    measured share bound / busy, the MFU model_flops / (989e12 x wave s)
+    and the ops with the most eager bytes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core.staging import init_staged
+    from repro_torch.kernels import ops
+    from repro_torch.roofline import analysis
+
+    card = card_line()
+    cost, count_s = counted or count_roofline_wave()
+    cfg, plan, toks, wave = roofline_wave()
+    terms = analysis.analyze_counted(cost, cfg, ShapeConfig("serve wave", "prefill",
+                                                            N_CHUNKS * CHUNK, BATCH))
+    log(f"[roofline] {cfg.arch} bf16 qship/cuda/cuda N {N_STAGES} M {N_CHUNKS} C {CHUNK} "
+        f"B {BATCH}, {cfg.num_layers} layers, on {card}; counted on meta in {count_s:.2f} s"
+        + (" (beside the build)" if counted else ""))
+
+    # (b) the wave on the card
+    t_card = time.perf_counter()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    staged = init_staged(cfg, plan, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    tokens = torch.as_tensor(toks, device="cuda")
+    with torch.no_grad():
+        wave(staged, tokens)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = wave(staged, tokens)
+        torch.cuda.synchronize()
+        wave_s = time.perf_counter() - t0
+        check(bool(torch.isfinite(logits).all()), "[roofline] non-finite logits")
+        del logits
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     with_flops=True) as prof:
+            logits = wave(staged, tokens)
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated() - before
+    del logits, staged, tokens
+    torch.cuda.empty_cache()
+    card_s = time.perf_counter() - t_card
+    for name, n in launches.items():
+        results[name].setdefault("launches_by_path", {})["roofline wave"] = n
+    t0 = time.perf_counter()
+    prof_flops, spans = profiled_wave(prof)
+    check(bool(spans), "[roofline] the traced wave holds no device time")
+    busy, window = busy_window(spans)
+    log(f"  phase time: weights and three waves {card_s:.2f} s, the profile's FLOPs and "
+        f"spans {time.perf_counter() - t0:.2f} s")
+
+    # (d) the numbers, (c) the checks
+    hbm = analysis.HW_H100["hbm_bw"]
+    mfu = terms.model_flops / (analysis.HW_H100["peak_flops"] * wave_s)
+    log(f"  [{card}] counted: FLOPs {cost.flops:.6e} (products outside the kernels "
+        f"{cost.product_flops:.6e}, K1 / K2 {cost.kernel_flops:.6e}), model_flops "
+        f"{terms.model_flops:.6e}, least traffic {cost.stream_bytes:.6e} B, eager bytes "
+        f"{cost.bytes_:.6e} B, peak live {cost.peak_live_bytes / 2**30:.4f} GiB, launches "
+        f"{cost.launches}")
+    log(f"  [{card}] terms (HW_H100): {terms.summary()}; dominant {terms.dominant}, "
+        f"useful_ratio {terms.useful_ratio:.4f}, bound_s {terms.bound_s:.6f}, "
+        f"eager bytes / {hbm:.3g} B/s = {terms.bytes_dev_eager / hbm:.6f} s")
+    log(f"  [{card}] measured: wave {wave_s:.4f} s (host clock, untraced), traced wave's "
+        f"device busy {busy:.4f} s of a {window:.4f} s window; share bound_s / busy "
+        f"{terms.bound_s / busy:.4f}; MFU model_flops / (989e12 x wave s) {mfu:.4f}; "
+        f"peak {peak / 2**30:.4f} GiB (max_memory_allocated less the "
+        f"{before / 2**30:.4f} GiB allocated before the weights)")
+    for name, row in cost.top(8):
+        log(f"    {row['bytes']:.4e} B eager, {row['calls']} calls  {name}")
+    rel = abs(cost.product_flops - prof_flops) / max(prof_flops, 1.0)
+    lo, hi = cost.peak_live_bytes, PEAK_SLACK[0] * cost.peak_live_bytes + PEAK_SLACK[1]
+    log(f"  [{card}] checks: launches counted {cost.launches} vs ops.LAUNCHES {launches}; "
+        f"product FLOPs counted {cost.product_flops:.6e} vs profiler {prof_flops:.6e} "
+        f"(rel {rel:.3e}); peak counted {lo / 2**30:.4f} <= measured {peak / 2**30:.4f} <= "
+        f"{hi / 2**30:.4f} GiB (the gap {(peak - lo) / 2**20:.1f} MiB: allocator rounding, "
+        f"cuBLAS workspace, scratch); bound_s {terms.bound_s:.6f} <= {BOUND_SLACK} x busy "
+        f"{busy:.6f}")
+    check(cost.launches == launches,
+          f"[roofline] counted launches {cost.launches} != ops.LAUNCHES {launches}")
+    check(prof_flops > 0 and rel <= 1e-6,
+          f"[roofline] product FLOPs: counted {cost.product_flops} vs profiler {prof_flops}")
+    check(lo <= peak <= hi, f"[roofline] peak memory {peak} outside [{lo}, {hi}]")
+    check(terms.bound_s <= BOUND_SLACK * busy,
+          f"[roofline] bound_s {terms.bound_s} > {BOUND_SLACK} x busy {busy}")
 
 
 # ---------------------------------------------------------------- frontends
@@ -3243,12 +3434,7 @@ def activities_by_call(*fns) -> tuple:
             torch.cuda.synchronize()
         fns[-1]()
         torch.cuda.synchronize()
-    path = ROOT / "build" / "obs_count_trace.json"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text())["traceEvents"]
-    acts = sorted((e["ts"], e["cat"], e["name"]) for e in events
-                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    acts = [(t0, cat, name) for t0, _, name, cat in device_spans(prof)]
     marks = [i for i, (_, _, name) in enumerate(acts) if "spin_kernel" in name]
     check(len(marks) == len(fns) + 1,
           f"obs: {len(marks)} marker kernels in the trace, not {len(fns) + 1}")
@@ -4447,6 +4633,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
     cli = TrainCli()
+    counter = concurrent.futures.ThreadPoolExecutor(max_workers=1)
     try:
         log(card_line())
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -4455,7 +4642,12 @@ def main() -> int:
             f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
         cli.start()      # the train phase's CLI runs (d) beside the build (GPU idle)
+        counted = counter.submit(count_roofline_wave)   # meta: no card, beside the build
         build_phase()
+        t0 = time.perf_counter()
+        counted = counted.result()      # done before any timed phase holds the GIL
+        log(f"[roofline] the meta count ({counted[1]:.1f} s, beside the build) joined "
+            f"{time.perf_counter() - t0:.1f} s after it")
 
         results: dict = {}
         t0 = time.perf_counter()
@@ -4467,6 +4659,9 @@ def main() -> int:
         t0 = time.perf_counter()
         serve_phase(results)
         log(f"[serve] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        roofline_phase(results, counted)
+        log(f"[roofline] {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         frontend_phase(results)
         log(f"[frontends] {time.perf_counter() - t0:.1f} s")
@@ -4497,6 +4692,7 @@ def main() -> int:
         return 1
     finally:
         cli.stop()
+        counter.shutdown(wait=True)
 
     kernels = []
     base = ("launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

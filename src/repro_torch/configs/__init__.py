@@ -5,6 +5,8 @@ from repro_torch.configs.base import (
     ModelConfig,
     MoEConfig,
     RunConfig,
+    SHAPES,
+    ShapeConfig,
     SSMConfig,
     get_config,
     get_smoke_config,
@@ -24,5 +26,6 @@ ASSIGNED_ARCHS = (
 PAPER_MODELS = ("llama3-70b", "mistral-123b", "qwen3-235b", "llama3-405b")
 
 __all__ = ["ASSIGNED_ARCHS", "PAPER_MODELS", "EncDecConfig", "FrontendConfig",
-           "HybridConfig", "ModelConfig", "MoEConfig", "RunConfig", "SSMConfig",
+           "HybridConfig", "ModelConfig", "MoEConfig", "RunConfig", "SHAPES",
+           "ShapeConfig", "SSMConfig",
            "get_config", "get_smoke_config", "list_archs", "register", "replace"]

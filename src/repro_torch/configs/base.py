@@ -102,6 +102,11 @@ class ModelConfig:
     def attn_free(self) -> bool:
         return self.family == "ssm"
 
+    @property
+    def subquadratic(self) -> bool:
+        """True if the arch can run the 500k-token long-context decode shape."""
+        return self.family in ("ssm", "hybrid")
+
     def param_count(self) -> int:
         """Analytic parameter count (the cost model's weight bytes and the
         serving engines' KV capacity)."""
@@ -132,6 +137,43 @@ class ModelConfig:
         h = self.hybrid
         n_ssm = h.num_groups * h.ssm_per_group + h.tail_ssm_layers
         return emb + n_ssm * ssm + block + d
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: routed top-k + shared only)."""
+        if self.family != "moe":
+            return self.param_count()
+        m = self.moe
+        d_e = m.d_expert or self.d_ff
+        inactive = (m.num_experts - m.top_k) * 3 * self.d_model * d_e
+        return self.param_count() - self.num_layers * inactive
+
+    def kv_bytes_per_token(self, bytes_per_el: int = 2) -> int:
+        """KV-cache bytes per token across all attention layers."""
+        hd = self.resolved_head_dim
+        if self.family == "ssm":
+            return 0
+        if self.family == "hybrid":
+            n_attn = self.hybrid.num_groups  # shared block applied once per group
+            return 2 * n_attn * self.num_kv_heads * hd * bytes_per_el
+        return 2 * self.num_layers * self.num_kv_heads * hd * bytes_per_el
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One dry-run shape: what a step does (train | prefill | decode), its
+    sequence length and its global batch."""
+    name: str
+    kind: str
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
 
 
 @dataclass(frozen=True)

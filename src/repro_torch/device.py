@@ -9,7 +9,8 @@ import torch
 
 def resolve(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """``None`` or ``"cuda"`` means the card; raises ``RuntimeError`` when
-    no card is present. Nothing silently falls back to the CPU."""
+    no card is present. Nothing silently falls back to the CPU. ``"meta"``
+    (shapes only, no memory: the dry run) is taken only when asked for."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -7,7 +7,11 @@ Each wrapper checks device, dtype, shape and layout and raises on what the
 kernel does not take, allocates its outputs with ``torch.empty`` and
 launches on the current stream. A tensor on the CPU goes to the plain
 version in ``kernels.ref``; a CUDA tensor launches the kernel or raises —
-there is no fallback. ``LAUNCHES`` counts kernel launches per tag, and only
+there is no fallback. A meta tensor (the dry run, ``roofline.op_graph``)
+stands in for the card: the same checks run, outputs of the kernel's
+shapes and dtypes come back, and the active counter is charged the
+kernel's work (``roofline.analysis.kernel_work``); neither the kernel nor
+the plain version runs. ``LAUNCHES`` counts kernel launches per tag, and only
 those. Inside a ``timed_launches`` frame each wrapper also stamps its
 launch (a CUDA event) or its plain version's return (the host clock).
 No kernel has a backward: a wrapper given an input that requires grad,
@@ -24,6 +28,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.roofline import analysis, op_graph
 
 LAUNCHES = {"chunk_attention": 0, "pool_attention": 0,
             "pool_attention_paged": 0, "ssd": 0, "decode_attention": 0}
@@ -169,15 +174,37 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _on_card(*ts) -> bool:
-    """True for CUDA tensors, False for CPU tensors; raises on a mix or on
-    another device type."""
+    """True for CUDA tensors and for meta tensors (the dry run takes the
+    card's route up to the launch), False for CPU tensors; raises on a mix
+    or on another device type."""
     devs = {t.device for t in ts if t is not None}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
     dev = devs.pop()
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
-    return dev.type == "cuda"
+    return dev.type != "cpu"
+
+
+def _counted(tag: str, result, work):
+    """The meta branch in place of a launch: charges ``work()`` (the
+    kernel's ``kernel_work``) to the active counter, if one is counting,
+    and returns the kernel's (meta) outputs."""
+    counter = op_graph.active()
+    if counter is not None:
+        flops, nbytes, _ = work()
+        counter.charge(tag, flops, nbytes)
+    return result
+
+
+def _host(t: torch.Tensor, tag: str, what: str):
+    """The host values of a meta mask or length tensor, which a kernel's
+    charge needs; raises where the counter has none."""
+    h = op_graph.host_value(t)
+    if h is None:
+        raise ValueError(f"{tag}: the {what} tensor on meta has no recorded host "
+                         f"values; make it from host data inside the counted call")
+    return h
 
 
 def _check_types(q, k, v, k_scale, v_scale) -> None:
@@ -267,6 +294,12 @@ def chunk_attention(q, k, v, *, causal_offset: int = 0,
         m = torch.empty((b, h, c), device=q.device)
         l = torch.empty((b, h, c), device=q.device)
         acc = torch.empty((b, c, h, d), device=q.device)
+    if q.device.type == "meta":
+        return _counted("chunk_attention", (out, m, l, acc) if return_state else out,
+                        lambda: analysis.kernel_work(
+                            "chunk_attention", q, k, v, k_scale, v_scale,
+                            causal_offset=causal_offset, kv_len=kv_len,
+                            return_state=return_state))
     _call(_attn_lib(q.dtype, k.dtype), "chunk_attention_launch", "chunk_attention", q,
           _ptr(q), _ptr(k), _ptr(v), _ptr(k_scale), _ptr(v_scale), _ptr(out),
           _ptr(m), _ptr(l), _ptr(acc), _Q_CODES[q.dtype], _KV_CODES[k.dtype],
@@ -318,6 +351,10 @@ def pool_attention(q, k, v, valid, *, scale: Optional[float] = None,
     m = torch.empty((gb, h, c), device=q.device)
     l = torch.empty((gb, h, c), device=q.device)
     acc = torch.empty((gb, c, h, d), device=q.device)
+    if q.device.type == "meta":
+        return _counted("pool_attention", (m, l, acc), lambda: analysis.kernel_work(
+            "pool_attention", q, k, v, _host(valid, "pool_attention", "valid"),
+            k_scale, v_scale, kv_len=kv_len))
     _call(_attn_lib(q.dtype, k.dtype), "pool_attention_launch", "pool_attention", q,
           _ptr(q), _ptr(k), _ptr(v), _ptr(k_scale), _ptr(v_scale), _ptr(valid),
           _ptr(m), _ptr(l), _ptr(acc), _Q_CODES[q.dtype], _KV_CODES[k.dtype],
@@ -394,6 +431,11 @@ def pool_attention_paged(q, k_pages, v_pages, handles, valid, *, ppc: int,
     m = torch.empty((gb, h, c), device=q.device)
     l = torch.empty((gb, h, c), device=q.device)
     acc = torch.empty((gb, c, h, d), device=q.device)
+    if q.device.type == "meta":
+        return _counted("pool_attention_paged", (m, l, acc), lambda: analysis.kernel_work(
+            "pool_attention_paged", q, kp, vp, handles.numel(),
+            _host(valid, "pool_attention_paged", "valid"), ks, vs, ppc=ppc,
+            kv_len=kv_len))
     _call(_attn_lib(q.dtype, kp.dtype), "pool_attention_paged_launch",
           "pool_attention_paged", q,
           _ptr(q), _ptr(kp), _ptr(vp), _ptr(ks), _ptr(vs), _ptr(handles),
@@ -476,6 +518,9 @@ def ssd(x, dt, a_log, b, c, d_skip, *, chunk: int = 128, init_state=None):
     strides = [s for v in (x, b, c) for s in ssd_strides(v)]
     y = torch.empty((r, t, h, p), device=x.device, dtype=x.dtype)
     final = torch.empty((r, h, p, n), device=x.device)
+    if x.device.type == "meta":
+        return _counted("ssd", (y, final), lambda: analysis.kernel_work(
+            "ssd", x, dt, a2, b, c, d2, init_state, chunk=ck))
     _call("ssd", "ssd_launch", "ssd", x, _ptr(x), _ptr(dt), _ptr(a2), _ptr(b),
           _ptr(c), _ptr(d2), _ptr(init_state), _ptr(y), _ptr(final),
           _SSD_CODES[x.dtype], r, t, h, p, g, n, ck, gs, *strides)
@@ -608,8 +653,11 @@ def decode_attention(q, k, v, kv_len, *, scale: Optional[float] = None):
     _check_dense(q, k, v)
     if not kv_len.is_contiguous():
         raise ValueError("kv_len must be contiguous")
-    cap, part, cnt = _decode_scratch(q.device, h // kvh, d, b * kvh)
     out = torch.empty_like(q)
+    if q.device.type == "meta":
+        return _counted("decode_attention", out, lambda: analysis.kernel_work(
+            "decode_attention", q, k, v, _host(kv_len, "decode_attention", "kv_len")))
+    cap, part, cnt = _decode_scratch(q.device, h // kvh, d, b * kvh)
     _call("decode_attn", "decode_attention_launch", "decode_attention", q,
           _ptr(q), _ptr(k), _ptr(v), _ptr(kv_len), _ptr(part), _ptr(cnt), _ptr(out),
           _Q_CODES[q.dtype], b, h, kvh, d, s, cap, float(scale))

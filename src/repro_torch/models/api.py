@@ -7,11 +7,12 @@ over parameter dicts. Entry points run on the card unless the caller passes
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any, Dict
 
 import torch
 
 from repro_torch import device as device_mod
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import hybrid, ssm, transformer, whisper
 from repro_torch.models import layers as L
 
@@ -33,6 +34,12 @@ class Model:
     def init(self, generator: torch.Generator, device=None):
         """Random weights drawn from ``generator`` (on the same device)."""
         return self._mod.init(self.cfg, generator, device_mod.resolve(device))
+
+    def abstract_params(self):
+        """Shape-only weights on the meta device (the counterpart of
+        ``jax.eval_shape(model.init)``): no memory, and no random number is
+        drawn, since a ``torch.Generator`` cannot be bound to meta."""
+        return self._mod.init(self.cfg, None, torch.device("meta"))
 
     def forward(self, params, tokens: torch.Tensor, return_cache: bool = False,
                 embeds=None, **kw):
@@ -68,6 +75,33 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int, device=None):
         return L.zeros(self.init_cache_shape(batch, max_len), device_mod.resolve(device))
+
+    # ----------------------------------------------------------- dry-run
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """Meta-tensor stand-ins for every input of a (this arch x shape)
+        cell, where the reference returns ``ShapeDtypeStruct``s: the same
+        keys, shapes and dtypes (int32 tokens; the vlm's patch and the
+        encdec's frame ``embeds`` in bf16; a decode ``cache``).
+
+        The reference's ``input_sharding_specs`` has no counterpart: on one
+        card no input is sharded over a device mesh."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        meta = torch.device("meta")
+        front = cfg.frontend
+        out: Dict[str, Any] = {}
+        if shape.kind in ("train", "prefill"):
+            s_tok = s - front.num_embeds if front.kind == "vision_stub" else s
+            out["tokens"] = torch.empty((b, s_tok), dtype=torch.int32, device=meta)
+            if front.kind in ("vision_stub", "audio_stub"):
+                out["embeds"] = torch.empty((b, front.num_embeds, cfg.d_model),
+                                            dtype=torch.bfloat16, device=meta)
+            if shape.kind == "train":
+                out["labels"] = torch.empty((b, s_tok), dtype=torch.int32, device=meta)
+        else:
+            out["tokens"] = torch.empty((b,), dtype=torch.int32, device=meta)
+            out["cache"] = L.zeros(self.init_cache_shape(b, s), meta)
+        return out
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -64,7 +64,8 @@ def test_kernel_modules_import_without_nvcc():
             "repro_torch.models.api, repro_torch.bridge, repro_torch.core.gpipe, "
             "repro_torch.runtime.engine, repro_torch.sched, repro_torch.sim, "
             "repro_torch.kvstore.prefix, repro_torch.kvstore.tiers, "
-            "repro_torch.obs.telemetry; "
+            "repro_torch.obs.telemetry, repro_torch.roofline.op_graph, "
+            "repro_torch.launch.cells, repro_torch.launch.dryrun; "
             "assert callable(ops.ssd) and 'ssd' in ops.LAUNCHES; "
             "assert callable(ops.decode_attention) and 'decode_attention' in ops.LAUNCHES; "
             "assert not b._LIBS and all(v == 0 for v in ops.LAUNCHES.values()); "
