@@ -43,6 +43,10 @@ prints no result line):
      K3 case has an all-invalid group, which must come out exactly (-1e30,
      0, 0); K1's, K2's and K3's bf16 times are also read from a
      torch.profiler trace and from windows of back-to-back calls;
+   - K1-K3 at [long]'s shapes (C = 4096: K1's causal self block, K2
+     over 6 slots of 4096 keys, K3 off pages of 4096 tokens with bf16,
+     int8 and fp8 pages), held on every row's last 512 queries and timed
+     beside the library calls (``long_attention_shapes``);
    - K1 at the GPipe baseline's shape: 8 rows of a whole 4096-token
      sequence against itself (C = T = 4096, causal offset 0), qwen3-8b's
      heads, bf16, held against the plain version on 2 rows, each query row
@@ -122,7 +126,21 @@ prints no result line):
    attention; the bf16 spread and the router choices that differ are
    reported); in fp32 every request's argmax must equal the ``torch``
    backends' (see ``serve_model``);
-6. frontends: llava-next-34b (full width cut to 8 layers; 2880 patch
+6. long: qwen3-8b at full width with S = 32768 (N 8, M 8, C 4096, B 2),
+   bf16, through ``PrefillEngine`` + ``TorchExecutor``: at full depth a
+   mocap qship/cuda wave with every K1 and K2 launch held against its
+   plain version on every row's last 512 queries, the counted mocap and
+   terapipe waves (launches against their closed forms, wall time, peak
+   memory, the pools' bytes exactly the plan's 9.40 / 12.08 GB, the
+   per-stage peak kv_bytes ratio exactly 6/8), a profiled mocap wave
+   (device time by category, the profiler's product FLOPs against the meta
+   count, bound / busy and MFU), a planted K1 fault that drops the keys
+   past 512; at 8 layers the four held combinations (qship/cuda and
+   qship/paged on auto pages, fetch/paged int8, qship/paged fp8) against
+   the tiled P32 witness, every K3 launch held per launch, the planted K2
+   faults and a planted K3 fault that drops a page's keys past 512 (see
+   ``long_phase``);
+7. frontends: llava-next-34b (full width cut to 8 layers; 2880 patch
    embeddings then 1216 tokens, S = 4096, N = M = 8, C = 512: chunk 5
    straddles the front) and whisper-small (full width and depth: 1500
    frames into the encoder, 448 decoder tokens as N = M = 8 chunks of 56)
@@ -133,7 +151,7 @@ prints no result line):
    faults) that must break it, a timed wave through
    ``measure_prefill(embeds=)``; whisper-small's fp32 argmaxes against the
    ``torch`` backends (see ``frontend_model``);
-7. decode: each model at full width and depth through ``Model.forward(
+8. decode: each model at full width and depth through ``Model.forward(
    return_cache=True)`` on a 512-token prompt, the KV axis padded by 8, and
    8 ``Model.decode_step``s (the decode path's K5 launches counted, exactly
    36 a step for qwen3-8b, 13 for zamba2-7b, 0 for mamba2-130m, 40 for
@@ -151,7 +169,7 @@ prints no result line):
    positions in a 32768-token cache, 16 steps with K5, with its plain
    version, and with every K5 launch held against the plain version, which
    both planted faults must break by 10x (see ``decode_phase``);
-8. baselines + continuous: qwen3-8b at full width and depth in bf16, the
+9. baselines + continuous: qwen3-8b at full width and depth in bf16, the
    same 8 requests through MOCAP and terapipe (``PrefillEngine``), the GPipe
    baseline (``build_plan(mode="gpipe")``, M = 8, through
    ``prefill_pipeline``; K1 exactly layers_per_stage x (M + N - 1) times)
@@ -160,7 +178,7 @@ prints no result line):
    top-2 margin is above the measured bf16 spread), planted K1 faults, the waves in
    admission order, the four paths' wall times; then GPipe in fp32 (one
    layer a stage) against the ``torch`` backends (see ``baselines_phase``);
-9. prefix: cross-request prefix KV reuse on qwen3-8b at full width and
+10. prefix: cross-request prefix KV reuse on qwen3-8b at full width and
    depth in bf16 (k = 6 shared chunks of 512): ``prefill_pipeline`` seeded
    from a ``return_kv`` pool with garbage in the hit region, bit-identical
    to the unseeded run under qship/cuda, fetch/paged and int8 pages (K1-K3
@@ -169,7 +187,7 @@ prints no result line):
    ``TorchExecutor`` with the prefix cache off and on (logits bit-identical,
    every wave after the first seeded); a ``HostOffloadStager`` round trip
    (see ``prefix_phase``);
-10. obs: the device half of observability on qwen3-8b at full width and
+11. obs: the device half of observability on qwen3-8b at full width and
    depth in bf16, qship/``cuda``: stage telemetry on against off
    (bit-identical logits, equal launches and profiler device activities,
    occupancy and wire bytes against their closed forms), each stage's
@@ -179,14 +197,14 @@ prints no result line):
    calibration of the cost model from ``hgx-b200`` to the measured spans,
    and the serve CLI once with ``--trace-out --metrics-out --health
    --calibrate`` (see ``obs_phase``);
-11. fleet: two qwen3-8b cells (bf16, full depth; cell1 on int8 pages)
+12. fleet: two qwen3-8b cells (bf16, full depth; cell1 on int8 pages)
     behind the jsf router through the serve CLI, EDF, an SLO, Poisson
     arrivals, 8 requests: each completed once, both cells used, each
     argmax equal to a single cell's on the same pages and seed, an
     ``--options-in`` replay equal, the merged trace's rows per cell; then
     one cell drained with requests in flight through ``FleetFabric`` (see
     ``fleet_phase``);
-12. tp: the manual tensor-parallel lowering (``TorchExecutor(layout=)``,
+13. tp: the manual tensor-parallel lowering (``TorchExecutor(layout=)``,
     the params through ``shard_params``), the card's name and power limit
     printed beside it: qwen3-8b at full width and depth at N 8 x tp 2
     under qship/cuda and fetch/paged against the tp 1 runs of the same
@@ -196,7 +214,7 @@ prints no result line):
     G 3, D 128, held per launch, planted K2 faults); qwen2-moe-a2.7b at 8
     layers with expert parallelism at tp 8, 60 -> 64 experts, against tp 1
     (router flips reported; fp32 argmax held) (see ``tp_phase``);
-13. train (``repro_torch.train``, the card's name and power limit beside
+14. train (``repro_torch.train``, the card's name and power limit beside
     it): one fp32 step of each family's smoke config (qwen3-8b,
     qwen2-moe-a2.7b, mamba2-130m, zamba2-7b, llava-next-34b, whisper-small)
     on the card against the same on the CPU (loss, every gradient leaf,
@@ -437,7 +455,7 @@ def pool_case(label: str, kind: str, kernel, plain, *args, **kw):
     return got, err
 
 
-def sdpa_pool_ms(q, k, v, valid, got) -> Optional[float]:
+def sdpa_pool_ms(q, k, v, valid, got, **timing) -> Optional[float]:
     """The time of one call of PyTorch's memory-efficient attention
     (``aten._scaled_dot_product_efficient_attention``, compute_log_sumexp)
     computing K2's (and K3's) function on the same inputs: each row's
@@ -447,7 +465,8 @@ def sdpa_pool_ms(q, k, v, valid, got) -> Optional[float]:
     log l). The GQA heads are expanded and the bias built outside the timed
     call. Its output is compared with the kernel's normalised state ``got``
     on the rows that read a slot (logged, not held). None, with the reason
-    logged, if the call cannot run on these inputs."""
+    logged, if the call cannot run on these inputs. ``timing``: ``time_ms``'s
+    options."""
     import torch
     s, gb, c, kvh, d = k.shape
     h = q.shape[2]
@@ -467,7 +486,7 @@ def sdpa_pool_ms(q, k, v, valid, got) -> Optional[float]:
             qt, kt, vt, bias, True, 0.0, False, scale=1.0 / math.sqrt(d))
     try:
         out = call()[0]
-        ms = time_ms(call)
+        ms = time_ms(call, **timing)
     except RuntimeError as e:
         log(f"  sdpa (memory-efficient, attn_bias) cannot run here: {str(e)[:160]}")
         return None
@@ -1374,9 +1393,147 @@ def whisper_pipeline_shapes(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def long_attention_shapes(results: dict) -> None:
+    """K1-K3 at [long]'s shapes, bf16: q [16, 4096, 32, 128] (N_STAGES x
+    BATCH rows of one chunk of C = LONG_SEQ / LONG_M queries, qwen3-8b's
+    heads); K1 the causal self block against its 4096 keys (return_state,
+    as the pipeline calls it); K2 a stack of 6 slots x 4096 keys (stage s
+    reads min(s, 6) of them); K3 pages of 4096 tokens, one a chunk, read in
+    place from a strided [8, 7, 2, 2, 4096, 8, 128] store, with bf16, int8
+    and fp8 pages. Each is held against its plain version on the last
+    LONG_Q_BLOCK query rows of every row (``compare``; the plain version on
+    all 4096 would hold ~26 GB of fp32 scores for one stage group of K2),
+    where the causal K1 sees every key; K2's and K3's all-invalid group
+    must come out exactly (-1e30, 0, 0). Times (LONG_TIMING: fewer calls,
+    tens of ms each): ``time_ms`` / ``windowed_ms`` / ``profiled_ms``, the
+    plain version's on that slice, the library (K1: SDPA causal; K2 / K3:
+    the memory-efficient SDPA over the masked stack, ``sdpa_pool_ms``, the
+    1-byte pages dequantized to bf16 outside the timed call) and the bound
+    from ``roofline.kernel_work``; recorded under ``results[kernel]["long"]``
+    (K3: ``"long_<kv>"``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    h, kvh, d, c, slots = 32, 8, 128, LONG_SEQ // LONG_M, 6
+    gb, q0, bf16 = N_STAGES * BATCH, LONG_SEQ // LONG_M - LONG_Q_BLOCK, torch.bfloat16
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def held(kernel: str, got, args: tuple, kw: dict, label: str, in_dtype: str):
+        want = query_block_call(kernel, plain_of(kernel), q0, c, args, kw)
+        err = compare(f"{label}, last {LONG_Q_BLOCK} queries", query_part(got, q0, c), want,
+                      in_dtype)
+        plain = time_ms(lambda: query_block_call(kernel, plain_of(kernel), q0, c, args, kw),
+                        **PLAIN_TIMING)
+        res = results[kernel]
+        res["max_abs_err"] = max(res.get("max_abs_err", 0.0), err)
+        return plain
+
+    def timed(call, tag: str) -> dict:
+        ms, win_ms = time_ms(call, **LONG_TIMING), windowed_ms(call, iters=3, warmup=0)
+        prof_ms, seen = profiled_ms(call, tag, calls=4)
+        log(f"  torch.profiler: attn_tc_kernel<{tag}> {seen} launches, "
+            + (f"{prof_ms:.4f} ms device time each" if seen else "no device time seen"))
+        return dict(ms=ms, windowed_ms=win_ms, profiler_ms=prof_ms)
+
+    def record(kernel: str, key: str, times: dict, plain: float, lib, bound, **shape):
+        b_ms, by, _ = bound
+        results[kernel][key] = dict(heads=h, kv_heads=kvh, head_dim=d, rows=gb, queries=c,
+                                    plain_ms=plain, plain_queries=LONG_Q_BLOCK,
+                                    library_ms=lib, bound_ms=b_ms, bound_by=by,
+                                    **times, **shape)
+        log(f"  time: kernel {times['ms']:.4f} ms ({times['windowed_ms']:.4f} ms a call in "
+            f"windows), plain {plain:.4f} ms on the last {LONG_Q_BLOCK} queries of each row, "
+            + (f"library {lib:.4f} ms, " if lib is not None else "")
+            + f"bound {b_ms:.4f} ms ({by})")
+
+    valid = torch.zeros((N_STAGES, slots), dtype=torch.bool, device=dev)
+    for s in range(N_STAGES):           # stage s at phase s: min(s, 6) slots
+        valid[s, :min(s, slots)] = True
+
+    def identity_kept(label: str, got) -> None:
+        m, l, acc = got
+        check(bool((m[:BATCH] == -1e30).all() and (l[:BATCH] == 0).all()
+                   and (acc[:BATCH] == 0).all()),
+              f"{label}: an all-invalid group is not exactly (-1e30, 0, 0)")
+
+    # ---------------- K1: the causal self block of a 4096-token chunk
+    log(f"[kernels] K1 chunk_attention at [long]'s shape  q [{gb},{c},{h},{d}], "
+        f"k/v [{gb},{c},{kvh},{d}] bf16, causal")
+    q, k, v = randn(gb, c, h, d), randn(gb, c, kvh, d), randn(gb, c, kvh, d)
+    call = lambda: ops.chunk_attention(q, k, v, return_state=True)
+    plain = held("chunk_attention", call(), (q, k, v), dict(return_state=True),
+                 "long self block", "bfloat16")
+    times = timed(call, "ChunkWalk")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                         enable_gqa=True), **LONG_TIMING)
+    record("chunk_attention", "long", times, plain, lib,
+           bound_ms("chunk_attention", q, k, v, return_state=True), keys=c)
+    del k, v, qt, kt, vt
+
+    # ---------------- K2: a stack of 6 stored chunks of 4096 keys
+    log(f"[kernels] K2 pool_attention at [long]'s shape  q [{gb},{c},{h},{d}], "
+        f"k/v [{slots},{gb},{c},{kvh},{d}] bf16")
+    k, v = randn(slots, gb, c, kvh, d), randn(slots, gb, c, kvh, d)
+    call = lambda: ops.pool_attention(q, k, v, valid)
+    got = call()
+    identity_kept("long K2", got)
+    plain = held("pool_attention", got, (q, k, v, valid), {}, "long pool bf16", "bfloat16")
+    times = timed(call, "StackWalk")
+    lib = sdpa_pool_ms(q, k, v, valid, got, **LONG_TIMING)
+    record("pool_attention", "long", times, plain, lib,
+           bound_ms("pool_attention", q, k, v, valid.cpu()), slots=slots, keys=c)
+    del k, v, got
+    torch.cuda.empty_cache()
+
+    # ---------------- K3: pages of 4096 tokens in place, bf16 / int8 / fp8
+    npages, lps = slots + 1, 2
+    handles = torch.arange(slots, dtype=torch.int32, device=dev)
+    for kind in ("bf16",) + K1_KINDS:
+        log(f"[kernels] K3 pool_attention_paged at [long]'s shape  q [{gb},{c},{h},{d}], "
+            f"layer view of a [{N_STAGES},{npages},{lps},{BATCH},{c},{kvh},{d}] {kind} store")
+        if kind == "bf16":
+            kp, vp = (randn(N_STAGES, npages, lps, BATCH, c, kvh, d) for _ in range(2))
+            ks = vs = None
+        else:
+            kp, ks = quantize(randn(N_STAGES, npages, lps, BATCH, c, kvh, d,
+                                    dtype=torch.float32), kind, (4, 6))
+            vp, vs = quantize(randn(N_STAGES, npages, lps, BATCH, c, kvh, d,
+                                    dtype=torch.float32), kind, (4, 6))
+            ks, vs = ks[:, :, 1], vs[:, :, 1]
+        k_l, v_l = kp[:, :, 1], vp[:, :, 1]           # strided views, as the pipeline's
+        kw = dict(ppc=1, k_scale=ks, v_scale=vs)
+        call = lambda: ops.pool_attention_paged(q, k_l, v_l, handles, valid, **kw)
+        got = call()
+        identity_kept(f"long K3 {kind}", got)
+        plain = held("pool_attention_paged", got, (q, k_l, v_l, handles, valid), kw,
+                     f"long paged {kind}", "bfloat16" if kind == "bf16" else kind)
+        times = timed(call, "PagedWalk")
+
+        def stack(x, sc):       # the same slots as K2's stack, dequantized to bf16
+            x = x[:, :slots] if sc is None else (x[:, :slots].float() * sc[:, :slots]).to(bf16)
+            return x.movedim(1, 0).flatten(1, 2)
+        lib = sdpa_pool_ms(q, stack(k_l, ks), stack(v_l, vs), valid, got, **LONG_TIMING)
+        record("pool_attention_paged", f"long_{kind}", times, plain, lib,
+               bound_ms("pool_attention_paged", q, k_l, v_l, handles.numel(), valid.cpu(),
+                        ks, vs, ppc=1), slots=slots, page_tokens=c, pages=kind)
+        del kp, vp, k_l, v_l, ks, vs, got
+        torch.cuda.empty_cache()
+    del q
+    torch.cuda.empty_cache()
+
+
 def kernel_phase(results: dict) -> None:
     attention_phase(results, h=32, kvh=8, d=128)                # qwen3-8b
     k1_gpipe_shape(results)
+    t0 = time.perf_counter()
+    long_attention_shapes(results)
+    log(f"[kernels] K1-K3 at [long]'s shapes: {time.perf_counter() - t0:.1f} s")
     attention_phase(results, h=32, kvh=32, d=112, key="d112", fp32=False)   # zamba2-7b
     for key, (h, kvh, d, fp32) in ATTN_SHAPES.items():
         t0 = time.perf_counter()
@@ -1584,22 +1741,71 @@ def swapped(owner, name: str, value):
         setattr(owner, name, old)
 
 
+WITNESS_TILE = 512   # the witness's query rows a block (``p32_witness``)
+
+
 def p32_witness():
     """The ``torch`` backend with p kept in fp32 before PV and stored pages
     dequantized to fp32, as the kernels do: only the fp32 summation order
-    differs from them."""
+    differs from them. Each block runs WITNESS_TILE query rows at a time
+    (every row's online-softmax state is its own), the causal self block
+    over the keys a tile can see; a stored chunk's block runs on the rows
+    of the groups that may read it, and not at all where no group may (the
+    state after an all-masked block is exactly the state before it). So a
+    chunk of 4096 queries holds one tile's fp32 scores at a time, not the
+    [GB, K, G, C, C] of ``attn_update``."""
     import torch
-    from repro_torch.core.attention import TorchBackend
+    from repro_torch.core.attention import NEG_INF, TorchBackend, group_rows
     from repro_torch.kvstore import quant
+
+    def update(qg, k, v, mask, scale, m, l, acc):
+        """``attention.attn_update`` on fp32 k / v (so p stays fp32 before
+        PV), its passes over the scores in place; ``mask`` None: every key
+        is visible (``where`` on an all-True mask is the identity)."""
+        s = torch.einsum("bckgd,bskd->bkgcs", qg.float(), k).mul_(scale)
+        if mask is not None:
+            s.masked_fill_(~mask, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(m_new < NEG_INF / 2, torch.zeros_like(m_new), m_new)
+        p = s.sub_(m_safe[..., None]).exp_()
+        corr = torch.exp(m - m_safe)
+        return (m_new, l * corr + p.sum(dim=-1),
+                acc * corr[..., None] + torch.einsum("bkgcs,bskd->bkgcd", p, v))
+
+    def blocks(qg, k, v, rows, causal: bool, scale, st):
+        """``st`` updated by one block on the rows flagged in ``rows`` [GB]
+        (all where None), WITNESS_TILE query rows at a time."""
+        m, l, acc = (x.clone() for x in st)
+        idx = None if rows is None or bool(rows.all()) else torch.nonzero(rows).flatten()
+        if idx is not None:
+            qg, k, v = qg[idx], k[idx], v[idx]
+        k, v = k.float(), v.float()
+        r = slice(None) if idx is None else idx
+        for q0 in range(0, qg.shape[1], WITNESS_TILE):
+            q1 = min(q0 + WITNESS_TILE, qg.shape[1])
+            n = q1 if causal else k.shape[1]
+            mask = None
+            if causal and q0 < n - 1:
+                mask = (torch.arange(n, device=qg.device)[None, :]
+                        <= torch.arange(q0, q1, device=qg.device)[:, None])
+            at = (r, slice(None), slice(None), slice(q0, q1))
+            m[at], l[at], acc[at] = update(qg[:, q0:q1], k[:, :n], v[:, :n], mask, scale,
+                                           m[at], l[at], acc[at])
+        return m, l, acc
 
     class P32Witness(TorchBackend):
         def self_block(self, qg, k, v, scale, st):
-            return super().self_block(qg, k, v.float(), scale, st)
+            return blocks(qg, k, v, None, True, scale, st)
 
         def chunk_block(self, qg, k, v, valid, scale, st):
-            return super().chunk_block(qg, k, v.float(), valid, scale, st)
+            rows = group_rows(valid, qg.shape[0])
+            if not bool(rows.any()):
+                return st
+            return blocks(qg, k, v, rows, False, scale, st)
 
         def chunk_block_q(self, qg, kq, vq, k_scale, v_scale, valid, scale, st):
+            if not bool(group_rows(valid, qg.shape[0]).any()):
+                return st                   # before the pages are decoded
             if k_scale is not None:
                 pt = kq.shape[1] // k_scale.shape[0]
                 k_scale = quant.expand_page_scale(k_scale, pt)
@@ -1650,6 +1856,34 @@ def planted_faults(kind: str, real):
 
 
 PLAIN_SCORES_BYTES = 2 << 30   # a K1-K3 plain call's fp32 scores, at most (``plain_of``)
+# the outputs' query axes: K1's (out, m, l, acc) or out, K2's / K3's (m, l, acc)
+QUERY_DIMS = {4: (1, 2, 2, 1), 3: (2, 2, 1)}
+
+
+def query_part(res, q0: int, q1: int):
+    """Query rows [q0, q1) of a K1-K3 result (``QUERY_DIMS``)."""
+    if not isinstance(res, tuple):
+        return res[:, q0:q1]
+    return tuple(x.narrow(dim, q0, q1 - q0) for x, dim in zip(res, QUERY_DIMS[len(res)]))
+
+
+def query_cat(parts: list):
+    """K1-K3 results of consecutive query blocks, joined."""
+    import torch
+    if not isinstance(parts[0], tuple):
+        return torch.cat(parts, 1)
+    return tuple(torch.cat(xs, dim)
+                 for xs, dim in zip(zip(*parts), QUERY_DIMS[len(parts[0])]))
+
+
+def query_block_call(kind: str, fn, q0: int, q1: int, args: tuple, kw: dict):
+    """``fn`` (a K1-K3 wrapper or plain version) on query rows [q0, q1) of
+    ``args[0]``: K1's causal offset moves with the block's first row, K2 and
+    K3 see every stored key from every row."""
+    kw = dict(kw)
+    if kind == "chunk_attention":
+        kw["causal_offset"] = kw.get("causal_offset", 0) + q0
+    return fn(args[0][:, q0:q1], *args[1:], **kw)
 
 
 def plain_of(kind: str):
@@ -1669,10 +1903,12 @@ def plain_of(kind: str):
                 return wrapper(*args, **kw)
 
         def plain(*args, **kw):
-            # whole stage groups' rows a call (K1: rows in N_STAGES groups),
             # in as few calls as keep each call's fp32 scores within
-            # PLAIN_SCORES_BYTES: rows are independent, and all 16 rows of a
-            # pool scan at llama3-405b's 128 heads hold ~13 GB a copy
+            # PLAIN_SCORES_BYTES: whole stage groups' rows a call (K1: rows
+            # in N_STAGES groups), then blocks of query rows. Rows and query
+            # rows are independent, so the split is exact: all 16 rows of a
+            # pool scan at llama3-405b's 128 heads hold ~13 GB a copy, one
+            # group's K2 call at C = 4096 over 6 slots ~26 GB
             q, g = args[0], N_STAGES
             if kind == "chunk_attention":
                 keys = args[1].shape[1]
@@ -1683,15 +1919,18 @@ def plain_of(kind: str):
                 g = args[1].shape[0] if args[1].ndim == 6 else 1
                 keys = torch.as_tensor(args[3]).numel() * args[1].shape[-3]
             scores = 4 * q.shape[0] * q.shape[1] * q.shape[2] * keys
-            calls = next((p for p in range(1, g + 1) if g % p == 0
-                          and scores <= p * PLAIN_SCORES_BYTES), g)
-            if calls == 1 or q.shape[0] % g:
-                return whole(*args, **kw)
+            calls = 1 if q.shape[0] % g else next(
+                (p for p in range(1, g + 1) if g % p == 0
+                 and scores <= p * PLAIN_SCORES_BYTES), g)
+            blocks = -(-scores // (calls * PLAIN_SCORES_BYTES))
+            step = -(-q.shape[1] // max(blocks, 1))
             b, per = q.shape[0] // calls, g // calls
             parts = []
             for i in range(calls):
                 rows, grp = slice(i * b, (i + 1) * b), slice(i * per, (i + 1) * per)
-                if kind == "chunk_attention":
+                if calls == 1:
+                    a, k = args, kw
+                elif kind == "chunk_attention":
                     a = tuple(x[rows] for x in args)
                     k = {n: (x[rows] if n in ("k_scale", "v_scale") and x is not None
                              else x) for n, x in kw.items()}
@@ -1705,7 +1944,14 @@ def plain_of(kind: str):
                         + args[5:]
                     k = {n: (x[grp] if n in ("k_scale", "v_scale") and x is not None
                              else x) for n, x in kw.items()}
-                parts.append(whole(*a, **k))
+                if step >= q.shape[1]:
+                    parts.append(whole(*a, **k))
+                    continue
+                parts.append(query_cat([
+                    query_block_call(kind, whole, q0, min(q0 + step, q.shape[1]), a, k)
+                    for q0 in range(0, q.shape[1], step)]))
+            if len(parts) == 1:
+                return parts[0]
             if isinstance(parts[0], tuple):
                 return tuple(torch.cat(p) for p in zip(*parts))
             return torch.cat(parts)
@@ -1717,7 +1963,8 @@ def plain_of(kind: str):
     return ssd
 
 
-def shadowed(fn, kind: str, worst: list, by: Optional[dict] = None, label=None):
+def shadowed(fn, kind: str, worst: list, by: Optional[dict] = None, label=None,
+             q_block: Optional[int] = None):
     """``fn`` (the wrapper ``ops.<kind>``: K1-K5, or a planted fault) in
     its place on a model path, every call also held against the plain
     version on the same inputs: ``worst[0]`` keeps the largest error of any
@@ -1725,15 +1972,23 @@ def shadowed(fn, kind: str, worst: list, by: Optional[dict] = None, label=None):
     max|ref| for a bf16 output, 1e-3 for an fp32 one of bf16 inputs, 1e-4
     for fp32 inputs; entries holding the empty-row sentinel m = -1e30 must
     match it and stay out of max|ref|); ``by[label(*args, **kw)]`` the
-    largest of each kind of call that ``label`` names."""
+    largest of each kind of call that ``label`` names. ``q_block`` (K1-K3):
+    only the last ``q_block`` query rows of every row are held, the plain
+    version run on those queries alone (``query_block_call``): the block
+    where a causal K1 sees every key of its launch."""
     import torch
     plain = plain_of(kind)
 
     def call(*args, **kw):
         got = fn(*args, **kw)
-        want = plain(*args, **kw)
+        c = args[0].shape[1]
+        if q_block is not None and c > q_block:
+            q0 = c - q_block
+            pair = (query_part(got, q0, c), query_block_call(kind, plain, q0, c, args, kw))
+        else:
+            pair = (got, plain(*args, **kw))
         in_dtype = "float32" if args[0].dtype == torch.float32 else "bfloat16"
-        pair = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        pair = pair if isinstance(got, tuple) else ((pair[0],), (pair[1],))
         ratio = fault_ratio(*pair, in_dtype)
         worst[0] = max(worst[0], ratio)
         if by is not None:
@@ -1846,14 +2101,7 @@ def wave_split(arch: str, staged=None,
     spans = device_spans(prof)
     read_s = time.perf_counter() - t0
     check(bool(spans), f"{arch}: the traced wave holds no device time")
-    split: dict = {}
-    by_name: dict = {}
-    for t0, t1, name, _ in spans:
-        low = name.lower()
-        label = next((lab for lab, keys in WAVE_CATEGORIES if any(k in low for k in keys)),
-                     "other")
-        split[label] = split.get(label, 0.0) + (t1 - t0) / 1e6
-        by_name[name] = by_name.get(name, 0.0) + (t1 - t0) / 1e6
+    split, by_name = categorize(spans)
     busy, window = busy_window(spans)
     # K4's launches by body: the tensor-core one, or the CUDA-core one
     k4 = {body: sum(key in span[2] for span in spans)
@@ -1865,13 +2113,33 @@ def wave_split(arch: str, staged=None,
         f"{traced:.4f} s traced; {len(spans)} device activities; busy {busy:.4f} s of a "
         f"{window:.4f} s window, idle share {1.0 - busy / window:.4f}; spans read in "
         f"{read_s:.2f} s; card after it (SM clock, its max, power draw, temperature): {clocks}")
-    for label, sec in sorted(split.items(), key=lambda x: -x[1]):
-        log(f"  {label}: {sec:.4f} s ({sec / busy:.1%} of the device's busy time)")
+    log_split(split, by_name, busy)
     if any(k4.values()):
         log(f"  K4 launches by body: {k4}")
+    return out
+
+
+def categorize(spans: list) -> tuple:
+    """(device seconds by WAVE_CATEGORIES label, device seconds by kernel
+    name) of ``device_spans``."""
+    split: dict = {}
+    by_name: dict = {}
+    for t0, t1, name, _ in spans:
+        low = name.lower()
+        label = next((lab for lab, keys in WAVE_CATEGORIES if any(k in low for k in keys)),
+                     "other")
+        split[label] = split.get(label, 0.0) + (t1 - t0) / 1e6
+        by_name[name] = by_name.get(name, 0.0) + (t1 - t0) / 1e6
+    return split, by_name
+
+
+def log_split(split: dict, by_name: dict, busy: float) -> None:
+    """Logs ``categorize``'s split as shares of ``busy``, then the 12
+    kernels that take the most device time."""
+    for label, sec in sorted(split.items(), key=lambda x: -x[1]):
+        log(f"  {label}: {sec:.4f} s ({sec / busy:.1%} of the device's busy time)")
     for name, sec in sorted(by_name.items(), key=lambda x: -x[1])[:12]:
         log(f"    {sec:.4f} s  {name[:110]}")
-    return out
 
 
 def moe_cap(cfg) -> int:
@@ -2192,17 +2460,18 @@ def profiled_wave(prof) -> tuple:
     return flops, device_spans(prof)
 
 
-def roofline_wave():
+def roofline_wave(seq: int = N_CHUNKS * CHUNK):
     """(cfg, plan, tokens as numpy, wave): the serve phase's qwen3-8b bf16
-    wave (qship, ``cuda`` / ``cuda``, N 8, M 8, C 512, B 2, full depth)
-    through ``prefill_pipeline`` as ``TorchExecutor`` runs it; ``wave(staged,
-    tokens)`` runs it where ``tokens`` lie (the card, or meta)."""
+    wave (qship, ``cuda`` / ``cuda``, N 8, M 8, C 512, B 2, full depth), or
+    at another ``seq`` the same wave of M 8 chunks of seq / 8 ([long]'s
+    S 32768), through ``prefill_pipeline`` as ``TorchExecutor`` runs it;
+    ``wave(staged, tokens)`` runs it where ``tokens`` lie (the card, or
+    meta)."""
     import numpy as np
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.core import pipeline as pp
     from repro_torch.launch.serve import make_requests
     cfg = get_config("qwen3-8b")
-    seq = N_CHUNKS * CHUNK
     run = RunConfig(num_chunks=N_CHUNKS, num_stages=N_STAGES, remote_attn="qship",
                     attn_backend="cuda", pool_backend="cuda")
     plan = pp.build_plan(cfg, N_STAGES, seq, run)
@@ -2213,15 +2482,15 @@ def roofline_wave():
     return cfg, plan, toks, wave
 
 
-def count_roofline_wave() -> tuple:
-    """(GraphCost, seconds): ``roofline_wave`` counted on meta by
+def count_roofline_wave(seq: int = N_CHUNKS * CHUNK) -> tuple:
+    """(GraphCost, seconds): ``roofline_wave(seq)`` counted on meta by
     ``roofline.op_graph.count`` (K1 / K2 charged their ``kernel_work``).
     It needs no card: ``main`` runs it in a thread beside the build."""
     import torch
     from repro_torch.core.staging import init_staged
     from repro_torch.roofline import op_graph
     t0 = time.perf_counter()
-    cfg, plan, toks, wave = roofline_wave()
+    cfg, plan, toks, wave = roofline_wave(seq)
     meta = torch.device("meta")
     with torch.no_grad():
         cost = op_graph.count(wave, init_staged(cfg, plan, None, device=meta),
@@ -2334,6 +2603,387 @@ def roofline_phase(results: dict, counted=None) -> None:
     check(lo <= peak <= hi, f"[roofline] peak memory {peak} outside [{lo}, {hi}]")
     check(terms.bound_s <= BOUND_SLACK * busy,
           f"[roofline] bound_s {terms.bound_s} > {BOUND_SLACK} x busy {busy}")
+
+
+# --------------------------------------------------------------------- long
+
+# [long]: qwen3-8b at full width at the first of the paper's lengths, S =
+# 32768 = LONG_M chunks of 4096 at N_STAGES = 8: the geometry where MBKR
+# keeps 6 slots a stage against terapipe's 8 (at M 64 x C 512 it would keep
+# 62 against 64), one wave of LONG_BATCH requests
+LONG_SEQ, LONG_M, LONG_BATCH = 32768, 8, BATCH
+# the requests of the held runs at 8 layers (c): one, which halves the P32
+# witness's fp32 scores (44 s of [long] at two) for the script's time
+LONG_HELD_BATCH = 1
+LONG_Q_BLOCK = 512           # the sliced per-launch check: every row, its last 512 queries
+LONG_FAULT_KEYS = 512        # the long-only planted faults drop the keys past these
+LONG_COMBO = ("qship", "cuda", "cuda", "auto")
+LONG_HELD = (("qship", "cuda", "cuda", "auto"), ("qship", "cuda", "paged", "auto"),
+             ("fetch", "cuda", "paged", "int8"), ("qship", "cuda", "paged", "fp8"))
+LONG_TIMING = dict(iters=3, warmup=1)   # a long kernel call takes tens of ms
+
+
+class FaultSeen(Exception):
+    """A planted fault broke its per-launch check: its run stops there."""
+
+
+def stop_on_break(fn, worst: list):
+    """``fn`` (a ``shadowed`` fault) raising FaultSeen once ``worst[0]``
+    passes 1: one broken launch is all a fault has to show."""
+    def call(*args, **kw):
+        out = fn(*args, **kw)
+        if worst[0] > 1.0:
+            raise FaultSeen
+        return out
+    return call
+
+
+def long_faults(k1, k3) -> dict:
+    """The planted faults that only a chunk longer than 512 shows, through
+    ``kv_len``: K1 (``k1``) dropping every key at or past position
+    LONG_FAULT_KEYS of its launch, K3 (``k3``) every key of a page past its
+    first LONG_FAULT_KEYS (one page a chunk). Kernel tag -> (name, fault)."""
+    def k1_short(q, k, v, *, kv_len=None, **kw):
+        t = k.shape[1] if kv_len is None else kv_len
+        return k1(q, k, v, kv_len=min(t, LONG_FAULT_KEYS), **kw)
+
+    def k3_short(q, k_pages, v_pages, handles, valid, *, ppc, kv_len=None, **kw):
+        t = ppc * k_pages.shape[-3] if kv_len is None else kv_len
+        return k3(q, k_pages, v_pages, handles, valid, ppc=ppc,
+                  kv_len=min(t, LONG_FAULT_KEYS), **kw)
+    return {"chunk_attention": (f"K1 drops the keys at or past {LONG_FAULT_KEYS} of a launch",
+                                k1_short),
+            "pool_attention_paged": (f"K3 drops a page's keys past its first "
+                                     f"{LONG_FAULT_KEYS}", k3_short)}
+
+
+def wave_launch_form(plan) -> dict:
+    """K1 and K2 launches of one wave of a dense model on the ``cuda`` pool:
+    K1 one self block a (layer, tick); K2 one pool scan a (layer, tick)
+    and, under MBKR with a remote prefix, one more (the qship creditor scan
+    or the landed fetch stack)."""
+    per = plan.layers_per_stage * plan.num_ticks
+    remote = plan.mode == "mocap" and plan.p2 < plan.num_chunks and (
+        plan.remote_attn == "fetch" or len(plan.host_slots_used) > 0)
+    return {"chunk_attention": per, "pool_attention": per * (1 + int(remote))}
+
+
+def pool_recorder(sizes: list):
+    """``core.pipeline.alloc_kv_pool`` appending the bytes of each pool it
+    allocates (payloads and scales) to ``sizes``."""
+    from repro_torch.core import pipeline as pp
+    alloc = pp.alloc_kv_pool
+
+    def recorded(*args, **kw):
+        pool = alloc(*args, **kw)
+        sizes.append(int(nbytes(pool.k, pool.v, pool.k_scale, pool.v_scale)))
+        return pool
+    return recorded
+
+
+def long_run(cfg, staged, combo, *, mode: str = "mocap", n_req: int = LONG_BATCH,
+             telemetry: bool = False) -> tuple:
+    """One wave of ``n_req`` requests of LONG_SEQ tokens of ``cfg`` through
+    PrefillEngine + TorchExecutor under ``combo`` (remote_attn,
+    attn_backend, pool_backend, kv_dtype) and ``mode``: (the logits [n_req,
+    Vpad] as numpy, the wave's record: ``dur`` and, with ``telemetry``, the
+    stage telemetry)."""
+    import numpy as np
+    from repro_torch.configs import RunConfig
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.layers import pad_vocab
+    from repro_torch.runtime.engine import EngineConfig, PrefillEngine, TorchExecutor
+    remote, attn, pool, kv = combo
+    run = RunConfig(num_chunks=LONG_M, num_stages=N_STAGES, mbkr=mode == "mocap",
+                    remote_attn=remote, attn_backend=attn, pool_backend=pool, kv_dtype=kv)
+    ex = TorchExecutor(cfg, staged, run, device="cuda")
+    ex.collect_telemetry = telemetry
+    eng = PrefillEngine(EngineConfig(model=cfg, num_stages=N_STAGES, tp=1, num_chunks=LONG_M,
+                                     max_batch=n_req, buckets=(LONG_SEQ,),
+                                     partition="uniform"), ex)
+    for r in make_requests(n_req, LONG_SEQ, cfg.vocab_size, seed=0):
+        eng.submit(r)
+    eng.run_until_drained()
+    name = f"[long] {cfg.num_layers} layers {mode} {'/'.join(combo)}"
+    check(len(ex.waves) == 1 and len(eng.done) == n_req, f"{name}: not one wave of {n_req}")
+    logits = np.stack([r.result for r in sorted(eng.done, key=lambda r: r.rid)])
+    check(logits.shape == (n_req, pad_vocab(cfg.vocab_size)), f"{name}: logits {logits.shape}")
+    check(bool(np.isfinite(logits).all()), f"{name}: non-finite logits")
+    log(f"  {name}: argmax {logits.argmax(-1).tolist()}, wave {ex.waves[0]['dur']:.4f} s")
+    return logits, ex.waves[0]
+
+
+def logit_err(got, want) -> tuple:
+    """(max abs error as a fraction of max|want|, argmaxes equal)."""
+    import numpy as np
+    return (float(np.abs(got - want).max() / np.abs(want).max()),
+            int((got.argmax(-1) == want.argmax(-1)).sum()))
+
+
+def long_phase(results: dict, counted=None) -> None:
+    """[long]: qwen3-8b at full width with S = LONG_SEQ = 32768 (N 8, M 8,
+    C 4096, B 2), bf16, through PrefillEngine + TorchExecutor:
+
+    (a) full depth (36 layers, 5 a stage): the mocap wave of LONG_COMBO
+    (qship, K1 + K2), then the same combination under terapipe, each under
+    torch.profiler (``with_flops``) with the launch counters set to 0 just
+    before it and read just after (mocap: K1 75, K2 150; terapipe: its own
+    closed form, ``wave_launch_form``), its wall time (the profiler's CPU
+    activity included), its peak memory (``max_memory_allocated``, reset
+    before it), the bytes of the pool it allocated held exactly to the
+    plan's (one page a chunk: (slots + 1) x N chunk-pages of 5 layers x 2
+    rows x 4096 x 8 x 128 x 2 B x (K, V): 9.40 GB under MBKR, 12.08 GB
+    under terapipe), the stage telemetry, whose largest per-stage peak
+    ``kv_bytes`` under MBKR must be exactly 6/8 of terapipe's (the plan's
+    slot ratio), and its device time by category and idle share
+    (``categorize``); the mocap wave's product FLOPs against the meta count
+    of the same wave (``count_roofline_wave(LONG_SEQ)``, ``counted``:
+    counted beside the build), its bound / busy share and MFU;
+    (b) every K1 and K2 launch of a mocap wave held against its plain
+    version on every row's last LONG_Q_BLOCK queries (``shadowed(q_block=)``,
+    worst <= 1 of ``fault_ratio``); this wave runs first and is the
+    warm-up;
+    (c) at 8 layers (one a stage), full width, LONG_HELD_BATCH request: the
+    four LONG_HELD combinations, each held against the P32 witness
+    (``p32_witness``, tiled) on the same pages (auto, int8, fp8) at
+    BF16_LOGIT_TOL["qwen3-8b"], the K2 and K3 pools to BF16_POOL_PAIR_TOL,
+    every K3 launch of the paged runs held as in (b);
+    (d) planted faults: the two of ``planted_faults("pool_attention")`` on
+    the held qship/cuda/cuda/auto run must break the witness limit; the
+    two of ``long_faults`` must break the sliced per-launch check, K1's on
+    the full-depth mocap wave, K3's on the held qship/cuda/paged/auto run
+    (each run stops at its first broken launch, ``stop_on_break``)."""
+    import contextlib as cl
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.core import attention
+    from repro_torch.core import pipeline as pp
+    from repro_torch.core.staging import init_staged
+    from repro_torch.kernels import ops
+    from repro_torch.obs import telemetry as obs_t
+    from repro_torch.roofline import analysis
+
+    card = card_line()
+    full = get_config("qwen3-8b")
+    failures: list = []
+    plans = {mode: pp.build_plan(full, N_STAGES, LONG_SEQ,
+                                 RunConfig(num_chunks=LONG_M, num_stages=N_STAGES,
+                                           mbkr=mode == "mocap", attn_backend="cuda",
+                                           pool_backend="cuda"), mode=mode)
+             for mode in ("mocap", "terapipe")}
+    plan = plans["mocap"]
+    c, lps = plan.chunk_len, plan.layers_per_stage
+    check(plan.pages_per_chunk == 1 and plan.page_tokens == c,
+          f"[long] {plan.pages_per_chunk} pages of {plan.page_tokens} a chunk")
+    page = lps * LONG_BATCH * c * full.num_kv_heads * full.resolved_head_dim * 2 * 2
+    want_pool = {mode: (p.num_slots + 1) * N_STAGES * page for mode, p in plans.items()}
+    log(f"[long] {full.arch} bf16 S {LONG_SEQ} = M {LONG_M} x C {c}, N {N_STAGES}, "
+        f"B {LONG_BATCH}, {full.num_layers} layers (lps {lps}), on {card}; slots mocap "
+        f"{plan.num_slots} (p2 {plan.p2}) / terapipe {plans['terapipe'].num_slots}; "
+        f"a chunk-page {page / 1e6:.1f} MB; pools by the plan "
+        + ", ".join(f"{m} {b / 1e9:.2f} GB" for m, b in want_pool.items()))
+
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    staged = init_staged(full, plan, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - before
+    log(f"  bf16 weights: {weights / 2**30:.2f} GiB in {time.perf_counter() - t0:.2f} s")
+
+    # (b) every K1 / K2 launch of a mocap wave, on its last LONG_Q_BLOCK queries
+    kinds = ("chunk_attention", "pool_attention")
+    worst = {k: [0.0] for k in kinds}
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    with cl.ExitStack() as stack:
+        for k in kinds:
+            stack.enter_context(swapped(ops, k, shadowed(getattr(ops, k), k, worst[k],
+                                                         q_block=LONG_Q_BLOCK)))
+        long_run(full, staged, LONG_COMBO)
+    held_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    log(f"  every K1 / K2 launch of the wave above ({held_launches}) against its plain "
+        f"version on every row's last {LONG_Q_BLOCK} queries: worst "
+        + ", ".join(f"{k} {w[0]:.3e}" for k, w in worst.items())
+        + f" of the tolerance ({time.perf_counter() - t0:.1f} s)")
+    for k, w in worst.items():
+        if w[0] > 1.0:
+            failures.append(f"[long] {k} per launch: {w[0]} of the tolerance")
+        results.setdefault(k, {})["max_err_long_slices"] = w[0]
+
+    # (a) the counted main path: one mocap wave, one terapipe wave, each
+    # under torch.profiler (its device time by category; mocap's product
+    # FLOPs against the meta count)
+    waves = {}
+    for mode in ("mocap", "terapipe"):
+        sizes: list = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with swapped(pp, "alloc_kv_pool", pool_recorder(sizes)), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                with_flops=True) as prof:
+            _, wave = long_run(full, staged, LONG_COMBO, mode=mode, telemetry=True)
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated() - before
+        clocks = card_clocks()
+        prof_flops, spans = profiled_wave(prof)
+        del prof
+        check(bool(spans), f"[long] the {mode} wave holds no device time")
+        busy, window = busy_window(spans)
+        form = wave_launch_form(plans[mode])
+        kv_peaks = obs_t.TelemetryProfile.from_run(wave["telemetry"]).per_stage_peak(
+            "kv_bytes")
+        waves[mode] = dict(dur=wave["dur"], launches=launches, peak=peak, pool=sizes,
+                           kv_peak=float(kv_peaks.max()), flops=prof_flops, busy=busy)
+        log(f"  [{card}] {mode}: wave {wave['dur']:.4f} s (host clock, traced); launches "
+            f"{launches}, closed form {form}; peak {peak / 2**30:.2f} GiB "
+            f"(max_memory_allocated less what was allocated before the weights; less the "
+            f"weights {(peak - weights) / 2**30:.2f}); pool "
+            f"{sizes[0] / 1e9 if sizes else 0:.4f} GB allocated, "
+            f"{want_pool[mode] / 1e9:.4f} GB by the plan; per-stage peak kv_bytes GB "
+            f"{' '.join(f'{x / 1e9:.4f}' for x in kv_peaks)}")
+        log(f"[wave] {full.arch} bf16 S {LONG_SEQ} {mode} {'/'.join(LONG_COMBO)}: "
+            f"{len(spans)} device activities; busy {busy:.4f} s of a {window:.4f} s window, "
+            f"idle share {1.0 - busy / window:.4f}; card after it (SM clock, its max, power "
+            f"draw, temperature): {clocks}")
+        log_split(*categorize(spans), busy)
+        check(launches == form, f"[long] {mode} launches {launches} != closed form {form}")
+        check(sizes == [want_pool[mode]],
+              f"[long] {mode} pool bytes {sizes} != the plan's {want_pool[mode]}")
+        for k, n in launches.items():
+            results.setdefault(k, {}).setdefault("launches_by_path", {})[
+                f"long {mode} wave"] = n
+    check(held_launches == waves["mocap"]["launches"],
+          f"[long] the held wave launched {held_launches}, the counted one "
+          f"{waves['mocap']['launches']}")
+    ratio = waves["mocap"]["kv_peak"] / waves["terapipe"]["kv_peak"]
+    slots = plan.num_slots / plans["terapipe"].num_slots
+    log(f"  MBKR against terapipe: largest per-stage peak kv_bytes "
+        f"{waves['mocap']['kv_peak'] / 1e9:.4f} / {waves['terapipe']['kv_peak'] / 1e9:.4f} "
+        f"GB = {ratio:.6f} (the plan's slots {slots:.6f}); measured peaks differ by "
+        f"{(waves['terapipe']['peak'] - waves['mocap']['peak']) / 1e9:.3f} GB, the pools by "
+        f"{(want_pool['terapipe'] - want_pool['mocap']) / 1e9:.3f} GB")
+    check(ratio == slots, f"[long] per-stage peak kv_bytes ratio {ratio} != {slots}")
+
+    # (a) the mocap wave's roofline against its meta count
+    cost, count_s = counted or count_roofline_wave(LONG_SEQ)
+    terms = analysis.analyze_counted(cost, full, ShapeConfig("long wave", "prefill",
+                                                             LONG_SEQ, LONG_BATCH))
+    wave_s, busy, prof_flops = (waves["mocap"][k] for k in ("dur", "busy", "flops"))
+    mfu = terms.model_flops / (analysis.HW_H100["peak_flops"] * wave_s)
+    rel = abs(cost.product_flops - prof_flops) / max(prof_flops, 1.0)
+    log(f"  [{card}] roofline of the long wave (counted on meta in {count_s:.1f} s): FLOPs "
+        f"{cost.flops:.6e} (products {cost.product_flops:.6e}, K1 / K2 "
+        f"{cost.kernel_flops:.6e}), model_flops {terms.model_flops:.6e}, bound_s "
+        f"{terms.bound_s:.4f} ({terms.dominant}), counted peak "
+        f"{cost.peak_live_bytes / 2**30:.2f} GiB, launches {cost.launches}; profiler product "
+        f"FLOPs {prof_flops:.6e} (rel {rel:.3e}); share bound_s / busy "
+        f"{terms.bound_s / busy:.4f}; MFU model_flops / (989e12 x {wave_s:.4f} s) {mfu:.4f}")
+    check(cost.launches == waves["mocap"]["launches"],
+          f"[long] counted launches {cost.launches} != {waves['mocap']['launches']}")
+    check(prof_flops > 0 and rel <= 1e-6,
+          f"[long] product FLOPs: counted {cost.product_flops} vs profiler {prof_flops}")
+    check(terms.bound_s <= BOUND_SLACK * busy,
+          f"[long] bound_s {terms.bound_s} > {BOUND_SLACK} x busy {busy}")
+
+    # (d) K1 dropping the keys past 512 on the full-depth mocap wave
+    name, fault = long_faults(ops.chunk_attention, ops.pool_attention_paged)["chunk_attention"]
+    long_fault(name, "chunk_attention", fault, lambda: long_run(full, staged, LONG_COMBO),
+               failures)
+    del staged
+    torch.cuda.empty_cache()
+
+    # (c) the held runs at 8 layers, one a stage
+    cfg = depth(full, N_STAGES)
+    t0 = time.perf_counter()
+    staged = init_staged(cfg, pp.build_plan(cfg, N_STAGES, LONG_SEQ, RunConfig(
+        num_chunks=LONG_M, num_stages=N_STAGES)), torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    torch.cuda.synchronize()
+    log(f"  held runs: {cfg.num_layers} layers at full width, waves of {LONG_HELD_BATCH}; "
+        f"weights {time.perf_counter() - t0:.2f} s")
+
+    def held_run(combo):
+        return long_run(cfg, staged, combo, n_req=LONG_HELD_BATCH)[0]
+
+    t0 = time.perf_counter()
+    with swapped(attention, "_BACKENDS", dict(attention._BACKENDS, torch=p32_witness())):
+        witness = {kv: held_run(("qship", "torch", "torch", kv))
+                   for kv in sorted({combo[3] for combo in LONG_HELD})}
+    log(f"  (the runs above: the P32 witness, {time.perf_counter() - t0:.1f} s)")
+    k3 = "pool_attention_paged"
+    worst3 = [0.0]
+    held = {}
+    ops.reset_launches()
+    for combo in LONG_HELD:
+        with (swapped(ops, k3, shadowed(ops.pool_attention_paged, k3, worst3,
+                                        q_block=LONG_Q_BLOCK))
+              if combo[2] == "paged" else cl.nullcontext()):
+            held[combo] = held_run(combo)
+    for k, n in ops.LAUNCHES.items():
+        if n:
+            results.setdefault(k, {}).setdefault("launches_by_path", {})[
+                "long held (8 layers)"] = n
+    log(f"  launches of the held runs {dict(ops.LAUNCHES)}; every K3 launch against its "
+        f"plain version on every row's last {LONG_Q_BLOCK} queries: worst {worst3[0]:.3e} "
+        f"of the tolerance")
+    results.setdefault(k3, {})["max_err_long_slices"] = worst3[0]
+    if worst3[0] > 1.0:
+        failures.append(f"[long] K3 per launch: {worst3[0]} of the tolerance")
+    tol = BF16_LOGIT_TOL[full.arch]
+    for combo, logits in held.items():
+        err, same = logit_err(logits, witness[combo[3]])
+        log(f"  {'/'.join(combo)} vs the witness: max abs err {err:.3e} of max|logit| "
+            f"(limit {tol}), argmax equal {same}/{len(logits)}")
+        if err > tol:
+            failures.append(f"[long] {'/'.join(combo)}: logits err {err} vs the witness")
+    err, _ = logit_err(held[LONG_HELD[0]], held[LONG_HELD[1]])
+    log(f"  cuda pool (K2) against paged pool (K3): {err:.3e} of max|logit| "
+        f"(limit {BF16_POOL_PAIR_TOL})")
+    if err > BF16_POOL_PAIR_TOL:
+        failures.append(f"[long] K2 and K3 pools differ by {err}")
+
+    # (d) the planted K2 faults against the witness; K3's long-only fault per launch
+    for fault_name, fn in planted_faults("pool_attention", ops.pool_attention).items():
+        with swapped(ops, "pool_attention", fn):
+            err, same = logit_err(held_run(LONG_HELD[0]), witness["auto"])
+        log(f"  planted fault: {fault_name} ({'/'.join(LONG_HELD[0])}): {err:.3e} of "
+            f"max|logit| vs the witness (limit {tol}), argmax equal {same}")
+        results.setdefault("pool_attention", {}).setdefault("planted", {})[
+            f"long: {fault_name}"] = err / tol
+        if err <= tol:
+            failures.append(f"[long] planted fault '{fault_name}' passes ({err})")
+    name, fault = long_faults(ops.chunk_attention, ops.pool_attention_paged)[k3]
+    long_fault(name, k3, fault, lambda: held_run(LONG_HELD[1]), failures)
+    del staged, witness, held
+    torch.cuda.empty_cache()
+    check(not failures, "; ".join(failures))
+
+
+def long_fault(name: str, kind: str, fault, run, failures: list) -> None:
+    """``fault`` in the place of ``ops.<kind>`` under the sliced per-launch
+    check; ``run`` stops at its first launch that breaks it, which must
+    come."""
+    from repro_torch.kernels import ops
+    worst, calls = [0.0], [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return fault(*args, **kw)
+    t0 = time.perf_counter()
+    try:
+        with swapped(ops, kind, stop_on_break(shadowed(counted, kind, worst,
+                                                       q_block=LONG_Q_BLOCK), worst)):
+            run()
+    except FaultSeen:
+        pass
+    log(f"  planted fault: {name}: worst {worst[0]:.3e} of the tolerance, at launch "
+        f"{calls[0]} ({time.perf_counter() - t0:.1f} s)")
+    if worst[0] <= 1.0:
+        failures.append(f"[long] planted fault '{name}' passes ({worst[0]})")
 
 
 # ---------------------------------------------------------------- frontends
@@ -4642,11 +5292,14 @@ def main() -> int:
             f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
         cli.start()      # the train phase's CLI runs (d) beside the build (GPU idle)
-        counted = counter.submit(count_roofline_wave)   # meta: no card, beside the build
+        # meta, no card, beside the build: the roofline wave, then [long]'s
+        counts = [counter.submit(count_roofline_wave),
+                  counter.submit(count_roofline_wave, LONG_SEQ)]
         build_phase()
         t0 = time.perf_counter()
-        counted = counted.result()      # done before any timed phase holds the GIL
-        log(f"[roofline] the meta count ({counted[1]:.1f} s, beside the build) joined "
+        counted, counted_long = (f.result() for f in counts)   # before any timed phase
+        log(f"[roofline] the meta counts ({counted[1]:.1f} s and, S {LONG_SEQ}, "
+            f"{counted_long[1]:.1f} s, beside the build) joined "
             f"{time.perf_counter() - t0:.1f} s after it")
 
         results: dict = {}
@@ -4659,6 +5312,9 @@ def main() -> int:
         t0 = time.perf_counter()
         serve_phase(results)
         log(f"[serve] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        long_phase(results, counted_long)
+        log(f"[long] {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         roofline_phase(results, counted)
         log(f"[roofline] {time.perf_counter() - t0:.1f} s")

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the kernels: the same signatures and outputs as
 the wrappers in ``kernels.ops``. The three attention kernels take the math
-of the reference's ``_block_update`` in fp32 over all visible keys at once;
+of the reference's ``_block_update`` in fp32 over all visible keys at once
+(K1 a block of query rows at a time, over the keys that block can see);
 the SSD scan (K4) takes the reference's per-chunk ``_ssd_kernel`` algorithm;
 the flash-decode (K5) the materialized softmax with K5's semantics.
 
@@ -43,21 +44,43 @@ def _dequant(x: torch.Tensor, sc: Optional[torch.Tensor]) -> torch.Tensor:
     return x if sc is None else x * sc.float()[..., None]
 
 
+PLAIN_Q_BLOCK = 128   # K1's plain version: query rows a block (``chunk_attention_plain``)
+
+
 def chunk_attention_plain(q, k, v, *, causal_offset: int = 0,
                           scale: Optional[float] = None,
                           kv_len: Optional[int] = None,
                           k_scale=None, v_scale=None):
     """K1. q [B,C,H,D]; k/v [B,T,KVH,D] (scales [B,T,KVH] when quantized).
     Key j is visible to query i iff j <= i + causal_offset and j < kv_len.
-    Returns (out [B,C,H,D] in q's dtype, m, l [B,H,C], acc [B,C,H,D])."""
+    Returns (out [B,C,H,D] in q's dtype, m, l [B,H,C], acc [B,C,H,D]).
+
+    Each block of PLAIN_Q_BLOCK query rows scores only the keys its last
+    row can see (below min(kv_len, last row + causal_offset + 1)), as the
+    kernel skips the tiles above the causal diagonal; a key left out is
+    one the mask would have dropped, so the state is the masked whole
+    one's up to the fp32 summation order. Where every block sees every key
+    below kv_len (a stored chunk, the non-causal attention), one call."""
     b, c, h, d = q.shape
     t = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     kv_len = t if kv_len is None else kv_len
-    qpos = torch.arange(c, device=q.device)[:, None] + causal_offset
-    kpos = torch.arange(t, device=q.device)[None, :]
-    mask = (kpos <= qpos) & (kpos < kv_len)
-    m, l, acc = _state(q, _dequant(k, k_scale), _dequant(v, v_scale), mask, scale)
+    kf, vf = _dequant(k, k_scale), _dequant(v, v_scale)
+
+    def seen(q1: int) -> int:        # keys rows below q1 can see
+        return max(0, min(kv_len, q1 + causal_offset))
+
+    step = max(c, 1) if seen(min(PLAIN_Q_BLOCK, c)) >= kv_len else PLAIN_Q_BLOCK
+    parts = []
+    for q0 in range(0, max(c, 1), step):
+        q1 = min(q0 + step, c)
+        n = seen(q1)
+        mask = None
+        if q0 + causal_offset < n - 1:   # some row of the block misses a key below n
+            qpos = torch.arange(q0, q1, device=q.device)[:, None] + causal_offset
+            mask = torch.arange(n, device=q.device)[None, :] <= qpos
+        parts.append(_state(q[:, q0:q1], kf[:, :n], vf[:, :n], mask, scale))
+    m, l, acc = (torch.cat(x, dim) for x, dim in zip(zip(*parts), (2, 2, 1)))
     out = acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
     return out.to(q.dtype), m, l, acc
 
