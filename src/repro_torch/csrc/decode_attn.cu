@@ -14,8 +14,11 @@
 //
 // What bounds it on an H100: decode reads every K/V byte once and does
 // ~4 G D flops per key, so the bytes bound it (qwen3-8b, B 8, S 32768,
-// bf16: 1.07 GB, 0.32 ms at 3.35 TB/s). The design keeps HBM busy and every
-// SM equally loaded:
+// bf16: 1.07 GB, 0.32 ms at 3.35 TB/s). At G >= 8 the CUDA cores' issue
+// rate does instead: every (query head, key) costs a row group 2 D FMAs and
+// a shuffle reduction, ~8 SM clocks measured (G 16 over 4 kv heads: 0.61 ms
+// against 0.16 ms of bytes; PERF.md); tensor cores are the way past it. The
+// design keeps HBM busy and every SM equally loaded:
 //
 //  - Work: the keys of every (batch row, kv head) pair, laid end to end
 //    (row-major, then kv head, then position), are one sequence of
@@ -33,12 +36,24 @@
 //    flight while one is computed. (PERF.md has the ring depths, block
 //    sizes and keys a row group a tile timed against this choice.)
 //  - Compute: a "row group" of threads holds one key row, each thread 16
-//    bytes of it (8 bf16 or 4 fp32 values), and keeps its slice of the G
-//    queries, pre-scaled by scale * log2(e), in registers. It takes U keys
-//    of each tile, reduces the G x U dot products with xor shuffles inside
-//    the row group and folds them into its own fp32 (m, l, acc) in base 2;
-//    keys past the segment's end enter as -inf before the exponent, with
-//    zero values, so no 0 * inf is formed.
+//    bytes of it (8 bf16 or 4 fp32 values), and keeps its slice of its
+//    query heads, pre-scaled by scale * log2(e), in registers. It takes U
+//    keys at a time, reduces the heads x U dot products with xor shuffles
+//    inside the row group and folds them into its own fp32 (m, l, acc) in
+//    base 2; keys past the segment's end enter as -inf before the
+//    exponent, with zero values, so no 0 * inf is formed.
+//  - Head slices: a thread keeps qf / acc (VEC values each), m, l and U
+//    scores for every query head it serves, ~26 registers a head in bf16
+//    at D 128, so 12 or 16 heads do not fit in 255 registers. A unit's G
+//    query heads are therefore split into HS slices (head_slices: the
+//    fewest of 1, 2 or 4 that leave at most MAX_HEADS = 4 heads a
+//    thread; G 8 -> 2 slices of 4, G 12 -> 4 of 3, G 16 -> 4 of 4; G 5 and
+//    7 keep one). HS adjacent row groups hold the same key row, one slice
+//    each, reading the same shared-memory tile, so the K/V of a unit still
+//    leave HBM once; each row group then takes HS x U keys of a tile, U at
+//    a time, and a tile keeps its KEYS keys. The online-softmax state
+//    stays per head and the merge is the same, over the row groups that
+//    hold the same slice.
 //  - End of a segment: the row groups' states merge (shuffles inside a
 //    warp, shared memory across warps). A segment that is a whole pair
 //    writes out = acc / max(l, 1e-30) at once; otherwise it writes a
@@ -63,8 +78,7 @@
 namespace {
 
 constexpr int NTHREADS = 128;
-constexpr int NWARPS = NTHREADS / 32;
-constexpr int U = 4;                      // keys a row group takes from each tile
+constexpr int U = 4;                      // keys a row group takes at a time (HS x U a tile)
 constexpr int STAGES = 5;                 // tiles in the ring
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -81,28 +95,55 @@ __host__ __device__ constexpr int pow2_at_least(int n) {
 template <typename T, int D>
 constexpr bool PAIR_HEADS = (D * (int)sizeof(T)) % 64 != 0;
 
+// The most query heads one thread serves where the group allows it
+// (head_slices). At 8 (G 8 unsplit, G 12 and 16 in 2 slices) the wide
+// instances run at 246-254 registers and time ~5 % faster on an H100
+// (PERF.md); at 4 they stay at <= 168, with room left under 255.
+constexpr int MAX_HEADS = 4;
+
+// Slices a unit's G query heads are split into: the fewest of 1, 2 and 4
+// that divide G and leave at most MAX_HEADS heads a slice; 1 where none
+// does (G 5, 7), as ops.decode_head_slices states.
+__host__ __device__ constexpr int head_slices(int g) {
+  return g <= MAX_HEADS                        ? 1
+         : g % 2 == 0 && g / 2 <= MAX_HEADS ? 2
+         : g % 4 == 0 && g / 4 <= MAX_HEADS ? 4
+                                               : 1;
+}
+
 // Shapes of one instantiation: a thread holds VEC values of a head's key
 // row, TPR threads a row (a row group of TPR_P, padded to a power of two),
-// RG row groups a block; HP kv heads a unit, so HP row groups (adjacent in
-// a warp) hold one key's HP rows; KEYS = RG / HP x U keys a tile.
-template <typename T, int D, int HP>
+// RG row groups a block; HP kv heads a unit and HS head slices, so RPK =
+// HP x HS row groups (adjacent in a warp, or a whole REPW-thread span)
+// hold one key: its HP rows, each once per slice. KR = RG / RPK keys are
+// held at once, each row group takes UK = HS x U keys of a tile, and a
+// tile has KEYS = KR x UK = RG / HP x U keys whatever HS is.
+template <typename T, int D, int HP, int HS>
 struct Geo {
   static constexpr int VEC = 16 / (int)sizeof(T);
   static constexpr int TPR = D / VEC;
   static constexpr int TPR_P = pow2_at_least(TPR);
   static constexpr int RG = NTHREADS / TPR_P;
-  static constexpr int KEYS = RG / HP * U;
+  static constexpr int RPK = HP * HS;
+  static constexpr int KR = RG / RPK;
+  static constexpr int UK = HS * U;
+  static constexpr int KEYS = KR * UK;
+  static constexpr int REPW = TPR_P * RPK;                  // threads holding one key
+  static constexpr int REPS = REPW > 32 ? REPW : 32;        // threads a merged state spans
+  static constexpr int NREP = NTHREADS / REPS;              // states left after the warp merge
   static constexpr int ROW = HP * D * (int)sizeof(T);  // bytes of a key (HP heads' rows)
   static constexpr int TILE = KEYS * ROW;              // bytes of a K (or V) tile
   static_assert(D % VEC == 0 && TPR <= 32 && TPR_P * HP <= 32, "head dim");
+  static_assert(KR >= 1 && RG % RPK == 0 && KEYS == RG / HP * U, "head slices");
 };
 
-template <typename T, int D, int GG, int HP>
+template <typename T, int D, int GG, int HP, int HS>
 struct Smem {   // byte offsets into the dynamic shared memory; GG = HP x G
-  static constexpr int RING = 0;                                  // [STAGES][K | V][TILE]
-  static constexpr int ACC = STAGES * 2 * Geo<T, D, HP>::TILE;    // [NWARPS][GG][D] fp32
-  static constexpr int ML = ACC + NWARPS * GG * D * 4;            // m, l: [NWARPS][GG] each
-  static constexpr int BYTES = ML + 2 * NWARPS * GG * 4;
+  static constexpr int NREP = Geo<T, D, HP, HS>::NREP;
+  static constexpr int RING = 0;                                   // [STAGES][K | V][TILE]
+  static constexpr int ACC = STAGES * 2 * Geo<T, D, HP, HS>::TILE; // [NREP][GG][D] fp32
+  static constexpr int ML = ACC + NREP * GG * D * 4;               // m, l: [NREP][GG] each
+  static constexpr int BYTES = ML + 2 * NREP * GG * 4;
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
@@ -201,28 +242,32 @@ template <typename T, int D, int G>
 constexpr int MIN_BLOCKS = sizeof(T) == 4 && D == 64 && G == 3 ? 1 : 0;
 
 // One unit = HP adjacent kv heads (hk0 = hk * HP, ...) of one row, GG = HP x G
-// query heads; the Cursor walks units (its KVH is KVH / HP).
-template <typename T, int D, int G, int HP>
+// query heads, HS head slices of G / HS heads; the Cursor walks units (its
+// KVH is KVH / HP).
+template <typename T, int D, int G, int HP, int HS>
 __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS<T, D, G>)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const int* __restrict__ kv_len, float* __restrict__ part,
                    int* __restrict__ counters, T* __restrict__ out, int B, int H, int KVH,
                    int S, float qscale) {
-  using Gm = Geo<T, D, HP>;
-  constexpr int GG = HP * G;
-  using L = Smem<T, D, GG, HP>;
-  constexpr int VEC = Gm::VEC, TPR = Gm::TPR, TPR_P = Gm::TPR_P, RG = Gm::RG;
-  constexpr int KEYS = Gm::KEYS, ROW = Gm::ROW, TILE = Gm::TILE, KR = RG / HP;
+  using Gm = Geo<T, D, HP, HS>;
+  constexpr int GG = HP * G, GT = G / HS;        // query heads a unit, a thread
+  using L = Smem<T, D, GG, HP, HS>;
+  constexpr int VEC = Gm::VEC, TPR = Gm::TPR, TPR_P = Gm::TPR_P, RPK = Gm::RPK;
+  constexpr int KEYS = Gm::KEYS, ROW = Gm::ROW, TILE = Gm::TILE, KR = Gm::KR;
+  constexpr int REPW = Gm::REPW, REPS = Gm::REPS, NREP = Gm::NREP;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sm_acc = reinterpret_cast<float*>(smem + L::ACC);
   float* sm_m = reinterpret_cast<float*>(smem + L::ML);
-  float* sm_l = sm_m + NWARPS * GG;
+  float* sm_l = sm_m + NREP * GG;
   __shared__ long long s_range[3];       // L, the first key of the range's first row, keys
   __shared__ int s_row, s_last;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rl = tid % TPR_P, rg = tid / TPR_P;  // lane in the row group, row group
-  const int hs = rg % HP, kr = rg / HP;          // its head in the unit, its key row
+  const int wi = rg % RPK, kr = rg / RPK;        // its place in the key's row groups, key row
+  const int hs = wi % HP, sl = wi / HP;          // its kv head in the unit, its head slice
+  const int h0 = hs * G + sl * GT;               // its first query head of the unit's GG
   const bool active = rl < TPR;
   const int nblk = gridDim.x, blk = blockIdx.x;
   const int KU = KVH / HP;                       // units a row
@@ -306,14 +351,15 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     cp_async_commit();
   }
 
-  // this row group's head: kv head cons.hk * HP + hs, query heads G of it
-  float qf[G][VEC], acc[G][VEC], m[G], l[G];
+  // this row group's heads: kv head cons.hk * HP + hs, query heads h0 ..
+  // h0 + GT - 1 of the unit
+  float qf[GT][VEC], acc[GT][VEC], m[GT], l[GT];
   auto load_q = [&]() {
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < GT; ++g) {
       if (active) {
         const uint4 r = __ldg(reinterpret_cast<const uint4*>(
-            q + ((size_t)cons.b * H + (size_t)cons.hk * GG + hs * G + g) * D + rl * VEC));
+            q + ((size_t)cons.b * H + (size_t)cons.hk * GG + h0 + g) * D + rl * VEC));
         unpack<T>(r, qf[g]);
       }
 #pragma unroll
@@ -337,63 +383,68 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     const unsigned char* vt = kt + TILE;
     const int nkeys = min(KEYS, cons.end - cons.key0);
 
-    float s[G][U];
+    // HS sub-steps of U keys each: keys k0 + u * KR of the tile
+#pragma unroll 1
+    for (int sub = 0; sub < HS; ++sub) {
+      const int k0 = kr + sub * U * KR;
+      float s[GT][U];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float kf[VEC];
-      if (active) {
-        unpack<T>(*reinterpret_cast<const uint4*>(kt + (kr + u * KR) * ROW + col), kf);
-      } else {
+      for (int u = 0; u < U; ++u) {
+        float kf[VEC];
+        if (active) {
+          unpack<T>(*reinterpret_cast<const uint4*>(kt + (k0 + u * KR) * ROW + col), kf);
+        } else {
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) kf[i] = 0.f;
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float d = 0.f;
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) d = fmaf(qf[g][i], kf[i], d);
-        s[g][u] = d;
-      }
-    }
-#pragma unroll
-    for (int o = TPR_P / 2; o > 0; o >>= 1) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-#pragma unroll
-        for (int u = 0; u < U; ++u) s[g][u] += __shfl_xor_sync(0xffffffffu, s[g][u], o);
-      }
-    }
-    if (kr < nkeys) {                          // key kr is valid (uniform in the row group)
-      float p[G][U];
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float mx = m[g];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          if (kr + u * KR >= nkeys) s[g][u] = -INFINITY;   // masked before the exponent
-          mx = fmaxf(mx, s[g][u]);
+          for (int i = 0; i < VEC; ++i) kf[i] = 0.f;
         }
-        const float corr = exp2f(m[g] - mx);   // mx is finite
-        float sum = 0.f;
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          p[g][u] = exp2f(s[g][u] - mx);
-          sum += p[g][u];
+        for (int g = 0; g < GT; ++g) {
+          float d = 0.f;
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) d = fmaf(qf[g][i], kf[i], d);
+          s[g][u] = d;
         }
-        l[g] = l[g] * corr + sum;
-        m[g] = mx;
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[g][i] *= corr;
       }
-      if (active) {
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          float vf[VEC];
-          unpack<T>(*reinterpret_cast<const uint4*>(vt + (kr + u * KR) * ROW + col), vf);
+      for (int o = TPR_P / 2; o > 0; o >>= 1) {
 #pragma unroll
-          for (int g = 0; g < G; ++g) {
+        for (int g = 0; g < GT; ++g) {
 #pragma unroll
-            for (int i = 0; i < VEC; ++i) acc[g][i] = fmaf(p[g][u], vf[i], acc[g][i]);
+          for (int u = 0; u < U; ++u) s[g][u] += __shfl_xor_sync(0xffffffffu, s[g][u], o);
+        }
+      }
+      if (k0 < nkeys) {                        // key k0 is valid (uniform in the row group)
+        float p[GT][U];
+#pragma unroll
+        for (int g = 0; g < GT; ++g) {
+          float mx = m[g];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (k0 + u * KR >= nkeys) s[g][u] = -INFINITY;   // masked before the exponent
+            mx = fmaxf(mx, s[g][u]);
+          }
+          const float corr = exp2f(m[g] - mx);   // mx is finite
+          float sum = 0.f;
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            p[g][u] = exp2f(s[g][u] - mx);
+            sum += p[g][u];
+          }
+          l[g] = l[g] * corr + sum;
+          m[g] = mx;
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) acc[g][i] *= corr;
+        }
+        if (active) {
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            float vf[VEC];
+            unpack<T>(*reinterpret_cast<const uint4*>(vt + (k0 + u * KR) * ROW + col), vf);
+#pragma unroll
+            for (int g = 0; g < GT; ++g) {
+#pragma unroll
+              for (int i = 0; i < VEC; ++i) acc[g][i] = fmaf(p[g][u], vf[i], acc[g][i]);
+            }
           }
         }
       }
@@ -401,11 +452,11 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     const bool seg_end = cons.key0 + KEYS >= cons.end;
     if (seg_end) {
       // ---- merge the row groups of each head: inside the warp by shuffles
-      // (row groups HP apart hold the same head) ...
+      // (lanes REPW apart hold the same heads) ...
 #pragma unroll
-      for (int o = TPR_P * HP; o < 32; o <<= 1) {
+      for (int o = REPW; o < 32; o <<= 1) {
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
+        for (int g = 0; g < GT; ++g) {
           const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
           const float lo = __shfl_xor_sync(0xffffffffu, l[g], o);
           const float mn = fmaxf(m[g], mo);
@@ -420,21 +471,24 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
           }
         }
       }
-      // ... and across the warps through shared memory (the warp's first
-      // row group of each head writes)
-      if (lane < TPR_P * HP && active) {
+      // ... and across the NREP spans of REPS threads through shared
+      // memory (each span's first REPW threads write: one row group for
+      // each of the unit's (kv head, slice))
+      const int rep = tid / REPS;
+      const bool writer = tid % REPS < REPW;
+      if (writer && active) {
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
+        for (int g = 0; g < GT; ++g) {
 #pragma unroll
           for (int i = 0; i < VEC; ++i)
-            sm_acc[(warp * GG + hs * G + g) * D + rl * VEC + i] = acc[g][i];
+            sm_acc[(rep * GG + h0 + g) * D + rl * VEC + i] = acc[g][i];
         }
       }
-      if (lane < TPR_P * HP && rl == 0) {
+      if (writer && rl == 0) {
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
-          sm_m[warp * GG + hs * G + g] = m[g];
-          sm_l[warp * GG + hs * G + g] = l[g];
+        for (int g = 0; g < GT; ++g) {
+          sm_m[rep * GG + h0 + g] = m[g];
+          sm_l[rep * GG + h0 + g] = l[g];
         }
       }
       __syncthreads();
@@ -447,12 +501,12 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
         const int gq = e / D, d = e % D;
         float mx = -INFINITY;
 #pragma unroll
-        for (int r = 0; r < NWARPS; ++r) mx = fmaxf(mx, sm_m[r * GG + gq]);
+        for (int r = 0; r < NREP; ++r) mx = fmaxf(mx, sm_m[r * GG + gq]);
         float ls = 0.f, as = 0.f;
 #pragma unroll
-        for (int r = 0; r < NWARPS; ++r) {
+        for (int r = 0; r < NREP; ++r) {
           const float mr = sm_m[r * GG + gq];
-          if (mr == -INFINITY) continue;       // a warp that saw no key
+          if (mr == -INFINITY) continue;       // a span that saw no key
           const float wt = exp2f(mr - mx);
           ls = fmaf(sm_l[r * GG + gq], wt, ls);
           as = fmaf(sm_acc[(r * GG + gq) * D + d], wt, as);
@@ -507,8 +561,9 @@ template <typename T, int D, int G, int HP>
 int launch(const void* q, const void* k, const void* v, const int* kv_len, float* part,
            int* counters, void* out, int B, int H, int KVH, int S, int cap, float scale,
            cudaStream_t stream) {
-  auto kern = decode_attn_kernel<T, D, G, HP>;
-  constexpr int smem = Smem<T, D, HP * G, HP>::BYTES;
+  constexpr int HS = head_slices(G);
+  auto kern = decode_attn_kernel<T, D, G, HP, HS>;
+  constexpr int smem = Smem<T, D, HP * G, HP, HS>::BYTES;
   static int grid = 0;
   if (grid == 0) {
     cudaError_t err =
@@ -548,9 +603,11 @@ int launch_g(const void* q, const void* k, const void* v, const int* kv_len, flo
 // (qwen3-14b; mistral-123b; qwen3-235b, llama3-405b) and at D 128 G 7
 // (llava-next-34b); at D 64 G 1, 3 and 4 (whisper-small,
 // granite-moe-3b-a800m, granite-3-2b) and at D 80 G 1 (stablelm-3b). A
-// thread keeps G x (VEC queries + VEC accumulators + U scores) in
-// registers, so the wide groups spill (the build phase of chip_smoke.py
-// prints each instance's registers and spills).
+// thread keeps (VEC queries + VEC accumulators + m, l + U scores) for each
+// of its G / HS query heads (head_slices): at most 4 at G 8, 12 and 16, 5
+// and 7 at G 5 and 7, so no instance needs more than G 7's registers (the
+// build phase of chip_smoke.py prints each instance's registers and
+// spills).
 #define DISPATCH_G(T, D, ...)                                                  \
   if (G == 1) return launch_g<T, D, 1>(__VA_ARGS__);                           \
   if (G == 2) return launch_g<T, D, 2>(__VA_ARGS__);                           \

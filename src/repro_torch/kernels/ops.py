@@ -537,8 +537,9 @@ def ssd(x, dt, a_log, b, c, d_skip, *, chunk: int = 128, init_state=None):
 _DECODE_GROUPS = {16: (1, 2, 4, 5, 8, 12, 16), 64: (1, 3, 4), 80: (1,),
                   112: (1, 2, 4, 8), 128: (1, 2, 4, 5, 7, 8, 12, 16)}
 _DECODE_HEAD_DIMS = tuple(_DECODE_GROUPS)
-# csrc/decode_attn.cu: threads a block, keys a row group takes from a tile
-_DECODE_THREADS, _DECODE_U = 128, 4
+# csrc/decode_attn.cu: threads a block, keys a row group takes at a time,
+# the most query heads a thread serves (MAX_HEADS)
+_DECODE_THREADS, _DECODE_U, _DECODE_MAX_HEADS = 128, 4, 4
 _DECODE_CAP_PER_SM = 4            # the grid's most blocks an SM (the scratch is sized for it)
 _DECODE_SCRATCH: dict = {}        # device -> [grid cap, fp32 partials, int32 pair counters]
 
@@ -551,12 +552,25 @@ def decode_heads_per_unit(g: int, d: int, itemsize: int, kvh: int) -> int:
     return 2 if g == 1 and (d * itemsize) % 64 and kvh % 2 == 0 else 1
 
 
+def decode_head_slices(g: int) -> int:
+    """Slices K5 splits a unit's ``g`` query heads into (``head_slices`` in
+    ``csrc/decode_attn.cu``): the fewest of 1, 2 and 4 that divide g and
+    leave at most 4 heads a thread (G 8 -> 2, 12 -> 4, 16 -> 4), else 1
+    (G 5, 7). Adjacent row groups hold one key row, a slice each, so the
+    tile (``decode_tile_keys``) and the split of the keys do not change."""
+    for hs in (1, 2, 4):
+        if g % hs == 0 and g // hs <= _DECODE_MAX_HEADS:
+            return hs
+    return 1
+
+
 def decode_tile_keys(d: int, itemsize: int, hp: int = 1) -> int:
     """Keys in one of K5's tiles at head dim ``d``, element size
     ``itemsize`` and ``hp`` kv heads a unit: one row group holds a head's
     key row in 16-byte pieces (padded to a power of two of threads), hp
-    row groups a key, and each takes U keys a tile (``Geo`` in
-    ``csrc/decode_attn.cu``)."""
+    row groups a key, and each takes U keys a tile for each of its
+    ``decode_head_slices`` (``Geo`` in ``csrc/decode_attn.cu``), so the
+    slices do not change the tile."""
     tpr = d * itemsize // 16
     tpr_p = 2
     while tpr_p < tpr:

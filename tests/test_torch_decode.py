@@ -18,6 +18,9 @@ carried across with ``repro_torch.bridge``:
 The port's ``decode_step`` updates the cache in place, so every comparison
 starts both packages from their own copies of one numpy cache."""
 import functools
+import importlib.util
+import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -62,6 +65,8 @@ DECODE_GRID = [   # (b, h, kvh, d, s): tests/test_kernels.py::test_decode_attent
     (2, 8, 2, 64, 256),
     (3, 4, 4, 32, 100),
     (1, 16, 2, 128, 1024),
+    (2, 12, 1, 128, 256),     # G 12 (mistral-123b's group)
+    (2, 32, 2, 128, 300),     # G 16 over two kv heads (llama3-405b's group)
 ]
 
 
@@ -127,6 +132,11 @@ DECODE_RULE_CASES = {   # (row lengths, H, KVH, head dim, item size); S = 32768
     "full": ([32768] * 8, 32, 8, 128, 2),          # qwen3-8b's timed decode shape
     "ragged": ([0, 1, 77, 4099, 12345, 20001, 32767, 32768], 32, 8, 128, 2),
     "100x": ([300, 30000, 327, 32768, 310, 31000, 299, 32000], 32, 32, 112, 2),  # zamba2-7b
+    # the paper's wide groups: mistral-123b (G 12), qwen3-235b (G 16 over 4
+    # kv heads), llama3-405b (G 16 over 8)
+    "g12": ([0, 1, 77, 4099, 12345, 20001, 32767, 32768], 96, 8, 128, 2),
+    "g16": ([32768] * 8, 64, 4, 128, 2),
+    "g16_kvh8": ([300, 30000, 327, 32768, 310, 31000, 299, 32000], 128, 8, 128, 2),
     "one_key": ([0, 1], 8, 8, 16, 4),
     "short_rows": ([5] * 300, 4, 1, 128, 4),
     "empty": ([0, 0, 0], 8, 4, 128, 2),
@@ -171,6 +181,132 @@ def test_decode_splits_cover_the_cache(case, blocks):
     # the kernel's tiles at the decode shapes (bf16): 32 keys at D 128, 16
     # two-head keys at D 112
     assert ops.decode_tile_keys(128, 2) == 32 and ops.decode_tile_keys(112, 2, 2) == 16
+
+
+@pytest.mark.parametrize("d", sorted(ops._DECODE_GROUPS))
+def test_decode_head_slices_bound_the_heads_a_thread(d):
+    """K5's head slices (``ops.decode_head_slices``, ``head_slices`` in the
+    kernel) at every group the kernel is built for: a power of two up to 4
+    that divides G, at most 4 query heads a thread at G 8, 12 and 16 (G 5
+    and 7 keep one slice: 5 and 7), and a slice count that divides the
+    row groups of a key tile in bf16 and fp32, so that every tile key is
+    taken by one row group of each slice."""
+    for g in ops._DECODE_GROUPS[d]:
+        hs = ops.decode_head_slices(g)
+        assert hs in (1, 2, 4) and g % hs == 0
+        assert g // hs <= (g if g in (5, 7) else 4)
+        assert ops.decode_head_slices(g) == {8: 2, 12: 4, 16: 4}.get(g, 1)
+        for itemsize in (2, 4):
+            hp = ops.decode_heads_per_unit(g, d, itemsize, 2)
+            keys = ops.decode_tile_keys(d, itemsize, hp)
+            row_groups = keys // ops._DECODE_U * hp
+            assert row_groups % (hp * hs) == 0
+
+
+def _k5_unit_emulated(q, k, v, d, itemsize, hp):
+    """One unit's segment as K5's threads compute it (``decode_attn_kernel``
+    in ``csrc/decode_attn.cu``, fp32 on the CPU): q [GG, D] pre-scaled, k /
+    v [n, hp, D]. Row group r holds key row r // RPK and (kv head, slice)
+    r % RPK; in each tile of KEYS keys it takes HS sub-steps of U keys (k0 +
+    u * KR, masked to -inf past the segment's end), folding them into its
+    heads' base-2 (m, l, acc); then the row groups of each head merge.
+    Returns (out [GG, D], how many times each (key, query head) was
+    scored)."""
+    u_, gg = ops._DECODE_U, q.shape[0]
+    g = gg // hp
+    tpr = d * itemsize // 16
+    tpr_p = 2
+    while tpr_p < tpr:
+        tpr_p *= 2
+    hs = ops.decode_head_slices(g)
+    rpk, rg = hp * hs, ops._DECODE_THREADS // tpr_p
+    kr_n, gt = rg // rpk, g // hs
+    keys = ops.decode_tile_keys(d, itemsize, hp)
+    assert keys == kr_n * u_ * hs
+    n = k.shape[0]
+    seen = torch.zeros(n, gg, dtype=torch.int64)
+    parts = [[] for _ in range(gg)]
+    for r in range(rg):
+        wi, kr = r % rpk, r // rpk
+        hk, sl = wi % hp, wi // hp
+        h0 = hk * g + sl * gt
+        m = torch.full((gt,), -math.inf, dtype=torch.float64)
+        l_ = torch.zeros(gt, dtype=torch.float64)
+        acc = torch.zeros(gt, d, dtype=torch.float64)
+        for key0 in range(0, n, keys):
+            nkeys = min(keys, n - key0)
+            for sub in range(hs):
+                k0 = kr + sub * u_ * kr_n
+                if k0 >= nkeys:
+                    continue
+                rows = [k0 + u * kr_n for u in range(u_)]
+                valid = torch.tensor([x < nkeys for x in rows])
+                at = torch.tensor([key0 + min(x, nkeys - 1) for x in rows])
+                s = q[h0:h0 + gt].double() @ k[at, hk].double().T          # [gt, U]
+                s = s.masked_fill(~valid, -math.inf)
+                seen[at[valid, None], torch.arange(h0, h0 + gt)] += 1
+                mx = torch.maximum(m, s.amax(-1))
+                p = torch.exp2(s - mx[:, None])
+                corr = torch.exp2(m - mx)
+                l_ = l_ * corr + p.sum(-1)
+                acc = acc * corr[:, None] + p @ v[at, hk].double()
+                m = mx
+        for j in range(gt):
+            parts[h0 + j].append((m[j], l_[j], acc[j]))
+    out = torch.zeros(gg, d, dtype=torch.float64)
+    for h, ps in enumerate(parts):
+        mx = max(x[0] for x in ps)
+        wts = [torch.exp2(x[0] - mx) if x[0] > -math.inf else 0.0 for x in ps]
+        out[h] = sum(w * x[2] for w, x in zip(wts, ps)) / max(
+            sum(w * x[1] for w, x in zip(wts, ps)), 1e-30)
+    return out, seen
+
+
+@pytest.mark.parametrize("d,itemsize,h,kvh,n", [
+    (128, 2, 8, 1, 77), (128, 2, 12, 1, 100), (128, 2, 16, 1, 64), (128, 4, 12, 1, 37),
+    (128, 4, 16, 1, 50), (16, 2, 12, 1, 300), (16, 4, 16, 1, 130), (112, 2, 8, 1, 40),
+    (112, 2, 2, 2, 45), (128, 2, 7, 1, 33)])
+def test_k5_head_slices_algorithm(d, itemsize, h, kvh, n):
+    """K5's head slices on the CPU (``_k5_unit_emulated``): every (key,
+    query head) of a segment is scored exactly once, partial last tile
+    included, and the merged output equals the plain version's at 1e-6 of
+    max|out|; at G 8, 12, 16 over one kv head a unit, at G 7, and two MHA
+    heads a unit at D 112."""
+    rng = np.random.default_rng(d + h + n)
+    q = torch.from_numpy(rng.standard_normal((1, h, d)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((1, n, kvh, d)).astype(np.float32))
+            for _ in range(2))
+    hp = ops.decode_heads_per_unit(h // kvh, d, itemsize, kvh)
+    assert kvh == hp   # one unit
+    scale = 1.0 / math.sqrt(d)
+    got, seen = _k5_unit_emulated(q[0] * scale * math.log2(math.e), k[0], v[0], d,
+                                  itemsize, hp)
+    assert bool((seen == 1).all())
+    want = ref.decode_attention_plain(q, k, v, torch.tensor([n], dtype=torch.int32))[0]
+    assert (got.float() - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+def test_k5_per_head_check_holds_rounding_and_sees_a_dropped_key():
+    """``chip_smoke.head_ratio``, K5's per-launch check on the card: the
+    fp32 result rounded to bf16 once (what K5 writes) reads at most one
+    bf16 ulp at a (row, head)'s max, 2^-7 = 0.78 of its 1e-2 limit; a
+    kv_len = 0 row that is not exactly zero reads as a huge error; and a
+    dropped key reads at least twice what ``fault_ratio`` (the whole
+    output's max|ref|, 2e-2) reads."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _decode_inputs(4, 8, 2, 64, 4000,
+                                                                        seed=5))
+    kvl = torch.tensor([0, 300, 1200, 4000], dtype=torch.int32)
+    want = ref.decode_attention_plain(q, k, v, kvl)
+    once = ref.decode_attention_plain(q.float(), k.float(), v.float(), kvl).bfloat16()
+    assert cs.head_ratio(once, want, "bfloat16") <= 2 ** -7 / cs.K5_BF16_HEAD_TOL
+    assert cs.head_ratio(torch.ones_like(want), want, "bfloat16") > 1e20
+    dropped = ref.decode_attention_plain(q, k, v, (kvl - 1).clamp(min=0))
+    assert cs.head_ratio(dropped, want, "bfloat16") >= 2 * cs.fault_ratio(
+        (dropped,), (want,), "bfloat16") > 0
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "kv_dtype", "group", "kv_len_dtype",

@@ -25,7 +25,10 @@ reference on the CPU:
   C = 16, B = 2) runs every case;
 - ``decode_step`` of the smoke qwen3-14b (K5's plain version at G 5)
   against the reference's: logits within 2e-3 of max|logit|, the cache
-  within 1e-5."""
+  within 1e-5; the same for the paper's four at their decode groups on
+  the card (G 8, 12, 16 over one kv head, 16 over two) and for
+  qwen2-moe-a2.7b (MHA)."""
+import dataclasses
 import math
 import os
 import subprocess
@@ -275,17 +278,12 @@ def test_forward_matches_reference(arch):
     assert rel.max() < 2e-3, rel.max()
 
 
-def test_qwen3_14b_decode_steps_match_reference():
-    """The smoke qwen3-14b (5 query heads on 1 kv head: K5's plain version
-    at G 5): forward(return_cache) on 16 tokens, the KV axis padded by 8,
-    then 4 decode steps in both packages from the reference's cache
-    carried across: logits within 2e-3 of max|logit| and every cache leaf
-    within 1e-5 of its own max|ref| after each step; the first step also
-    against the port's own forward on 17 tokens."""
-    arch = "qwen3-14b"
-    rcfg = ref_replace(ref_smoke(arch), dtype="float32")
-    cfg = replace(get_smoke_config(arch), dtype="float32")
-    assert cfg.num_heads // cfg.num_kv_heads == 5
+def _decode_steps_match_reference(rcfg, cfg):
+    """forward(return_cache) on 16 tokens, the KV axis padded by 8, then 4
+    decode steps in both packages from the reference's cache carried
+    across: logits within 2e-3 of max|logit| and the cache's k / v within
+    1e-5 of their own max|ref| after each step; the first step also against
+    the port's own forward on 17 tokens."""
     tree = _ref_params(rcfg)
     rm, pm = ref_build(rcfg), build_model(cfg)
     jp, params = jax.tree.map(jnp.asarray, tree), bridge.params_from_numpy(tree, device="cpu")
@@ -308,6 +306,45 @@ def test_qwen3_14b_decode_steps_match_reference():
             w = np.asarray(jcache[key], np.float32)
             assert np.abs(cache[key].numpy() - w).max() <= 1e-5 * np.abs(w).max()
         assert cache["pos"].tolist() == [t + 1] * 2
+
+
+def test_qwen3_14b_decode_steps_match_reference():
+    """The smoke qwen3-14b (5 query heads on 1 kv head: K5's plain version
+    at G 5), as ``_decode_steps_match_reference`` sets out."""
+    arch = "qwen3-14b"
+    rcfg = ref_replace(ref_smoke(arch), dtype="float32")
+    cfg = replace(get_smoke_config(arch), dtype="float32")
+    assert cfg.num_heads // cfg.num_kv_heads == 5
+    _decode_steps_match_reference(rcfg, cfg)
+
+
+# arch -> (query heads, kv heads) of the smoke config decoded: the paper's
+# four at the GQA groups they decode with on the card (llama3-70b G 8,
+# mistral-123b G 12, qwen3-235b G 16, llama3-405b G 16 over two kv heads),
+# qwen2-moe-a2.7b as it is (MHA)
+DECODE_HEADS = {"llama3-70b": (8, 1), "mistral-123b": (12, 1), "qwen3-235b": (16, 1),
+                "llama3-405b": (32, 2), "qwen2-moe-a2.7b": (4, 4)}
+
+
+@pytest.mark.parametrize("arch", DECODE_HEADS)
+def test_decode_steps_match_reference_at_the_card_groups(arch):
+    """The smoke configs of the paper's four models with the query / kv heads
+    of ``DECODE_HEADS`` set in both packages through each one's own
+    ``replace`` (head dim 16 kept), and qwen2-moe-a2.7b's: K5's plain
+    version at G 8, 12, 16 and 1, as ``_decode_steps_match_reference``
+    sets out. An MoE config (qwen3-235b, experts kept; qwen2-moe-a2.7b)
+    takes, in both packages, the capacity at which no token drops, as the
+    decode bridge on the card does, so that forward on 17 tokens and the
+    one-token decode step route alike."""
+    h, kvh = DECODE_HEADS[arch]
+    rcfg = ref_replace(ref_smoke(arch), dtype="float32", num_heads=h, num_kv_heads=kvh)
+    cfg = replace(get_smoke_config(arch), dtype="float32", num_heads=h, num_kv_heads=kvh)
+    if cfg.moe is not None:
+        no_drop = cfg.moe.real_experts / cfg.moe.top_k
+        rcfg = ref_replace(rcfg, moe=dataclasses.replace(rcfg.moe, capacity_factor=no_drop))
+        cfg = replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=no_drop))
+    assert (cfg.resolved_head_dim, rcfg.resolved_head_dim) == (16, 16)
+    _decode_steps_match_reference(rcfg, cfg)
 
 
 # ---------------------------------------------------------------- pipeline
