@@ -47,8 +47,9 @@ prints no result line):
      torch.profiler trace and from windows of back-to-back calls;
    - K1-K3 at [long]'s shapes (C = 4096: K1's causal self block, K2
      over 6 slots of 4096 keys, K3 off pages of 4096 tokens with bf16,
-     int8 and fp8 pages), held on every row's last 512 queries and timed
-     beside the library calls (``long_attention_shapes``);
+     int8 and fp8 pages; C = 16384, one row a stage group: the same with
+     bf16 pages), held on every row's last 512 queries and timed beside
+     the library calls (``long_attention_shapes``);
    - K1 at the GPipe baseline's shape: 8 rows of a whole 4096-token
      sequence against itself (C = T = 4096, causal offset 0), qwen3-8b's
      heads, bf16, held against the plain version on 2 rows, each query row
@@ -96,12 +97,13 @@ prints no result line):
    generator) through ``PrefillEngine`` + ``TorchExecutor``: N=8 stages,
    M=8 chunks of 512 tokens, 2 requests a wave, 4 requests. qwen3-8b
    (36 layers) under qship/fetch x cuda/paged pools plus one int8-page run;
-   zamba2-7b (81 layers) under qship/cuda, fetch/paged and one int8-page
-   run; mamba2-130m (24 layers) under terapipe; granite-3-2b (40 layers)
-   under qship/cuda, fetch/paged and qship/cuda int8; stablelm-3b (32)
+   zamba2-7b (45 of 81 layers: one hybrid group a stage) under qship/cuda,
+   fetch/paged and one int8-page run; mamba2-130m (24 layers) under
+   terapipe; granite-3-2b (8 of 40 layers) under qship/cuda, fetch/paged
+   and qship/cuda int8; stablelm-3b (32)
    under terapipe fetch/cuda and mocap qship/paged; qwen2-moe-a2.7b (24)
    and granite-moe-3b-a800m (32) under two of qship/fetch x cuda/paged;
-   qwen3-14b (16 of 40 layers, GQA group 5; K1-K3 held per launch) under qship/cuda,
+   qwen3-14b (8 of 40 layers, GQA group 5; K1-K3 held per launch) under qship/cuda,
    fetch/paged and qship/cuda int8; the paper's four models, llama3-70b
    (G 8; also int8 pages and a profiled wave), mistral-123b (G 12),
    qwen3-235b (MoE, 128 experts top 8, G 16) and llama3-405b (G 16), cut
@@ -130,20 +132,22 @@ prints no result line):
    attention; the bf16 spread and the router choices that differ are
    reported); in fp32 every request's argmax must equal the ``torch``
    backends' (see ``serve_model``);
-6. long: qwen3-8b at full width with S = 32768 (N 8, M 8, C 4096, B 2),
-   bf16, through ``PrefillEngine`` + ``TorchExecutor``: at full depth a
-   mocap qship/cuda wave with every K1 and K2 launch held against its
-   plain version on every row's last 512 queries, the counted mocap and
-   terapipe waves (launches against their closed forms, wall time, peak
-   memory, the pools' bytes exactly the plan's 9.40 / 12.08 GB, the
-   per-stage peak kv_bytes ratio exactly 6/8), a profiled mocap wave
-   (device time by category, the profiler's product FLOPs against the meta
-   count, bound / busy and MFU), a planted K1 fault that drops the keys
-   past 512; at 8 layers the four held combinations (qship/cuda and
-   qship/paged on auto pages, fetch/paged int8, qship/paged fp8) against
-   the tiled P32 witness, every K3 launch held per launch, the planted K2
-   faults and a planted K3 fault that drops a page's keys past 512 (see
-   ``long_phase``);
+6. long: qwen3-8b at full width, bf16, through ``PrefillEngine`` +
+   ``TorchExecutor`` at the engine's default buckets, at the largest, S =
+   131072 (N 8, M 8, C 16384, one request a wave): at 8 layers a mocap
+   qship/cuda wave and a qship/paged one with every K1, K2 and K3 launch
+   held against its plain version on every row's last 512 queries, the two
+   pools' logits within 1e-3, planted faults that drop a launch's keys past
+   512 (K1) and past 4096 (K1, K2, K3); at S 32768 and 8 layers the four
+   held combinations (qship/cuda and qship/paged on auto pages, fetch/paged
+   int8, qship/paged fp8) against the tiled P32 witness, every K3 launch
+   held per launch, the planted K2 faults and a planted K3 fault that drops
+   a page's keys past 512; at full depth and S 131072 the counted mocap
+   and terapipe waves under torch.profiler (launches against their closed
+   forms, wall time, peak memory, the pools' bytes exactly the plan's
+   18.79 / 24.16 GB, the per-stage peak kv_bytes ratio exactly 6/8, device
+   time by category, mocap's product FLOPs against the meta count, bound /
+   busy and MFU, mocap's logits against terapipe's) (see ``long_phase``);
 7. frontends: llava-next-34b (full width cut to 8 layers; 2880 patch
    embeddings then 1216 tokens, S = 4096, N = M = 8, C = 512: chunk 5
    straddles the front) and whisper-small (full width and depth: 1500
@@ -277,6 +281,24 @@ RAGGED_CHUNK = 500                 # K1's ragged query edge (not a multiple of 6
 # K1 held against its plain version on GP_HELD rows of a tick's launch
 GP_REQUESTS, GP_BM, GP_HELD = 8, 1, 2
 K1_KINDS = ("int8", "fp8")         # K1's quantized pages, at every head dim
+
+
+# [long]: qwen3-8b at full width at the reference engine's largest bucket,
+# S = 131072 = LONG_M chunks of 16384 at N_STAGES = 8 (the geometry where
+# MBKR keeps 6 slots a stage against terapipe's 8), one request a wave
+# (a wave of two counts 95.41 GiB on meta): (a) at full depth, (b) at 8 layers
+LONG_SEQ, LONG_M, LONG_BATCH = 131072, 8, 1
+# (c): the held runs at 8 layers at S = 32768 (C 4096) against the P32
+# witness, LONG_HELD_BATCH request (one halves the witness's fp32 scores)
+HELD_SEQ, LONG_HELD_BATCH = 32768, 1
+LONG_Q_BLOCK = 512           # the sliced per-launch check: every row, its last 512 queries
+LONG_FAULT_KEYS = 512        # the long-only planted faults drop the keys past these
+CHUNK_FAULT_KEYS = 4096      # and, on (b)'s launches of 16384 keys, past these
+LONG_COMBO = ("qship", "cuda", "cuda", "auto")
+LONG_PAGED = ("qship", "cuda", "paged", "auto")
+LONG_HELD = (LONG_COMBO, LONG_PAGED, ("fetch", "cuda", "paged", "int8"),
+             ("qship", "cuda", "paged", "fp8"))
+LONG_TIMING = dict(iters=3, warmup=1)   # a long kernel call takes tens of ms
 
 
 class SmokeFailure(RuntimeError):
@@ -1431,32 +1453,56 @@ def whisper_pipeline_shapes(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# [long]'s kernel rows: (key, chunk, rows, K3's page kinds, timing of the
+# kernel's three readings, timing of the library call). C 4096: (c)'s held
+# runs at S 32768 with a wave of 2 (16 rows); C 16384: the S 131072 waves of
+# one request (8 rows), bf16 pages, the library timed once after a warm-up
+LONG_ROWS = (("long", HELD_SEQ // LONG_M, N_STAGES * BATCH, ("bf16",) + K1_KINDS,
+              dict(LONG_TIMING, windowed=3, profiled=4), LONG_TIMING),
+             (f"long_{LONG_SEQ // LONG_M}", LONG_SEQ // LONG_M, N_STAGES * LONG_BATCH,
+              ("bf16",), dict(iters=2, warmup=1, windowed=2, profiled=3),
+              dict(iters=1, warmup=1)))
+
+
 def long_attention_shapes(results: dict) -> None:
-    """K1-K3 at [long]'s shapes, bf16: q [16, 4096, 32, 128] (N_STAGES x
-    BATCH rows of one chunk of C = LONG_SEQ / LONG_M queries, qwen3-8b's
-    heads); K1 the causal self block against its 4096 keys (return_state,
-    as the pipeline calls it); K2 a stack of 6 slots x 4096 keys (stage s
-    reads min(s, 6) of them); K3 pages of 4096 tokens, one a chunk, read in
-    place from a strided [8, 7, 2, 2, 4096, 8, 128] store, with bf16, int8
-    and fp8 pages. Each is held against its plain version on the last
+    """K1-K3 at [long]'s shapes (``LONG_ROWS``), bf16: q [rows, C, 32, 128]
+    (N_STAGES stage groups of one chunk of C queries, qwen3-8b's heads); K1
+    the causal self block against its C keys (return_state, as the
+    pipeline calls it); K2 a stack of 6 slots x C keys (stage s reads
+    min(s, 6) of them); K3 pages of C tokens, one a chunk, read in place
+    from a strided [8, 7, 2, B, C, 8, 128] store, with the row's page
+    kinds. Each is held against its plain version on the last
     LONG_Q_BLOCK query rows of every row (``compare``; the plain version on
-    all 4096 would hold ~26 GB of fp32 scores for one stage group of K2),
-    where the causal K1 sees every key; K2's and K3's all-invalid group
-    must come out exactly (-1e30, 0, 0). Times (LONG_TIMING: fewer calls,
-    tens of ms each): ``time_ms`` / ``windowed_ms`` / ``profiled_ms``, the
-    plain version's on that slice, the library (K1: SDPA causal; K2 / K3:
-    the memory-efficient SDPA over the masked stack, ``sdpa_pool_ms``, the
-    1-byte pages dequantized to bf16 outside the timed call) and the bound
-    from ``roofline.kernel_work``; recorded under ``results[kernel]["long"]``
-    (K3: ``"long_<kv>"``)."""
+    all C would hold ~26 GB of fp32 scores for one stage group of K2 at C
+    4096), where the causal K1 sees every key; K2's and K3's all-invalid
+    group must come out exactly (-1e30, 0, 0). Times (the row's timing:
+    fewer calls than elsewhere, tens to hundreds of ms each): ``time_ms`` /
+    ``windowed_ms`` / ``profiled_ms``, the plain version's on that slice,
+    the library (K1: SDPA causal; K2 / K3: the memory-efficient SDPA over
+    the masked stack, ``sdpa_pool_ms``, the 1-byte pages dequantized to
+    bf16 outside the timed call) and the bound from
+    ``roofline.kernel_work``; recorded under ``results[kernel][key]`` (K3:
+    ``"<key>_<kind>"``)."""
+    for key, c, gb, kinds, timing, lib_timing in LONG_ROWS:
+        t0 = time.perf_counter()
+        long_attention_rows(results, key, c, gb, kinds, timing, lib_timing)
+        log(f"[kernels] K1-K3 at [long]'s C {c}: {time.perf_counter() - t0:.1f} s")
+
+
+def long_attention_rows(results: dict, key: str, c: int, gb: int, kinds: tuple,
+                        timing: dict, lib_timing: dict) -> None:
+    """One row of ``LONG_ROWS`` (see ``long_attention_shapes``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
-    h, kvh, d, c, slots = 32, 8, 128, LONG_SEQ // LONG_M, 6
-    gb, q0, bf16 = N_STAGES * BATCH, LONG_SEQ // LONG_M - LONG_Q_BLOCK, torch.bfloat16
+    h, kvh, d, slots = 32, 8, 128, 6
+    b, q0, bf16 = gb // N_STAGES, c - LONG_Q_BLOCK, torch.bfloat16
+    kernel_timing = {k: v for k, v in timing.items() if k in ("iters", "warmup")}
+    # ``sdpa_pool_ms``'s call that checks the library's output is its first warm-up
+    pool_lib = dict(lib_timing, warmup=lib_timing["warmup"] - 1)
 
     def randn(*shape, dtype=bf16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -1465,6 +1511,7 @@ def long_attention_shapes(results: dict) -> None:
         want = query_block_call(kernel, plain_of(kernel), q0, c, args, kw)
         err = compare(f"{label}, last {LONG_Q_BLOCK} queries", query_part(got, q0, c), want,
                       in_dtype)
+        del want
         plain = time_ms(lambda: query_block_call(kernel, plain_of(kernel), q0, c, args, kw),
                         **PLAIN_TIMING)
         res = results[kernel]
@@ -1472,18 +1519,19 @@ def long_attention_shapes(results: dict) -> None:
         return plain
 
     def timed(call, tag: str) -> dict:
-        ms, win_ms = time_ms(call, **LONG_TIMING), windowed_ms(call, iters=3, warmup=0)
-        prof_ms, seen = profiled_ms(call, tag, calls=4)
+        ms = time_ms(call, **kernel_timing)
+        win_ms = windowed_ms(call, iters=timing["windowed"], warmup=0)
+        prof_ms, seen = profiled_ms(call, tag, calls=timing["profiled"])
         log(f"  torch.profiler: attn_tc_kernel<{tag}> {seen} launches, "
             + (f"{prof_ms:.4f} ms device time each" if seen else "no device time seen"))
         return dict(ms=ms, windowed_ms=win_ms, profiler_ms=prof_ms)
 
-    def record(kernel: str, key: str, times: dict, plain: float, lib, bound, **shape):
+    def record(kernel: str, name: str, times: dict, plain: float, lib, bound, **shape):
         b_ms, by, _ = bound
-        results[kernel][key] = dict(heads=h, kv_heads=kvh, head_dim=d, rows=gb, queries=c,
-                                    plain_ms=plain, plain_queries=LONG_Q_BLOCK,
-                                    library_ms=lib, bound_ms=b_ms, bound_by=by,
-                                    **times, **shape)
+        results[kernel][name] = dict(heads=h, kv_heads=kvh, head_dim=d, rows=gb, queries=c,
+                                     plain_ms=plain, plain_queries=LONG_Q_BLOCK,
+                                     library_ms=lib, bound_ms=b_ms, bound_by=by,
+                                     **times, **shape)
         log(f"  time: kernel {times['ms']:.4f} ms ({times['windowed_ms']:.4f} ms a call in "
             f"windows), plain {plain:.4f} ms on the last {LONG_Q_BLOCK} queries of each row, "
             + (f"library {lib:.4f} ms, " if lib is not None else "")
@@ -1495,69 +1543,70 @@ def long_attention_shapes(results: dict) -> None:
 
     def identity_kept(label: str, got) -> None:
         m, l, acc = got
-        check(bool((m[:BATCH] == -1e30).all() and (l[:BATCH] == 0).all()
-                   and (acc[:BATCH] == 0).all()),
+        check(bool((m[:b] == -1e30).all() and (l[:b] == 0).all() and (acc[:b] == 0).all()),
               f"{label}: an all-invalid group is not exactly (-1e30, 0, 0)")
 
-    # ---------------- K1: the causal self block of a 4096-token chunk
+    # ---------------- K1: the causal self block of a C-token chunk
     log(f"[kernels] K1 chunk_attention at [long]'s shape  q [{gb},{c},{h},{d}], "
         f"k/v [{gb},{c},{kvh},{d}] bf16, causal")
     q, k, v = randn(gb, c, h, d), randn(gb, c, kvh, d), randn(gb, c, kvh, d)
     call = lambda: ops.chunk_attention(q, k, v, return_state=True)
     plain = held("chunk_attention", call(), (q, k, v), dict(return_state=True),
-                 "long self block", "bfloat16")
+                 f"long self block C {c}", "bfloat16")
     times = timed(call, "ChunkWalk")
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                         enable_gqa=True), **LONG_TIMING)
-    record("chunk_attention", "long", times, plain, lib,
+                                                         enable_gqa=True), **lib_timing)
+    record("chunk_attention", key, times, plain, lib,
            bound_ms("chunk_attention", q, k, v, return_state=True), keys=c)
     del k, v, qt, kt, vt
+    torch.cuda.empty_cache()
 
-    # ---------------- K2: a stack of 6 stored chunks of 4096 keys
+    # ---------------- K2: a stack of 6 stored chunks of C keys
     log(f"[kernels] K2 pool_attention at [long]'s shape  q [{gb},{c},{h},{d}], "
         f"k/v [{slots},{gb},{c},{kvh},{d}] bf16")
     k, v = randn(slots, gb, c, kvh, d), randn(slots, gb, c, kvh, d)
     call = lambda: ops.pool_attention(q, k, v, valid)
     got = call()
-    identity_kept("long K2", got)
-    plain = held("pool_attention", got, (q, k, v, valid), {}, "long pool bf16", "bfloat16")
+    identity_kept(f"long K2 C {c}", got)
+    plain = held("pool_attention", got, (q, k, v, valid), {}, f"long pool bf16 C {c}",
+                 "bfloat16")
     times = timed(call, "StackWalk")
-    lib = sdpa_pool_ms(q, k, v, valid, got, **LONG_TIMING)
-    record("pool_attention", "long", times, plain, lib,
+    lib = sdpa_pool_ms(q, k, v, valid, got, **pool_lib)
+    record("pool_attention", key, times, plain, lib,
            bound_ms("pool_attention", q, k, v, valid.cpu()), slots=slots, keys=c)
     del k, v, got
     torch.cuda.empty_cache()
 
-    # ---------------- K3: pages of 4096 tokens in place, bf16 / int8 / fp8
+    # ---------------- K3: pages of C tokens in place
     npages, lps = slots + 1, 2
     handles = torch.arange(slots, dtype=torch.int32, device=dev)
-    for kind in ("bf16",) + K1_KINDS:
+    for kind in kinds:
         log(f"[kernels] K3 pool_attention_paged at [long]'s shape  q [{gb},{c},{h},{d}], "
-            f"layer view of a [{N_STAGES},{npages},{lps},{BATCH},{c},{kvh},{d}] {kind} store")
+            f"layer view of a [{N_STAGES},{npages},{lps},{b},{c},{kvh},{d}] {kind} store")
         if kind == "bf16":
-            kp, vp = (randn(N_STAGES, npages, lps, BATCH, c, kvh, d) for _ in range(2))
+            kp, vp = (randn(N_STAGES, npages, lps, b, c, kvh, d) for _ in range(2))
             ks = vs = None
         else:
-            kp, ks = quantize(randn(N_STAGES, npages, lps, BATCH, c, kvh, d,
+            kp, ks = quantize(randn(N_STAGES, npages, lps, b, c, kvh, d,
                                     dtype=torch.float32), kind, (4, 6))
-            vp, vs = quantize(randn(N_STAGES, npages, lps, BATCH, c, kvh, d,
+            vp, vs = quantize(randn(N_STAGES, npages, lps, b, c, kvh, d,
                                     dtype=torch.float32), kind, (4, 6))
             ks, vs = ks[:, :, 1], vs[:, :, 1]
         k_l, v_l = kp[:, :, 1], vp[:, :, 1]           # strided views, as the pipeline's
         kw = dict(ppc=1, k_scale=ks, v_scale=vs)
         call = lambda: ops.pool_attention_paged(q, k_l, v_l, handles, valid, **kw)
         got = call()
-        identity_kept(f"long K3 {kind}", got)
+        identity_kept(f"long K3 {kind} C {c}", got)
         plain = held("pool_attention_paged", got, (q, k_l, v_l, handles, valid), kw,
-                     f"long paged {kind}", "bfloat16" if kind == "bf16" else kind)
+                     f"long paged {kind} C {c}", "bfloat16" if kind == "bf16" else kind)
         times = timed(call, "PagedWalk")
 
         def stack(x, sc):       # the same slots as K2's stack, dequantized to bf16
             x = x[:, :slots] if sc is None else (x[:, :slots].float() * sc[:, :slots]).to(bf16)
             return x.movedim(1, 0).flatten(1, 2)
-        lib = sdpa_pool_ms(q, stack(k_l, ks), stack(v_l, vs), valid, got, **LONG_TIMING)
-        record("pool_attention_paged", f"long_{kind}", times, plain, lib,
+        lib = sdpa_pool_ms(q, stack(k_l, ks), stack(v_l, vs), valid, got, **pool_lib)
+        record("pool_attention_paged", f"{key}_{kind}", times, plain, lib,
                bound_ms("pool_attention_paged", q, k_l, v_l, handles.numel(), valid.cpu(),
                         ks, vs, ppc=1), slots=slots, page_tokens=c, pages=kind)
         del kp, vp, k_l, v_l, ks, vs, got
@@ -1569,9 +1618,7 @@ def long_attention_shapes(results: dict) -> None:
 def kernel_phase(results: dict) -> None:
     attention_phase(results, h=32, kvh=8, d=128)                # qwen3-8b
     k1_gpipe_shape(results)
-    t0 = time.perf_counter()
     long_attention_shapes(results)
-    log(f"[kernels] K1-K3 at [long]'s shapes: {time.perf_counter() - t0:.1f} s")
     attention_phase(results, h=32, kvh=32, d=112, key="d112", fp32=False)   # zamba2-7b
     for key, (h, kvh, d, fp32) in ATTN_SHAPES.items():
         t0 = time.perf_counter()
@@ -1663,9 +1710,11 @@ def smoke_parity_phase() -> None:
 # stablelm-3b's and granite-moe-3b-a800m's (their fp32 serves at 40, 32 and
 # 32 layers took some 20-36 s each), qwen2-moe-a2.7b's and
 # qwen3-14b's for the card's memory (24 fp32 layers of experts are ~57 GB,
-# 40 of qwen3-14b's ~59 GB); qwen3-14b's bf16 runs take two layers a stage
+# 40 of qwen3-14b's ~59 GB); qwen3-14b's bf16 runs take one layer a stage
 # (at 40 layers, holding each K1-K3 launch took 128 s of the script's time;
-# its full depth runs in the decode phase). The paper's four models do not fit the card at
+# its full depth runs in the decode phase), and so do granite-3-2b's and,
+# one hybrid group a stage, zamba2-7b's, for the time of [long]'s S 131072
+# waves at full depth. The paper's four models do not fit the card at
 # full depth (llama3-70b's 80 layers are ~141 GB in bf16), so their bf16
 # runs take one layer a stage at full width, one wave of BATCH requests a
 # run, and they have no fp32 runs (their fp32 parity is the CPU tests')
@@ -1679,7 +1728,8 @@ SERVE_MODELS = {
     "zamba2-7b": dict(
         combos=[("qship", "cuda", "cuda", "auto"), ("fetch", "cuda", "paged", "auto"),
                 ("qship", "cuda", "cuda", "int8")],
-        kernels=ATTN_KERNELS + ("ssd",), faults="ssd", fp32_layers=N_STAGES),
+        kernels=ATTN_KERNELS + ("ssd",), faults="ssd", bf16_layers=N_STAGES,
+        fp32_layers=N_STAGES),
     "mamba2-130m": dict(
         combos=[("qship", "cuda", "cuda", "auto")],
         kernels=("ssd",), faults="ssd"),
@@ -1689,7 +1739,7 @@ SERVE_MODELS = {
         # its logits hardly see attention (embedding x 12, attention scale
         # 1/64, residual x 0.22): the K2 faults stay under the bf16 spread
         kernels=ATTN_KERNELS, faults="pool_attention", per_launch=ATTN_KERNELS,
-        fp32_layers=N_STAGES),
+        bf16_layers=N_STAGES, fp32_layers=N_STAGES),
     "stablelm-3b": dict(
         combos=[("fetch", "cuda", "cuda", "auto", "terapipe"),
                 ("qship", "cuda", "paged", "auto", "mocap")],
@@ -1703,12 +1753,12 @@ SERVE_MODELS = {
         kernels=ATTN_KERNELS, faults="pool_attention", per_launch=ATTN_KERNELS,
         wave=False, fp32_layers=N_STAGES),
     # GQA group 5: K1-K3 held per launch; 40 fp32 layers are ~59 GB; the
-    # bf16 runs take 16 of 40 layers (two a stage) for the script's time
+    # bf16 runs take 8 of 40 layers (one a stage) for the script's time
     "qwen3-14b": dict(
         combos=[("qship", "cuda", "cuda", "auto"), ("fetch", "cuda", "paged", "auto"),
                 ("qship", "cuda", "cuda", "int8")],
         kernels=ATTN_KERNELS, faults="pool_attention", per_launch=ATTN_KERNELS,
-        bf16_layers=2 * N_STAGES, fp32_layers=N_STAGES, wave=False),
+        bf16_layers=N_STAGES, fp32_layers=N_STAGES, wave=False),
     # the paper's four models (G 8, 12, 16, 16), 8 layers at full width
     "llama3-70b": dict(
         combos=[("qship", "cuda", "cuda", "auto"), ("fetch", "cuda", "paged", "auto"),
@@ -2502,13 +2552,13 @@ def profiled_wave(prof) -> tuple:
     return flops, device_spans(prof)
 
 
-def roofline_wave(seq: int = N_CHUNKS * CHUNK):
+def roofline_wave(seq: int = N_CHUNKS * CHUNK, batch: int = BATCH):
     """(cfg, plan, tokens as numpy, wave): the serve phase's qwen3-8b bf16
     wave (qship, ``cuda`` / ``cuda``, N 8, M 8, C 512, B 2, full depth), or
-    at another ``seq`` the same wave of M 8 chunks of seq / 8 ([long]'s
-    S 32768), through ``prefill_pipeline`` as ``TorchExecutor`` runs it;
-    ``wave(staged, tokens)`` runs it where ``tokens`` lie (the card, or
-    meta)."""
+    at another ``seq`` and ``batch`` the same wave of M 8 chunks of seq / 8
+    ([long]'s S 131072, B 1), through ``prefill_pipeline`` as
+    ``TorchExecutor`` runs it; ``wave(staged, tokens)`` runs it where
+    ``tokens`` lie (the card, or meta)."""
     import numpy as np
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.core import pipeline as pp
@@ -2517,22 +2567,22 @@ def roofline_wave(seq: int = N_CHUNKS * CHUNK):
     run = RunConfig(num_chunks=N_CHUNKS, num_stages=N_STAGES, remote_attn="qship",
                     attn_backend="cuda", pool_backend="cuda")
     plan = pp.build_plan(cfg, N_STAGES, seq, run)
-    toks = np.stack([r.tokens for r in make_requests(BATCH, seq, cfg.vocab_size, seed=0)])
+    toks = np.stack([r.tokens for r in make_requests(batch, seq, cfg.vocab_size, seed=0)])
 
     def wave(staged, tokens):
         return pp.prefill_pipeline(cfg, staged, tokens, plan, device=tokens.device)
     return cfg, plan, toks, wave
 
 
-def count_roofline_wave(seq: int = N_CHUNKS * CHUNK) -> tuple:
-    """(GraphCost, seconds): ``roofline_wave(seq)`` counted on meta by
-    ``roofline.op_graph.count`` (K1 / K2 charged their ``kernel_work``).
+def count_roofline_wave(seq: int = N_CHUNKS * CHUNK, batch: int = BATCH) -> tuple:
+    """(GraphCost, seconds): ``roofline_wave(seq, batch)`` counted on meta
+    by ``roofline.op_graph.count`` (K1 / K2 charged their ``kernel_work``).
     It needs no card: ``main`` runs it in a thread beside the build."""
     import torch
     from repro_torch.core.staging import init_staged
     from repro_torch.roofline import op_graph
     t0 = time.perf_counter()
-    cfg, plan, toks, wave = roofline_wave(seq)
+    cfg, plan, toks, wave = roofline_wave(seq, batch)
     meta = torch.device("meta")
     with torch.no_grad():
         cost = op_graph.count(wave, init_staged(cfg, plan, None, device=meta),
@@ -2649,22 +2699,6 @@ def roofline_phase(results: dict, counted=None) -> None:
 
 # --------------------------------------------------------------------- long
 
-# [long]: qwen3-8b at full width at the first of the paper's lengths, S =
-# 32768 = LONG_M chunks of 4096 at N_STAGES = 8: the geometry where MBKR
-# keeps 6 slots a stage against terapipe's 8 (at M 64 x C 512 it would keep
-# 62 against 64), one wave of LONG_BATCH requests
-LONG_SEQ, LONG_M, LONG_BATCH = 32768, 8, BATCH
-# the requests of the held runs at 8 layers (c): one, which halves the P32
-# witness's fp32 scores (44 s of [long] at two) for the script's time
-LONG_HELD_BATCH = 1
-LONG_Q_BLOCK = 512           # the sliced per-launch check: every row, its last 512 queries
-LONG_FAULT_KEYS = 512        # the long-only planted faults drop the keys past these
-LONG_COMBO = ("qship", "cuda", "cuda", "auto")
-LONG_HELD = (("qship", "cuda", "cuda", "auto"), ("qship", "cuda", "paged", "auto"),
-             ("fetch", "cuda", "paged", "int8"), ("qship", "cuda", "paged", "fp8"))
-LONG_TIMING = dict(iters=3, warmup=1)   # a long kernel call takes tens of ms
-
-
 class FaultSeen(Exception):
     """A planted fault broke its per-launch check: its run stops there."""
 
@@ -2680,23 +2714,35 @@ def stop_on_break(fn, worst: list):
     return call
 
 
-def long_faults(k1, k3) -> dict:
-    """The planted faults that only a chunk longer than 512 shows, through
-    ``kv_len``: K1 (``k1``) dropping every key at or past position
-    LONG_FAULT_KEYS of its launch, K3 (``k3``) every key of a page past its
-    first LONG_FAULT_KEYS (one page a chunk). Kernel tag -> (name, fault)."""
+def long_faults(k1, k3, k2=None, keys: Optional[int] = None) -> dict:
+    """The planted faults that only a launch of more than ``keys`` keys a
+    chunk shows (LONG_FAULT_KEYS where None), through ``kv_len``: K1
+    (``k1``) dropping every key at or past position ``keys`` of its launch,
+    K2 (``k2``, where given) every key of a slot past its first ``keys``,
+    K3 (``k3``) every key of a page past its first ``keys`` (one page a
+    chunk). Kernel tag -> (name, fault)."""
+    keys = LONG_FAULT_KEYS if keys is None else keys
+
     def k1_short(q, k, v, *, kv_len=None, **kw):
         t = k.shape[1] if kv_len is None else kv_len
-        return k1(q, k, v, kv_len=min(t, LONG_FAULT_KEYS), **kw)
+        return k1(q, k, v, kv_len=min(t, keys), **kw)
+
+    def k2_short(q, k, v, valid, *, kv_len=None, **kw):
+        t = k.shape[2] if kv_len is None else kv_len
+        return k2(q, k, v, valid, kv_len=min(t, keys), **kw)
 
     def k3_short(q, k_pages, v_pages, handles, valid, *, ppc, kv_len=None, **kw):
         t = ppc * k_pages.shape[-3] if kv_len is None else kv_len
         return k3(q, k_pages, v_pages, handles, valid, ppc=ppc,
-                  kv_len=min(t, LONG_FAULT_KEYS), **kw)
-    return {"chunk_attention": (f"K1 drops the keys at or past {LONG_FAULT_KEYS} of a launch",
-                                k1_short),
-            "pool_attention_paged": (f"K3 drops a page's keys past its first "
-                                     f"{LONG_FAULT_KEYS}", k3_short)}
+                  kv_len=min(t, keys), **kw)
+    faults = {"chunk_attention": (f"K1 drops the keys at or past {keys} of a launch",
+                                  k1_short),
+              "pool_attention_paged": (f"K3 drops a page's keys past its first {keys}",
+                                       k3_short)}
+    if k2 is not None:
+        faults["pool_attention"] = (f"K2 drops a slot's keys past its first {keys}",
+                                    k2_short)
+    return faults
 
 
 def wave_launch_form(plan) -> dict:
@@ -2723,13 +2769,15 @@ def pool_recorder(sizes: list):
     return recorded
 
 
-def long_run(cfg, staged, combo, *, mode: str = "mocap", n_req: int = LONG_BATCH,
-             telemetry: bool = False) -> tuple:
-    """One wave of ``n_req`` requests of LONG_SEQ tokens of ``cfg`` through
+def long_run(cfg, staged, combo, *, seq: int = LONG_SEQ, mode: str = "mocap",
+             n_req: int = LONG_BATCH, telemetry: bool = False) -> tuple:
+    """One wave of ``n_req`` requests of ``seq`` tokens of ``cfg`` through
     PrefillEngine + TorchExecutor under ``combo`` (remote_attn,
-    attn_backend, pool_backend, kv_dtype) and ``mode``: (the logits [n_req,
-    Vpad] as numpy, the wave's record: ``dur`` and, with ``telemetry``, the
-    stage telemetry)."""
+    attn_backend, pool_backend, kv_dtype) and ``mode``, at EngineConfig's
+    default buckets (8192, 32768, 131072): ``seq`` must be one of them, and
+    the wave must run at it as LONG_M chunks of seq / LONG_M. Returns (the
+    logits [n_req, Vpad] as numpy, the wave's record: ``dur`` and, with
+    ``telemetry``, the stage telemetry)."""
     import numpy as np
     from repro_torch.configs import RunConfig
     from repro_torch.launch.serve import make_requests
@@ -2740,14 +2788,17 @@ def long_run(cfg, staged, combo, *, mode: str = "mocap", n_req: int = LONG_BATCH
                     remote_attn=remote, attn_backend=attn, pool_backend=pool, kv_dtype=kv)
     ex = TorchExecutor(cfg, staged, run, device="cuda")
     ex.collect_telemetry = telemetry
-    eng = PrefillEngine(EngineConfig(model=cfg, num_stages=N_STAGES, tp=1, num_chunks=LONG_M,
-                                     max_batch=n_req, buckets=(LONG_SEQ,),
-                                     partition="uniform"), ex)
-    for r in make_requests(n_req, LONG_SEQ, cfg.vocab_size, seed=0):
+    ec = EngineConfig(model=cfg, num_stages=N_STAGES, tp=1, num_chunks=LONG_M,
+                      max_batch=n_req, partition="uniform")
+    check(seq in ec.buckets, f"[long] S {seq} is not one of the buckets {ec.buckets}")
+    eng = PrefillEngine(ec, ex)
+    for r in make_requests(n_req, seq, cfg.vocab_size, seed=0):
         eng.submit(r)
     eng.run_until_drained()
-    name = f"[long] {cfg.num_layers} layers {mode} {'/'.join(combo)}"
+    name = f"[long] {cfg.num_layers} layers S {seq} {mode} {'/'.join(combo)}"
     check(len(ex.waves) == 1 and len(eng.done) == n_req, f"{name}: not one wave of {n_req}")
+    check(ex.waves[0]["seq"] == seq and ex.waves[0]["chunks"] == [seq // LONG_M] * LONG_M,
+          f"{name}: the wave ran S {ex.waves[0]['seq']} as {ex.waves[0]['chunks']}")
     logits = np.stack([r.result for r in sorted(eng.done, key=lambda r: r.rid)])
     check(logits.shape == (n_req, pad_vocab(cfg.vocab_size)), f"{name}: logits {logits.shape}")
     check(bool(np.isfinite(logits).all()), f"{name}: non-finite logits")
@@ -2763,193 +2814,125 @@ def logit_err(got, want) -> tuple:
 
 
 def long_phase(results: dict, counted=None) -> None:
-    """[long]: qwen3-8b at full width with S = LONG_SEQ = 32768 (N 8, M 8,
-    C 4096, B 2), bf16, through PrefillEngine + TorchExecutor:
+    """[long]: qwen3-8b at full width, bf16, through PrefillEngine +
+    TorchExecutor at EngineConfig's default buckets (``long_run``): at the
+    largest, S = LONG_SEQ = 131072 (N 8, M 8, C 16384, one request a wave),
+    and at S = HELD_SEQ = 32768 (C 4096).
 
-    (a) full depth (36 layers, 5 a stage): the mocap wave of LONG_COMBO
-    (qship, K1 + K2), then the same combination under terapipe, each under
-    torch.profiler (``with_flops``) with the launch counters set to 0 just
-    before it and read just after (mocap: K1 75, K2 150; terapipe: its own
-    closed form, ``wave_launch_form``), its wall time (the profiler's CPU
-    activity included), its peak memory (``max_memory_allocated``, reset
-    before it), the bytes of the pool it allocated held exactly to the
-    plan's (one page a chunk: (slots + 1) x N chunk-pages of 5 layers x 2
-    rows x 4096 x 8 x 128 x 2 B x (K, V): 9.40 GB under MBKR, 12.08 GB
-    under terapipe), the stage telemetry, whose largest per-stage peak
-    ``kv_bytes`` under MBKR must be exactly 6/8 of terapipe's (the plan's
-    slot ratio), and its device time by category and idle share
-    (``categorize``); the mocap wave's product FLOPs against the meta count
-    of the same wave (``count_roofline_wave(LONG_SEQ)``, ``counted``:
-    counted beside the build), its bound / busy share and MFU;
-    (b) every K1 and K2 launch of a mocap wave held against its plain
-    version on every row's last LONG_Q_BLOCK queries (``shadowed(q_block=)``,
-    worst <= 1 of ``fault_ratio``); this wave runs first and is the
-    warm-up;
-    (c) at 8 layers (one a stage), full width, LONG_HELD_BATCH request: the
-    four LONG_HELD combinations, each held against the P32 witness
-    (``p32_witness``, tiled) on the same pages (auto, int8, fp8) at
+    (b) at 8 layers (one a stage), S 131072, first (its waves warm the
+    kernels): a mocap wave of LONG_COMBO (qship, K1 + K2 on the ``cuda``
+    pool) with every K1 and K2 launch held against its plain version on
+    every row's last LONG_Q_BLOCK queries (``shadowed(q_block=)``, worst <=
+    1 of ``fault_ratio``), then a mocap wave of LONG_PAGED (K1 + K3 on pages
+    of 16384) with every K1 and K3 launch held so; the two waves' logits
+    within BF16_POOL_PAIR_TOL of max|logit| (``long_chunk_held``);
+    (c) at 8 layers, S 32768, LONG_HELD_BATCH request: the four LONG_HELD
+    combinations, each held against the P32 witness (``p32_witness``,
+    tiled) on the same pages (auto, int8, fp8) at
     BF16_LOGIT_TOL["qwen3-8b"], the K2 and K3 pools to BF16_POOL_PAIR_TOL,
-    every K3 launch of the paged runs held as in (b);
-    (d) planted faults: the two of ``planted_faults("pool_attention")`` on
-    the held qship/cuda/cuda/auto run must break the witness limit; the
-    two of ``long_faults`` must break the sliced per-launch check, K1's on
-    the full-depth mocap wave, K3's on the held qship/cuda/paged/auto run
-    (each run stops at its first broken launch, ``stop_on_break``)."""
-    import contextlib as cl
+    every K3 launch of the paged runs held as in (b) (``long_witness_runs``);
+    (d) planted faults: on (b)'s waves each of ``long_faults`` at
+    LONG_FAULT_KEYS (K1) and at CHUNK_FAULT_KEYS (K1 and K2 on the cuda
+    wave, K3 on the paged one), which only a launch of more keys shows, must
+    break the sliced per-launch check (each run stops at its first broken
+    launch, ``stop_on_break``); on (c)'s, the two of
+    ``planted_faults("pool_attention")`` on the held qship/cuda/cuda/auto run
+    must break the witness limit and K3's at LONG_FAULT_KEYS the sliced
+    check on the held qship/cuda/paged/auto run;
+    (a) full depth (36 layers, 5 a stage), S 131072, after (b) and (c): the
+    mocap wave of LONG_COMBO and the terapipe wave of the same combination,
+    the first waves at full depth (``long_full_depth``).
+    The 8-layer weights of (b) and (c) are freed before (a)'s are drawn."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import RunConfig, ShapeConfig, get_config
-    from repro_torch.core import attention
+    from repro_torch.configs import RunConfig, get_config
     from repro_torch.core import pipeline as pp
     from repro_torch.core.staging import init_staged
-    from repro_torch.kernels import ops
-    from repro_torch.obs import telemetry as obs_t
-    from repro_torch.roofline import analysis
 
     card = card_line()
     full = get_config("qwen3-8b")
-    failures: list = []
-    plans = {mode: pp.build_plan(full, N_STAGES, LONG_SEQ,
-                                 RunConfig(num_chunks=LONG_M, num_stages=N_STAGES,
-                                           mbkr=mode == "mocap", attn_backend="cuda",
-                                           pool_backend="cuda"), mode=mode)
-             for mode in ("mocap", "terapipe")}
-    plan = plans["mocap"]
-    c, lps = plan.chunk_len, plan.layers_per_stage
-    check(plan.pages_per_chunk == 1 and plan.page_tokens == c,
-          f"[long] {plan.pages_per_chunk} pages of {plan.page_tokens} a chunk")
-    page = lps * LONG_BATCH * c * full.num_kv_heads * full.resolved_head_dim * 2 * 2
-    want_pool = {mode: (p.num_slots + 1) * N_STAGES * page for mode, p in plans.items()}
-    log(f"[long] {full.arch} bf16 S {LONG_SEQ} = M {LONG_M} x C {c}, N {N_STAGES}, "
-        f"B {LONG_BATCH}, {full.num_layers} layers (lps {lps}), on {card}; slots mocap "
-        f"{plan.num_slots} (p2 {plan.p2}) / terapipe {plans['terapipe'].num_slots}; "
-        f"a chunk-page {page / 1e6:.1f} MB; pools by the plan "
-        + ", ".join(f"{m} {b / 1e9:.2f} GB" for m, b in want_pool.items()))
-
-    t0 = time.perf_counter()
-    before = torch.cuda.memory_allocated()
-    staged = init_staged(full, plan, torch.Generator(device="cuda").manual_seed(0),
-                         device="cuda")
-    torch.cuda.synchronize()
-    weights = torch.cuda.memory_allocated() - before
-    log(f"  bf16 weights: {weights / 2**30:.2f} GiB in {time.perf_counter() - t0:.2f} s")
-
-    # (b) every K1 / K2 launch of a mocap wave, on its last LONG_Q_BLOCK queries
-    kinds = ("chunk_attention", "pool_attention")
-    worst = {k: [0.0] for k in kinds}
-    t0 = time.perf_counter()
-    ops.reset_launches()
-    with cl.ExitStack() as stack:
-        for k in kinds:
-            stack.enter_context(swapped(ops, k, shadowed(getattr(ops, k), k, worst[k],
-                                                         q_block=LONG_Q_BLOCK)))
-        long_run(full, staged, LONG_COMBO)
-    held_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
-    log(f"  every K1 / K2 launch of the wave above ({held_launches}) against its plain "
-        f"version on every row's last {LONG_Q_BLOCK} queries: worst "
-        + ", ".join(f"{k} {w[0]:.3e}" for k, w in worst.items())
-        + f" of the tolerance ({time.perf_counter() - t0:.1f} s)")
-    for k, w in worst.items():
-        if w[0] > 1.0:
-            failures.append(f"[long] {k} per launch: {w[0]} of the tolerance")
-        results.setdefault(k, {})["max_err_long_slices"] = w[0]
-
-    # (a) the counted main path: one mocap wave, one terapipe wave, each
-    # under torch.profiler (its device time by category; mocap's product
-    # FLOPs against the meta count)
-    waves = {}
-    for mode in ("mocap", "terapipe"):
-        sizes: list = []
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launches()
-        with swapped(pp, "alloc_kv_pool", pool_recorder(sizes)), profile(
-                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                with_flops=True) as prof:
-            _, wave = long_run(full, staged, LONG_COMBO, mode=mode, telemetry=True)
-            torch.cuda.synchronize()
-        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
-        peak = torch.cuda.max_memory_allocated() - before
-        clocks = card_clocks()
-        prof_flops, spans = profiled_wave(prof)
-        del prof
-        check(bool(spans), f"[long] the {mode} wave holds no device time")
-        busy, window = busy_window(spans)
-        form = wave_launch_form(plans[mode])
-        kv_peaks = obs_t.TelemetryProfile.from_run(wave["telemetry"]).per_stage_peak(
-            "kv_bytes")
-        waves[mode] = dict(dur=wave["dur"], launches=launches, peak=peak, pool=sizes,
-                           kv_peak=float(kv_peaks.max()), flops=prof_flops, busy=busy)
-        log(f"  [{card}] {mode}: wave {wave['dur']:.4f} s (host clock, traced); launches "
-            f"{launches}, closed form {form}; peak {peak / 2**30:.2f} GiB "
-            f"(max_memory_allocated less what was allocated before the weights; less the "
-            f"weights {(peak - weights) / 2**30:.2f}); pool "
-            f"{sizes[0] / 1e9 if sizes else 0:.4f} GB allocated, "
-            f"{want_pool[mode] / 1e9:.4f} GB by the plan; per-stage peak kv_bytes GB "
-            f"{' '.join(f'{x / 1e9:.4f}' for x in kv_peaks)}")
-        log(f"[wave] {full.arch} bf16 S {LONG_SEQ} {mode} {'/'.join(LONG_COMBO)}: "
-            f"{len(spans)} device activities; busy {busy:.4f} s of a {window:.4f} s window, "
-            f"idle share {1.0 - busy / window:.4f}; card after it (SM clock, its max, power "
-            f"draw, temperature): {clocks}")
-        log_split(*categorize(spans), busy)
-        check(launches == form, f"[long] {mode} launches {launches} != closed form {form}")
-        check(sizes == [want_pool[mode]],
-              f"[long] {mode} pool bytes {sizes} != the plan's {want_pool[mode]}")
-        for k, n in launches.items():
-            results.setdefault(k, {}).setdefault("launches_by_path", {})[
-                f"long {mode} wave"] = n
-    check(held_launches == waves["mocap"]["launches"],
-          f"[long] the held wave launched {held_launches}, the counted one "
-          f"{waves['mocap']['launches']}")
-    ratio = waves["mocap"]["kv_peak"] / waves["terapipe"]["kv_peak"]
-    slots = plan.num_slots / plans["terapipe"].num_slots
-    log(f"  MBKR against terapipe: largest per-stage peak kv_bytes "
-        f"{waves['mocap']['kv_peak'] / 1e9:.4f} / {waves['terapipe']['kv_peak'] / 1e9:.4f} "
-        f"GB = {ratio:.6f} (the plan's slots {slots:.6f}); measured peaks differ by "
-        f"{(waves['terapipe']['peak'] - waves['mocap']['peak']) / 1e9:.3f} GB, the pools by "
-        f"{(want_pool['terapipe'] - want_pool['mocap']) / 1e9:.3f} GB")
-    check(ratio == slots, f"[long] per-stage peak kv_bytes ratio {ratio} != {slots}")
-
-    # (a) the mocap wave's roofline against its meta count
-    cost, count_s = counted or count_roofline_wave(LONG_SEQ)
-    terms = analysis.analyze_counted(cost, full, ShapeConfig("long wave", "prefill",
-                                                             LONG_SEQ, LONG_BATCH))
-    wave_s, busy, prof_flops = (waves["mocap"][k] for k in ("dur", "busy", "flops"))
-    mfu = terms.model_flops / (analysis.HW_H100["peak_flops"] * wave_s)
-    rel = abs(cost.product_flops - prof_flops) / max(prof_flops, 1.0)
-    log(f"  [{card}] roofline of the long wave (counted on meta in {count_s:.1f} s): FLOPs "
-        f"{cost.flops:.6e} (products {cost.product_flops:.6e}, K1 / K2 "
-        f"{cost.kernel_flops:.6e}), model_flops {terms.model_flops:.6e}, bound_s "
-        f"{terms.bound_s:.4f} ({terms.dominant}), counted peak "
-        f"{cost.peak_live_bytes / 2**30:.2f} GiB, launches {cost.launches}; profiler product "
-        f"FLOPs {prof_flops:.6e} (rel {rel:.3e}); share bound_s / busy "
-        f"{terms.bound_s / busy:.4f}; MFU model_flops / (989e12 x {wave_s:.4f} s) {mfu:.4f}")
-    check(cost.launches == waves["mocap"]["launches"],
-          f"[long] counted launches {cost.launches} != {waves['mocap']['launches']}")
-    check(prof_flops > 0 and rel <= 1e-6,
-          f"[long] product FLOPs: counted {cost.product_flops} vs profiler {prof_flops}")
-    check(terms.bound_s <= BOUND_SLACK * busy,
-          f"[long] bound_s {terms.bound_s} > {BOUND_SLACK} x busy {busy}")
-
-    # (d) K1 dropping the keys past 512 on the full-depth mocap wave
-    name, fault = long_faults(ops.chunk_attention, ops.pool_attention_paged)["chunk_attention"]
-    long_fault(name, "chunk_attention", fault, lambda: long_run(full, staged, LONG_COMBO),
-               failures)
-    del staged
-    torch.cuda.empty_cache()
-
-    # (c) the held runs at 8 layers, one a stage
     cfg = depth(full, N_STAGES)
+    failures: list = []
     t0 = time.perf_counter()
     staged = init_staged(cfg, pp.build_plan(cfg, N_STAGES, LONG_SEQ, RunConfig(
         num_chunks=LONG_M, num_stages=N_STAGES)), torch.Generator(device="cuda").manual_seed(0),
         device="cuda")
     torch.cuda.synchronize()
-    log(f"  held runs: {cfg.num_layers} layers at full width, waves of {LONG_HELD_BATCH}; "
-        f"weights {time.perf_counter() - t0:.2f} s")
+    log(f"[long] {full.arch} bf16 on {card}, N {N_STAGES}, M {LONG_M}, EngineConfig's "
+        f"default buckets; {cfg.num_layers} layers at full width (one a stage): weights "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    long_chunk_held(cfg, staged, results, failures)
+    log(f"  (b) S {LONG_SEQ} at {cfg.num_layers} layers, its faults: "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    long_witness_runs(cfg, staged, results, failures)
+    log(f"  (c) S {HELD_SEQ} at {cfg.num_layers} layers, its faults: "
+        f"{time.perf_counter() - t0:.1f} s")
+    del staged
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    long_full_depth(full, results, failures, counted)
+    log(f"  (a) S {LONG_SEQ} at {full.num_layers} layers: {time.perf_counter() - t0:.1f} s")
+    check(not failures, "; ".join(failures))
+
+
+def long_chunk_held(cfg, staged, results: dict, failures: list) -> None:
+    """(b) of ``long_phase`` and its planted faults, on ``cfg`` (8 layers)."""
+    import contextlib as cl
+    from repro_torch.kernels import ops
+    held = {}
+    for combo in (LONG_COMBO, LONG_PAGED):
+        kinds = ("chunk_attention",
+                 "pool_attention" if combo[2] == "cuda" else "pool_attention_paged")
+        worst = {k: [0.0] for k in kinds}
+        t0 = time.perf_counter()
+        ops.reset_launches()
+        with cl.ExitStack() as stack:
+            for k in kinds:
+                stack.enter_context(swapped(ops, k, shadowed(getattr(ops, k), k, worst[k],
+                                                             q_block=LONG_Q_BLOCK)))
+            held[combo] = long_run(cfg, staged, combo)[0]
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        log(f"  every launch of the wave above ({launches}) against its plain version on "
+            f"every row's last {LONG_Q_BLOCK} queries: worst "
+            + ", ".join(f"{k} {w[0]:.3e}" for k, w in worst.items())
+            + f" of the tolerance ({time.perf_counter() - t0:.1f} s)")
+        for k, w in worst.items():
+            if w[0] > 1.0:
+                failures.append(f"[long] S {LONG_SEQ} {k} per launch: {w[0]} of the tolerance")
+            res = results.setdefault(k, {})
+            res["max_err_long_chunk_slices"] = max(res.get("max_err_long_chunk_slices", 0.0),
+                                                   w[0])
+        for k, n in launches.items():
+            results.setdefault(k, {}).setdefault("launches_by_path", {})[
+                f"long S {LONG_SEQ} held {combo[2]} pool (8 layers)"] = n
+    err, same = logit_err(held[LONG_COMBO], held[LONG_PAGED])
+    log(f"  cuda pool (K2) against paged pool (K3) at S {LONG_SEQ}: {err:.3e} of max|logit| "
+        f"(limit {BF16_POOL_PAIR_TOL}), argmax equal {same}/{len(held[LONG_COMBO])}")
+    if err > BF16_POOL_PAIR_TOL:
+        failures.append(f"[long] S {LONG_SEQ}: K2 and K3 pools differ by {err}")
+
+    # (d) the faults only a long launch shows, on the waves above
+    for keys, kinds in ((LONG_FAULT_KEYS, ("chunk_attention",)),
+                        (CHUNK_FAULT_KEYS, ("chunk_attention", "pool_attention",
+                                            "pool_attention_paged"))):
+        faults = long_faults(ops.chunk_attention, ops.pool_attention_paged,
+                             ops.pool_attention, keys=keys)
+        for kind in kinds:
+            combo = LONG_PAGED if kind == "pool_attention_paged" else LONG_COMBO
+            name, fault = faults[kind]
+            long_fault(name, kind, fault, lambda: long_run(cfg, staged, combo), failures,
+                       results)
+
+
+def long_witness_runs(cfg, staged, results: dict, failures: list) -> None:
+    """(c) of ``long_phase`` and its planted faults, on ``cfg`` (8 layers)."""
+    import contextlib as cl
+    from repro_torch.core import attention
+    from repro_torch.kernels import ops
 
     def held_run(combo):
-        return long_run(cfg, staged, combo, n_req=LONG_HELD_BATCH)[0]
+        return long_run(cfg, staged, combo, seq=HELD_SEQ, n_req=LONG_HELD_BATCH)[0]
 
     t0 = time.perf_counter()
     with swapped(attention, "_BACKENDS", dict(attention._BACKENDS, torch=p32_witness())):
@@ -2975,14 +2958,14 @@ def long_phase(results: dict, counted=None) -> None:
     results.setdefault(k3, {})["max_err_long_slices"] = worst3[0]
     if worst3[0] > 1.0:
         failures.append(f"[long] K3 per launch: {worst3[0]} of the tolerance")
-    tol = BF16_LOGIT_TOL[full.arch]
+    tol = BF16_LOGIT_TOL["qwen3-8b"]
     for combo, logits in held.items():
         err, same = logit_err(logits, witness[combo[3]])
         log(f"  {'/'.join(combo)} vs the witness: max abs err {err:.3e} of max|logit| "
             f"(limit {tol}), argmax equal {same}/{len(logits)}")
         if err > tol:
             failures.append(f"[long] {'/'.join(combo)}: logits err {err} vs the witness")
-    err, _ = logit_err(held[LONG_HELD[0]], held[LONG_HELD[1]])
+    err, _ = logit_err(held[LONG_COMBO], held[LONG_PAGED])
     log(f"  cuda pool (K2) against paged pool (K3): {err:.3e} of max|logit| "
         f"(limit {BF16_POOL_PAIR_TOL})")
     if err > BF16_POOL_PAIR_TOL:
@@ -2991,24 +2974,171 @@ def long_phase(results: dict, counted=None) -> None:
     # (d) the planted K2 faults against the witness; K3's long-only fault per launch
     for fault_name, fn in planted_faults("pool_attention", ops.pool_attention).items():
         with swapped(ops, "pool_attention", fn):
-            err, same = logit_err(held_run(LONG_HELD[0]), witness["auto"])
-        log(f"  planted fault: {fault_name} ({'/'.join(LONG_HELD[0])}): {err:.3e} of "
+            err, same = logit_err(held_run(LONG_COMBO), witness["auto"])
+        log(f"  planted fault: {fault_name} ({'/'.join(LONG_COMBO)}): {err:.3e} of "
             f"max|logit| vs the witness (limit {tol}), argmax equal {same}")
         results.setdefault("pool_attention", {}).setdefault("planted", {})[
             f"long: {fault_name}"] = err / tol
         if err <= tol:
             failures.append(f"[long] planted fault '{fault_name}' passes ({err})")
     name, fault = long_faults(ops.chunk_attention, ops.pool_attention_paged)[k3]
-    long_fault(name, k3, fault, lambda: held_run(LONG_HELD[1]), failures)
-    del staged, witness, held
+    long_fault(name, k3, fault, lambda: held_run(LONG_PAGED), failures, results)
+
+
+def long_full_depth(full, results: dict, failures: list, counted=None) -> None:
+    """(a) of ``long_phase``, on ``full`` (36 layers): the mocap wave of
+    LONG_COMBO, then the same combination under terapipe, each under
+    torch.profiler (``with_flops``) with the launch counters set to 0 just
+    before it and read just after (mocap: K1 75, K2 150; terapipe: its own
+    closed form, ``wave_launch_form``); its wall time (the profiler's CPU
+    activity included), its peak memory (``max_memory_allocated``, reset
+    before it), the bytes of the pool it allocated held exactly to the
+    plan's (one page a chunk: (slots + 1) x N chunk-pages of 5 layers x 1
+    row x 16384 x 8 x 128 x 2 B x (K, V): 18.79 GB under MBKR, 24.16 GB
+    under terapipe), the stage telemetry, whose largest per-stage peak
+    ``kv_bytes`` under MBKR must be exactly 6/8 of terapipe's (the plan's
+    slot ratio), and its device time by category and idle share
+    (``categorize``); the mocap wave's product FLOPs against the meta count
+    of the same wave (``count_roofline_wave(LONG_SEQ, LONG_BATCH)``,
+    ``counted``: counted beside the build), its bound / busy share and MFU;
+    the mocap logits against terapipe's at BF16_LOGIT_TOL["qwen3-8b"] of
+    max|logit| (two summation orders in bf16), argmax reported. Each wave's
+    numbers land under ``results[kernel]["long_s<LONG_SEQ>"]`` of K1 and K2."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.core import pipeline as pp
+    from repro_torch.core.staging import init_staged
+    from repro_torch.kernels import ops
+    from repro_torch.obs import telemetry as obs_t
+    from repro_torch.roofline import analysis
+
+    card = card_line()
+    plans = {mode: pp.build_plan(full, N_STAGES, LONG_SEQ,
+                                 RunConfig(num_chunks=LONG_M, num_stages=N_STAGES,
+                                           mbkr=mode == "mocap", attn_backend="cuda",
+                                           pool_backend="cuda"), mode=mode)
+             for mode in ("mocap", "terapipe")}
+    plan = plans["mocap"]
+    c, lps = plan.chunk_len, plan.layers_per_stage
+    check(plan.pages_per_chunk == 1 and plan.page_tokens == c,
+          f"[long] {plan.pages_per_chunk} pages of {plan.page_tokens} a chunk")
+    page = lps * LONG_BATCH * c * full.num_kv_heads * full.resolved_head_dim * 2 * 2
+    want_pool = {mode: (p.num_slots + 1) * N_STAGES * page for mode, p in plans.items()}
+    log(f"[long] {full.arch} bf16 S {LONG_SEQ} = M {LONG_M} x C {c}, N {N_STAGES}, "
+        f"B {LONG_BATCH}, {full.num_layers} layers (lps {lps}), on {card}; slots mocap "
+        f"{plan.num_slots} (p2 {plan.p2}) / terapipe {plans['terapipe'].num_slots}; "
+        f"a chunk-page {page / 1e6:.1f} MB; pools by the plan "
+        + ", ".join(f"{m} {b / 1e9:.2f} GB" for m, b in want_pool.items()))
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    staged = init_staged(full, plan, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - before
+    log(f"  bf16 weights: {weights / 2**30:.2f} GiB in {time.perf_counter() - t0:.2f} s")
+
+    # the counted main path: one mocap wave, one terapipe wave, each under
+    # torch.profiler (its device time by category; mocap's product FLOPs
+    # against the meta count)
+    waves, logits = {}, {}
+    for mode in ("mocap", "terapipe"):
+        sizes: list = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with swapped(pp, "alloc_kv_pool", pool_recorder(sizes)), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                with_flops=True) as prof:
+            logits[mode], wave = long_run(full, staged, LONG_COMBO, mode=mode, telemetry=True)
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated() - before
+        clocks = card_clocks()
+        prof_flops, spans = profiled_wave(prof)
+        del prof
+        check(bool(spans), f"[long] the {mode} wave holds no device time")
+        busy, window = busy_window(spans)
+        split, by_name = categorize(spans)
+        form = wave_launch_form(plans[mode])
+        kv_peaks = obs_t.TelemetryProfile.from_run(wave["telemetry"]).per_stage_peak(
+            "kv_bytes")
+        waves[mode] = dict(wave_s=wave["dur"], launches=launches, peak_gib=peak / 2**30,
+                           rest_gib=(peak - weights) / 2**30, weights_gib=weights / 2**30,
+                           pool_gb=sizes[0] / 1e9 if sizes else 0.0,
+                           kv_peak_bytes=float(kv_peaks.max()), flops=prof_flops,
+                           busy_s=busy, window_s=window, idle_share=1.0 - busy / window,
+                           device_s=split, card=card)
+        log(f"  [{card}] {mode}: wave {wave['dur']:.4f} s (host clock, traced; the first "
+            f"wave at full depth, the kernels warmed by (b)); launches {launches}, closed form "
+            f"{form}; peak {peak / 2**30:.2f} GiB (max_memory_allocated less what was "
+            f"allocated before the weights; less the weights {(peak - weights) / 2**30:.2f}); "
+            f"pool {sizes[0] / 1e9 if sizes else 0:.4f} GB allocated, "
+            f"{want_pool[mode] / 1e9:.4f} GB by the plan; per-stage peak kv_bytes GB "
+            f"{' '.join(f'{x / 1e9:.4f}' for x in kv_peaks)}")
+        log(f"[wave] {full.arch} bf16 S {LONG_SEQ} {mode} {'/'.join(LONG_COMBO)}: "
+            f"{len(spans)} device activities; busy {busy:.4f} s of a {window:.4f} s window, "
+            f"idle share {1.0 - busy / window:.4f}; card after it (SM clock, its max, power "
+            f"draw, temperature): {clocks}")
+        log_split(split, by_name, busy)
+        check(launches == form, f"[long] {mode} launches {launches} != closed form {form}")
+        check(sizes == [want_pool[mode]],
+              f"[long] {mode} pool bytes {sizes} != the plan's {want_pool[mode]}")
+        for k, n in launches.items():
+            results.setdefault(k, {}).setdefault("launches_by_path", {})[
+                f"long S {LONG_SEQ} {mode} wave"] = n
+    ratio = waves["mocap"]["kv_peak_bytes"] / waves["terapipe"]["kv_peak_bytes"]
+    slots = plan.num_slots / plans["terapipe"].num_slots
+    log(f"  MBKR against terapipe: largest per-stage peak kv_bytes "
+        f"{waves['mocap']['kv_peak_bytes'] / 1e9:.4f} / "
+        f"{waves['terapipe']['kv_peak_bytes'] / 1e9:.4f} "
+        f"GB = {ratio:.6f} (the plan's slots {slots:.6f}); measured peaks differ by "
+        f"{waves['terapipe']['peak_gib'] - waves['mocap']['peak_gib']:.3f} GiB, the pools by "
+        f"{(want_pool['terapipe'] - want_pool['mocap']) / 1e9:.3f} GB")
+    check(ratio == slots, f"[long] per-stage peak kv_bytes ratio {ratio} != {slots}")
+    err, same = logit_err(logits["mocap"], logits["terapipe"])
+    tol = BF16_LOGIT_TOL[full.arch]
+    log(f"  mocap against terapipe logits: max abs err {err:.3e} of max|logit| (limit {tol}; "
+        f"two bf16 summation orders), argmax mocap {logits['mocap'].argmax(-1).tolist()} / "
+        f"terapipe {logits['terapipe'].argmax(-1).tolist()}, equal {same}/{len(logits['mocap'])}")
+    if err > tol:
+        failures.append(f"[long] S {LONG_SEQ}: mocap vs terapipe logits err {err}")
+
+    # the mocap wave's roofline against its meta count
+    cost, count_s = counted or count_roofline_wave(LONG_SEQ, LONG_BATCH)
+    terms = analysis.analyze_counted(cost, full, ShapeConfig("long wave", "prefill",
+                                                             LONG_SEQ, LONG_BATCH))
+    wave_s, busy, prof_flops = (waves["mocap"][k] for k in ("wave_s", "busy_s", "flops"))
+    mfu = terms.model_flops / (analysis.HW_H100["peak_flops"] * wave_s)
+    rel = abs(cost.product_flops - prof_flops) / max(prof_flops, 1.0)
+    waves["mocap"].update(share=terms.bound_s / busy, mfu=mfu, bound_s=terms.bound_s,
+                          counted_peak_gib=cost.peak_live_bytes / 2**30)
+    log(f"  [{card}] roofline of the long wave (counted on meta in {count_s:.1f} s): FLOPs "
+        f"{cost.flops:.6e} (products {cost.product_flops:.6e}, K1 / K2 "
+        f"{cost.kernel_flops:.6e}), model_flops {terms.model_flops:.6e}, bound_s "
+        f"{terms.bound_s:.4f} ({terms.dominant}), counted peak "
+        f"{cost.peak_live_bytes / 2**30:.2f} GiB, launches {cost.launches}; profiler product "
+        f"FLOPs {prof_flops:.6e} (rel {rel:.3e}); share bound_s / busy "
+        f"{terms.bound_s / busy:.4f}; MFU model_flops / (989e12 x {wave_s:.4f} s) {mfu:.4f}")
+    check(cost.launches == waves["mocap"]["launches"],
+          f"[long] counted launches {cost.launches} != {waves['mocap']['launches']}")
+    check(prof_flops > 0 and rel <= 1e-6,
+          f"[long] product FLOPs: counted {cost.product_flops} vs profiler {prof_flops}")
+    check(terms.bound_s <= BOUND_SLACK * busy,
+          f"[long] bound_s {terms.bound_s} > {BOUND_SLACK} x busy {busy}")
+    for k in ("chunk_attention", "pool_attention"):
+        results.setdefault(k, {})[f"long_s{LONG_SEQ}"] = {
+            "mocap vs terapipe logits err": err, **waves}
+    del staged
     torch.cuda.empty_cache()
-    check(not failures, "; ".join(failures))
 
 
-def long_fault(name: str, kind: str, fault, run, failures: list) -> None:
+def long_fault(name: str, kind: str, fault, run, failures: list, results: dict) -> None:
     """``fault`` in the place of ``ops.<kind>`` under the sliced per-launch
     check; ``run`` stops at its first launch that breaks it, which must
-    come."""
+    come. Its reading lands under ``results[kind]["planted"]``."""
     from repro_torch.kernels import ops
     worst, calls = [0.0], [0]
 
@@ -3024,6 +3154,7 @@ def long_fault(name: str, kind: str, fault, run, failures: list) -> None:
         pass
     log(f"  planted fault: {name}: worst {worst[0]:.3e} of the tolerance, at launch "
         f"{calls[0]} ({time.perf_counter() - t0:.1f} s)")
+    results.setdefault(kind, {}).setdefault("planted", {})[f"long: {name}"] = worst[0]
     if worst[0] <= 1.0:
         failures.append(f"[long] planted fault '{name}' passes ({worst[0]})")
 
@@ -5462,12 +5593,12 @@ def main() -> int:
         cli.start()      # the train phase's CLI runs (d) beside the build (GPU idle)
         # meta, no card, beside the build: the roofline wave, then [long]'s
         counts = [counter.submit(count_roofline_wave),
-                  counter.submit(count_roofline_wave, LONG_SEQ)]
+                  counter.submit(count_roofline_wave, LONG_SEQ, LONG_BATCH)]
         build_phase()
         t0 = time.perf_counter()
         counted, counted_long = (f.result() for f in counts)   # before any timed phase
-        log(f"[roofline] the meta counts ({counted[1]:.1f} s and, S {LONG_SEQ}, "
-            f"{counted_long[1]:.1f} s, beside the build) joined "
+        log(f"[roofline] the meta counts ({counted[1]:.1f} s and, S {LONG_SEQ} B "
+            f"{LONG_BATCH}, {counted_long[1]:.1f} s, beside the build) joined "
             f"{time.perf_counter() - t0:.1f} s after it")
 
         results: dict = {}
