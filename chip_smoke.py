@@ -48,8 +48,9 @@ prints no result line):
    - K1-K3 at [long]'s shapes (C = 4096: K1's causal self block, K2
      over 6 slots of 4096 keys, K3 off pages of 4096 tokens with bf16,
      int8 and fp8 pages; C = 16384, one row a stage group: the same with
-     bf16 pages), held on every row's last 512 queries and timed beside
-     the library calls (``long_attention_shapes``);
+     bf16 pages; C = 4096 at zamba2-7b's shared block, 32 heads of 112,
+     MHA, bf16 pages), held on every row's last 512 queries and timed
+     beside the library calls (``long_attention_shapes``);
    - K1 at the GPipe baseline's shape: 8 rows of a whole 4096-token
      sequence against itself (C = T = 4096, causal offset 0), qwen3-8b's
      heads, bf16, held against the plain version on 2 rows, each query row
@@ -75,7 +76,9 @@ prints no result line):
      stage (Gs = 8), x, b and c dense and as strided views of one
      conv-output buffer (the layout the Mamba2 block hands over), and a
      case with G < H SSM groups; the bf16 time also in windows and from a
-     torch.profiler trace, which must show the tensor-core body;
+     torch.profiler trace, which must show the tensor-core body; and in
+     bf16 at [long-ssm]'s launch length, T = 4096 (16 SSD chunks a launch),
+     dense and strided, held whole and timed (``ssd_long_rows``);
    - K5 flash-decode at qwen3-8b's (GQA, head dim 128) and zamba2-7b's (MHA,
      head dim 112) decode shapes, at G 5, 7, 8, 12 and 16 (qwen3-14b's,
      llava-next-34b's, llama3-70b's, mistral-123b's and qwen3-235b's
@@ -102,7 +105,8 @@ prints no result line):
    terapipe; granite-3-2b (8 of 40 layers) under qship/cuda, fetch/paged
    and qship/cuda int8; stablelm-3b (32)
    under terapipe fetch/cuda and mocap qship/paged; qwen2-moe-a2.7b (24)
-   and granite-moe-3b-a800m (32) under two of qship/fetch x cuda/paged;
+   and granite-moe-3b-a800m (8 of 32 layers) under two of qship/fetch x
+   cuda/paged;
    qwen3-14b (8 of 40 layers, GQA group 5; K1-K3 held per launch) under qship/cuda,
    fetch/paged and qship/cuda int8; the paper's four models, llama3-70b
    (G 8; also int8 pages and a profiled wave), mistral-123b (G 12),
@@ -110,7 +114,8 @@ prints no result line):
    to 8 layers (one a stage, ``bf16_layers``; at full depth they do not
    fit the card) under qship/cuda and fetch/paged, bf16 only, one wave of
    2 requests a run, K1-K3 held per launch. The fp32 runs of qwen3-8b,
-   zamba2-7b (one group a stage), granite-3-2b, stablelm-3b,
+   zamba2-7b (one group a stage, one wave of 2 requests a run),
+   granite-3-2b, stablelm-3b,
    qwen2-moe-a2.7b, granite-moe-3b-a800m and qwen3-14b take one layer a
    stage (``fp32_layers``); mamba2-130m's run at full depth. Each
    model's peak device memory is printed. Each model's bf16 runs are
@@ -148,7 +153,24 @@ prints no result line):
    18.79 / 24.16 GB, the per-stage peak kv_bytes ratio exactly 6/8, device
    time by category, mocap's product FLOPs against the meta count, bound /
    busy and MFU, mocap's logits against terapipe's) (see ``long_phase``);
-7. frontends: llava-next-34b (full width cut to 8 layers; 2880 patch
+7. long-ssm: the Mamba2 families at S = 32768 (N 8, M 8, C 4096, K4 16
+   SSD chunks a launch), bf16, through ``PrefillEngine`` +
+   ``TorchExecutor`` at the default buckets: zamba2-7b at one hybrid group
+   a stage, one request, a mocap qship/cuda wave with every K1 and K2
+   launch held on every row's last 512 queries and every K4 launch held
+   whole, and a qship/paged wave with K1 and K3 held so, the two pools'
+   logits within 1e-3, planted faults that drop a launch's keys past 512
+   (K1, K2, K3) or start each SSD chunk past its first 512 positions from
+   a zero state (K4); zamba2-7b at full depth (81 layers, 2 groups a
+   stage), a wave of 2, mocap under torch.profiler and terapipe (launches
+   against their
+   closed forms, the pools exactly 13.15 / 16.91 GB, the kv_bytes ratio
+   exactly 6/8, each peak within PEAK_SLACK of its meta count, mocap's
+   product FLOPs against the count, device time by category, mocap's
+   logits against terapipe's); mamba2-130m at full depth, a terapipe wave
+   of 2 with every K4 launch held whole (45 launches) and the K4 fault
+   (see ``long_ssm_phase``);
+8. frontends: llava-next-34b (full width cut to 8 layers; 2880 patch
    embeddings then 1216 tokens, S = 4096, N = M = 8, C = 512: chunk 5
    straddles the front) and whisper-small (full width and depth: 1500
    frames into the encoder, 448 decoder tokens as N = M = 8 chunks of 56)
@@ -159,7 +181,7 @@ prints no result line):
    faults) that must break it, a timed wave through
    ``measure_prefill(embeds=)``; whisper-small's fp32 argmaxes against the
    ``torch`` backends (see ``frontend_model``);
-8. decode: each model at full width through ``Model.forward(
+9. decode: each model at full width through ``Model.forward(
    return_cache=True)`` on a 512-token prompt, the KV axis padded by 8, and
    8 ``Model.decode_step``s (the decode path's K5 launches counted, exactly
    36 a step for qwen3-8b, 13 for zamba2-7b, 0 for mamba2-130m, 40 for
@@ -185,7 +207,7 @@ prints no result line):
    with every K5 launch held against the plain version, which both planted
    faults must break by 10x (qwen3-235b's plain run routed as its held K5
    run; see ``decode_phase``);
-9. baselines + continuous: qwen3-8b at full width and depth in bf16, the
+10. baselines + continuous: qwen3-8b at full width and depth in bf16, the
    same 8 requests through MOCAP and terapipe (``PrefillEngine``), the GPipe
    baseline (``build_plan(mode="gpipe")``, M = 8, through
    ``prefill_pipeline``; K1 exactly layers_per_stage x (M + N - 1) times)
@@ -194,7 +216,7 @@ prints no result line):
    top-2 margin is above the measured bf16 spread), planted K1 faults, the waves in
    admission order, the four paths' wall times; then GPipe in fp32 (one
    layer a stage) against the ``torch`` backends (see ``baselines_phase``);
-10. prefix: cross-request prefix KV reuse on qwen3-8b at full width and
+11. prefix: cross-request prefix KV reuse on qwen3-8b at full width and
    depth in bf16 (k = 6 shared chunks of 512): ``prefill_pipeline`` seeded
    from a ``return_kv`` pool with garbage in the hit region, bit-identical
    to the unseeded run under qship/cuda, fetch/paged and int8 pages (K1-K3
@@ -203,7 +225,7 @@ prints no result line):
    ``TorchExecutor`` with the prefix cache off and on (logits bit-identical,
    every wave after the first seeded); a ``HostOffloadStager`` round trip
    (see ``prefix_phase``);
-11. obs: the device half of observability on qwen3-8b at full width and
+12. obs: the device half of observability on qwen3-8b at full width and
    depth in bf16, qship/``cuda``: stage telemetry on against off
    (bit-identical logits, equal launches and profiler device activities,
    occupancy and wire bytes against their closed forms), each stage's
@@ -213,14 +235,14 @@ prints no result line):
    calibration of the cost model from ``hgx-b200`` to the measured spans,
    and the serve CLI once with ``--trace-out --metrics-out --health
    --calibrate`` (see ``obs_phase``);
-12. fleet: two qwen3-8b cells (bf16, full depth; cell1 on int8 pages)
+13. fleet: two qwen3-8b cells (bf16, full depth; cell1 on int8 pages)
     behind the jsf router through the serve CLI, EDF, an SLO, Poisson
     arrivals, 8 requests: each completed once, both cells used, each
     argmax equal to a single cell's on the same pages and seed, an
     ``--options-in`` replay equal, the merged trace's rows per cell; then
     one cell drained with requests in flight through ``FleetFabric`` (see
     ``fleet_phase``);
-13. tp: the manual tensor-parallel lowering (``TorchExecutor(layout=)``,
+14. tp: the manual tensor-parallel lowering (``TorchExecutor(layout=)``,
     the params through ``shard_params``), the card's name and power limit
     printed beside it: qwen3-8b at full width and depth at N 8 x tp 2
     under qship/cuda and fetch/paged against the tp 1 runs of the same
@@ -230,7 +252,7 @@ prints no result line):
     G 3, D 128, held per launch, planted K2 faults); qwen2-moe-a2.7b at 8
     layers with expert parallelism at tp 8, 60 -> 64 experts, against tp 1
     (router flips reported; fp32 argmax held) (see ``tp_phase``);
-14. train (``repro_torch.train``, the card's name and power limit beside
+15. train (``repro_torch.train``, the card's name and power limit beside
     it): one fp32 step of each family's smoke config (qwen3-8b,
     qwen2-moe-a2.7b, mamba2-130m, zamba2-7b, llava-next-34b, whisper-small)
     on the card against the same on the CPU (loss, every gradient leaf,
@@ -274,6 +296,9 @@ KERNELS = {   # tag: (CUDA source, the TPU kernel it replaces)
                          "src/repro/kernels/decode_attn.py:65"),
 }
 
+KERNEL_IDS = {"chunk_attention": "K1", "pool_attention": "K2", "pool_attention_paged": "K3",
+              "ssd": "K4", "decode_attention": "K5"}
+
 # serve-phase geometry; the kernel phases use the same shapes
 N_STAGES, N_CHUNKS, CHUNK, BATCH, REQUESTS = 8, 8, 512, 2, 4
 RAGGED_CHUNK = 500                 # K1's ragged query edge (not a multiple of 64)
@@ -299,6 +324,13 @@ LONG_PAGED = ("qship", "cuda", "paged", "auto")
 LONG_HELD = (LONG_COMBO, LONG_PAGED, ("fetch", "cuda", "paged", "int8"),
              ("qship", "cuda", "paged", "fp8"))
 LONG_TIMING = dict(iters=3, warmup=1)   # a long kernel call takes tens of ms
+
+# [long-ssm]: the Mamba2 families at S = HELD_SEQ (N 8, M 8, C 4096): (a)
+# zamba2-7b at full depth and (d) mamba2-130m at full depth, waves of
+# SSM_LONG_BATCH requests; (b) zamba2-7b at one hybrid group a stage, one
+# request (the plain SSD holding every K4 launch takes 8 rows, not 16)
+SSM_LONG_BATCH, SSM_HELD_BATCH = 2, 1
+SSD_FAULT_POS = 512          # the long-only K4 fault: SSD chunks past these start from zero
 
 
 class SmokeFailure(RuntimeError):
@@ -1067,6 +1099,63 @@ def ssd_phase(results: dict) -> None:
     results["ssd"]["max_abs_err"] = err
 
 
+SSD_LONG_T = HELD_SEQ // LONG_M     # K4's launch at [long-ssm]'s chunk: 16 SSD chunks
+
+
+def ssd_long_rows(results: dict) -> None:
+    """K4 at [long-ssm]'s launch length T = SSD_LONG_T = 4096 (16 SSD
+    chunks of 256 in one launch, the state carried in registers across
+    them) at both SSD_SHAPES: 16 rows (8 stages x a wave of 2), bf16, a
+    non-zero init_state, Gs = 8, x, b and c dense and as the strided views
+    of one conv-output buffer, each held whole against ``ssd_plain``
+    (``compare``). On the dense inputs the kernel timed (``time_ms`` /
+    ``windowed_ms`` / ``profiled_ms``, which must show the tensor-core
+    body, at LONG_TIMING's few calls), the plain version and the bound from
+    ``roofline.kernel_work``; on the views the kernel's time. No PyTorch
+    call computes the scan (library: none). Recorded under
+    ``results["ssd"]["long_<T>"][arch]``."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows, t = N_STAGES * SSM_LONG_BATCH, SSD_LONG_T
+    out = results.setdefault("ssd", {}).setdefault(f"long_{t}", {})
+    err = 0.0
+    for arch, (h, p, n) in SSD_SHAPES.items():
+        times = {}
+        for strided in (False, True):
+            layout = "strided views" if strided else "dense"
+            log(f"[kernels] K4 ssd at [long-ssm]'s launch, {arch} bfloat16  x [{rows},{t},{h},"
+                f"{p}], b/c [{rows},{t},1,{n}], Gs {N_STAGES}, init_state, {layout}")
+            *xs, init = ssd_inputs(gen, rows, t, h, p, 1, n, torch.bfloat16, strided=strided)
+            call = lambda: ops.ssd(*xs, chunk=SSD_CHUNK, init_state=init)   # noqa: E731
+            want = ref.ssd_plain(*xs, chunk=SSD_CHUNK, init_state=init)
+            err = max(err, compare(f"ssd {arch} T {t} {layout}", call(), want, "bfloat16",
+                                   ("y", "state")))
+            del want
+            if strided:
+                times["strided_ms"] = time_ms(call, **LONG_TIMING)
+                log(f"  time: kernel {times['strided_ms']:.4f} ms")
+                continue
+            ms, win_ms = time_ms(call, **LONG_TIMING), windowed_ms(call, iters=3, warmup=0)
+            prof_ms, seen = profiled_ms(call, "ssd_tc_kernel", calls=4)
+            log(f"  torch.profiler: ssd_tc_kernel {seen} launches, "
+                + (f"{prof_ms:.4f} ms device time each" if seen else "no device time seen"))
+            check(seen > 0, f"K4 {arch} T {t}: the tensor-core body did not run")
+            plain = time_ms(lambda: ref.ssd_plain(*xs, chunk=SSD_CHUNK, init_state=init),
+                            **PLAIN_TIMING)
+            b_ms, by, ops_n = bound_ms("ssd", *xs, init, chunk=ops.ssd_chunk(t, SSD_CHUNK))
+            times.update(rows=rows, positions=t, heads=h, head_dim=p, state=n, ms=ms,
+                         windowed_ms=win_ms, profiler_ms=prof_ms, plain_ms=plain,
+                         library_ms=None, bound_ms=b_ms, bound_by=by)
+            log(f"  time: kernel {ms:.4f} ms ({win_ms:.4f} ms a call in windows of "
+                f"back-to-back calls), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({by}), "
+                f"{ops_n / 1e9:.1f} GFLOP")
+        out[arch] = times
+        torch.cuda.empty_cache()
+    results["ssd"]["max_abs_err"] = max(results["ssd"].get("max_abs_err", 0.0), err)
+
+
 # K5's decode shapes: arch -> (H, KVH, D, the key its times go under; None:
 # the kernel's main row); every shape past qwen3-8b's and zamba2-7b's also
 # with the planted K5 faults (``decode_faults``); whisper-small's cross-
@@ -1454,19 +1543,24 @@ def whisper_pipeline_shapes(results: dict) -> None:
 
 
 # [long]'s kernel rows: (key, chunk, rows, K3's page kinds, timing of the
-# kernel's three readings, timing of the library call). C 4096: (c)'s held
-# runs at S 32768 with a wave of 2 (16 rows); C 16384: the S 131072 waves of
-# one request (8 rows), bf16 pages, the library timed once after a warm-up
+# kernel's three readings, timing of the library call, (heads, kv heads,
+# head dim)). C 4096: (c)'s held runs at S 32768 with a wave of 2 (16 rows);
+# C 16384: the S 131072 waves of one request (8 rows), bf16 pages, the
+# library timed once after a warm-up; [long-ssm]'s C 4096 at zamba2-7b's
+# shared block (32 heads of 112, MHA), 16 rows (its waves of 2), bf16 pages
 LONG_ROWS = (("long", HELD_SEQ // LONG_M, N_STAGES * BATCH, ("bf16",) + K1_KINDS,
-              dict(LONG_TIMING, windowed=3, profiled=4), LONG_TIMING),
+              dict(LONG_TIMING, windowed=3, profiled=4), LONG_TIMING, (32, 8, 128)),
              (f"long_{LONG_SEQ // LONG_M}", LONG_SEQ // LONG_M, N_STAGES * LONG_BATCH,
               ("bf16",), dict(iters=2, warmup=1, windowed=2, profiled=3),
-              dict(iters=1, warmup=1)))
+              dict(iters=1, warmup=1), (32, 8, 128)),
+             ("long_d112", HELD_SEQ // LONG_M, N_STAGES * SSM_LONG_BATCH, ("bf16",),
+              dict(LONG_TIMING, windowed=3, profiled=4), LONG_TIMING, (32, 32, 112)))
 
 
 def long_attention_shapes(results: dict) -> None:
     """K1-K3 at [long]'s shapes (``LONG_ROWS``), bf16: q [rows, C, 32, 128]
-    (N_STAGES stage groups of one chunk of C queries, qwen3-8b's heads); K1
+    (N_STAGES stage groups of one chunk of C queries, qwen3-8b's heads; the
+    row's heads where it names others: [long-ssm]'s D 112, G 1); K1
     the causal self block against its C keys (return_state, as the
     pipeline calls it); K2 a stack of 6 slots x C keys (stage s reads
     min(s, 6) of them); K3 pages of C tokens, one a chunk, read in place
@@ -1483,14 +1577,16 @@ def long_attention_shapes(results: dict) -> None:
     bf16 outside the timed call) and the bound from
     ``roofline.kernel_work``; recorded under ``results[kernel][key]`` (K3:
     ``"<key>_<kind>"``)."""
-    for key, c, gb, kinds, timing, lib_timing in LONG_ROWS:
+    for key, c, gb, kinds, timing, lib_timing, heads in LONG_ROWS:
         t0 = time.perf_counter()
-        long_attention_rows(results, key, c, gb, kinds, timing, lib_timing)
-        log(f"[kernels] K1-K3 at [long]'s C {c}: {time.perf_counter() - t0:.1f} s")
+        long_attention_rows(results, key, c, gb, kinds, timing, lib_timing, heads)
+        at = f"C {c}" + ("" if heads == (32, 8, 128) else
+                         f", D {heads[2]}, G {heads[0] // heads[1]}")
+        log(f"[kernels] K1-K3 at [long]'s {at}: {time.perf_counter() - t0:.1f} s")
 
 
 def long_attention_rows(results: dict, key: str, c: int, gb: int, kinds: tuple,
-                        timing: dict, lib_timing: dict) -> None:
+                        timing: dict, lib_timing: dict, heads: tuple) -> None:
     """One row of ``LONG_ROWS`` (see ``long_attention_shapes``)."""
     import torch
     import torch.nn.functional as F
@@ -1498,7 +1594,7 @@ def long_attention_rows(results: dict, key: str, c: int, gb: int, kinds: tuple,
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
-    h, kvh, d, slots = 32, 8, 128, 6
+    (h, kvh, d), slots = heads, 6
     b, q0, bf16 = gb // N_STAGES, c - LONG_Q_BLOCK, torch.bfloat16
     kernel_timing = {k: v for k, v in timing.items() if k in ("iters", "warmup")}
     # ``sdpa_pool_ms``'s call that checks the library's output is its first warm-up
@@ -1629,6 +1725,7 @@ def kernel_phase(results: dict) -> None:
     k1_whisper_shapes(results)
     whisper_pipeline_shapes(results)
     ssd_phase(results)
+    ssd_long_rows(results)
     decode_kernel_phase(results)
 
 
@@ -1725,11 +1822,12 @@ SERVE_MODELS = {
                 ("fetch", "cuda", "cuda", "auto"), ("fetch", "cuda", "paged", "auto"),
                 ("qship", "cuda", "cuda", "int8")],
         kernels=ATTN_KERNELS, faults="pool_attention", fp32_layers=N_STAGES),
+    # fp32: one wave of BATCH requests a run, for the script's time
     "zamba2-7b": dict(
         combos=[("qship", "cuda", "cuda", "auto"), ("fetch", "cuda", "paged", "auto"),
                 ("qship", "cuda", "cuda", "int8")],
         kernels=ATTN_KERNELS + ("ssd",), faults="ssd", bf16_layers=N_STAGES,
-        fp32_layers=N_STAGES),
+        fp32_layers=N_STAGES, fp32_requests=BATCH),
     "mamba2-130m": dict(
         combos=[("qship", "cuda", "cuda", "auto")],
         kernels=("ssd",), faults="ssd"),
@@ -1748,10 +1846,11 @@ SERVE_MODELS = {
         combos=[("qship", "cuda", "cuda", "auto"), ("fetch", "cuda", "paged", "auto")],
         kernels=ATTN_KERNELS, faults="pool_attention", per_launch=ATTN_KERNELS,
         fp32_layers=N_STAGES),
+    # bf16 at 8 of 32 layers (one a stage), for the script's time
     "granite-moe-3b-a800m": dict(
         combos=[("fetch", "cuda", "cuda", "auto"), ("qship", "cuda", "paged", "auto")],
         kernels=ATTN_KERNELS, faults="pool_attention", per_launch=ATTN_KERNELS,
-        wave=False, fp32_layers=N_STAGES),
+        wave=False, bf16_layers=N_STAGES, fp32_layers=N_STAGES),
     # GQA group 5: K1-K3 held per launch; 40 fp32 layers are ~59 GB; the
     # bf16 runs take 8 of 40 layers (one a stage) for the script's time
     "qwen3-14b": dict(
@@ -1941,6 +2040,31 @@ def planted_faults(kind: str, real):
 
     return {"K4 does not carry the state across chunks": state_not_carried,
             "K4 ignores init_state": init_ignored}
+
+
+def ssd_zero_past(real, pos: int):
+    """A wrong version of ``ops.ssd`` (``real``) that only a launch of
+    more than ``pos`` positions shows: every SSD chunk at or past position
+    ``pos`` starts from a zero state instead of the state carried to it
+    (the first ``pos`` positions one call of ``real``, then one call a
+    chunk without an init_state; ``pos`` a multiple of the chunk). On a
+    launch of ``pos`` positions or fewer it is ``real``."""
+    import torch
+    from repro_torch.kernels import ops
+
+    def fault(x, dt, a_log, b, c, d_skip, *, chunk, init_state=None):
+        t = x.shape[1]
+        if t <= pos:
+            return real(x, dt, a_log, b, c, d_skip, chunk=chunk, init_state=init_state)
+        ck = ops.ssd_chunk(t, chunk)
+        ys, st = [], init_state
+        for c0, c1 in [(0, pos)] + [(c0, c0 + ck) for c0 in range(pos, t, ck)]:
+            sl = slice(c0, c1)
+            y, st = real(x[:, sl], dt[:, sl].contiguous(), a_log, b[:, sl], c[:, sl], d_skip,
+                         chunk=ck, init_state=st if c0 == 0 else None)
+            ys.append(y)
+        return torch.cat(ys, dim=1), st
+    return fault
 
 
 PLAIN_SCORES_BYTES = 2 << 30   # a K1-K3 plain call's fp32 scores, at most (``plain_of``)
@@ -2502,6 +2626,9 @@ def serve_model(arch: str, results: dict) -> None:
         if cfg32.num_layers != full.num_layers:
             log(f"  fp32 depth cut to {cfg32.num_layers} of {full.num_layers} layers "
                 f"(fp32_layers), full width")
+        if spec.get("fp32_requests", n_req) != n_req:
+            n_req = spec["fp32_requests"]
+            log(f"  fp32 runs: {n_req} requests, one wave (fp32_requests)")
         staged = weights(cfg32)
         refs = {kv: serve(cfg32, staged, "qship", "torch", "torch", kv, ssm="torch")
                 for kv in kvs}
@@ -2552,21 +2679,24 @@ def profiled_wave(prof) -> tuple:
     return flops, device_spans(prof)
 
 
-def roofline_wave(seq: int = N_CHUNKS * CHUNK, batch: int = BATCH):
+def roofline_wave(seq: int = N_CHUNKS * CHUNK, batch: int = BATCH, arch: str = "qwen3-8b",
+                  mode: str = "mocap"):
     """(cfg, plan, tokens as numpy, wave): the serve phase's qwen3-8b bf16
     wave (qship, ``cuda`` / ``cuda``, N 8, M 8, C 512, B 2, full depth), or
     at another ``seq`` and ``batch`` the same wave of M 8 chunks of seq / 8
-    ([long]'s S 131072, B 1), through ``prefill_pipeline`` as
-    ``TorchExecutor`` runs it; ``wave(staged, tokens)`` runs it where
+    ([long]'s S 131072, B 1), or of another ``arch`` (the SSD on K4) under
+    another ``mode`` ([long-ssm]'s zamba2-7b), through ``prefill_pipeline``
+    as ``TorchExecutor`` runs it; ``wave(staged, tokens)`` runs it where
     ``tokens`` lie (the card, or meta)."""
     import numpy as np
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.core import pipeline as pp
     from repro_torch.launch.serve import make_requests
-    cfg = get_config("qwen3-8b")
-    run = RunConfig(num_chunks=N_CHUNKS, num_stages=N_STAGES, remote_attn="qship",
-                    attn_backend="cuda", pool_backend="cuda")
-    plan = pp.build_plan(cfg, N_STAGES, seq, run)
+    cfg = get_config(arch)
+    run = RunConfig(num_chunks=N_CHUNKS, num_stages=N_STAGES, mbkr=mode == "mocap",
+                    remote_attn="qship", attn_backend="cuda", pool_backend="cuda",
+                    ssm_backend="cuda")
+    plan = pp.build_plan(cfg, N_STAGES, seq, run, mode=mode)
     toks = np.stack([r.tokens for r in make_requests(batch, seq, cfg.vocab_size, seed=0)])
 
     def wave(staged, tokens):
@@ -2574,15 +2704,17 @@ def roofline_wave(seq: int = N_CHUNKS * CHUNK, batch: int = BATCH):
     return cfg, plan, toks, wave
 
 
-def count_roofline_wave(seq: int = N_CHUNKS * CHUNK, batch: int = BATCH) -> tuple:
-    """(GraphCost, seconds): ``roofline_wave(seq, batch)`` counted on meta
-    by ``roofline.op_graph.count`` (K1 / K2 charged their ``kernel_work``).
-    It needs no card: ``main`` runs it in a thread beside the build."""
+def count_roofline_wave(seq: int = N_CHUNKS * CHUNK, batch: int = BATCH,
+                        arch: str = "qwen3-8b", mode: str = "mocap") -> tuple:
+    """(GraphCost, seconds): ``roofline_wave(seq, batch, arch, mode)``
+    counted on meta by ``roofline.op_graph.count`` (K1 / K2 / K4 charged
+    their ``kernel_work``). It needs no card: ``main`` runs it in a thread
+    beside the build."""
     import torch
     from repro_torch.core.staging import init_staged
     from repro_torch.roofline import op_graph
     t0 = time.perf_counter()
-    cfg, plan, toks, wave = roofline_wave(seq, batch)
+    cfg, plan, toks, wave = roofline_wave(seq, batch, arch, mode)
     meta = torch.device("meta")
     with torch.no_grad():
         cost = op_graph.count(wave, init_staged(cfg, plan, None, device=meta),
@@ -2714,14 +2846,18 @@ def stop_on_break(fn, worst: list):
     return call
 
 
-def long_faults(k1, k3, k2=None, keys: Optional[int] = None) -> dict:
+def long_faults(k1, k3, k2=None, keys: Optional[int] = None, k4=None,
+                pos: Optional[int] = None) -> dict:
     """The planted faults that only a launch of more than ``keys`` keys a
     chunk shows (LONG_FAULT_KEYS where None), through ``kv_len``: K1
     (``k1``) dropping every key at or past position ``keys`` of its launch,
     K2 (``k2``, where given) every key of a slot past its first ``keys``,
     K3 (``k3``) every key of a page past its first ``keys`` (one page a
-    chunk). Kernel tag -> (name, fault)."""
+    chunk); and, where ``k4`` is given, K4 starting each SSD chunk at or
+    past position ``pos`` (SSD_FAULT_POS where None) from a zero state
+    (``ssd_zero_past``). Kernel tag -> (name, fault)."""
     keys = LONG_FAULT_KEYS if keys is None else keys
+    pos = SSD_FAULT_POS if pos is None else pos
 
     def k1_short(q, k, v, *, kv_len=None, **kw):
         t = k.shape[1] if kv_len is None else kv_len
@@ -2742,18 +2878,30 @@ def long_faults(k1, k3, k2=None, keys: Optional[int] = None) -> dict:
     if k2 is not None:
         faults["pool_attention"] = (f"K2 drops a slot's keys past its first {keys}",
                                     k2_short)
+    if k4 is not None:
+        faults["ssd"] = (f"K4 starts each SSD chunk at or past position {pos} of a launch "
+                         f"from a zero state", ssd_zero_past(k4, pos))
     return faults
 
 
-def wave_launch_form(plan) -> dict:
-    """K1 and K2 launches of one wave of a dense model on the ``cuda`` pool:
-    K1 one self block a (layer, tick); K2 one pool scan a (layer, tick)
-    and, under MBKR with a remote prefix, one more (the qship creditor scan
-    or the landed fetch stack)."""
+def wave_launch_form(plan, cfg=None) -> dict:
+    """K1, K2 and K4 launches of one wave on the ``cuda`` pool and the
+    ``cuda`` SSD, of ``cfg`` (a dense model where None): per (layer, tick),
+    K1 one self block and K2 one pool scan and, under MBKR with a remote
+    prefix, one more (the qship creditor scan or the landed fetch stack);
+    K4 one scan a Mamba2 layer (the hybrid's layers_per_stage counts
+    groups of ssm_per_group Mamba2 layers and one shared-block
+    application; the ssm family has no attention)."""
     per = plan.layers_per_stage * plan.num_ticks
-    remote = plan.mode == "mocap" and plan.p2 < plan.num_chunks and (
-        plan.remote_attn == "fetch" or len(plan.host_slots_used) > 0)
-    return {"chunk_attention": per, "pool_attention": per * (1 + int(remote))}
+    family = "dense" if cfg is None else cfg.family
+    form = {}
+    if family != "ssm":
+        remote = plan.mode == "mocap" and plan.p2 < plan.num_chunks and (
+            plan.remote_attn == "fetch" or len(plan.host_slots_used) > 0)
+        form = {"chunk_attention": per, "pool_attention": per * (1 + int(remote))}
+    if family in ("ssm", "hybrid"):
+        form["ssd"] = per * (cfg.hybrid.ssm_per_group if family == "hybrid" else 1)
+    return form
 
 
 def pool_recorder(sizes: list):
@@ -2770,14 +2918,16 @@ def pool_recorder(sizes: list):
 
 
 def long_run(cfg, staged, combo, *, seq: int = LONG_SEQ, mode: str = "mocap",
-             n_req: int = LONG_BATCH, telemetry: bool = False) -> tuple:
+             n_req: int = LONG_BATCH, telemetry: bool = False,
+             phase: str = "[long]") -> tuple:
     """One wave of ``n_req`` requests of ``seq`` tokens of ``cfg`` through
     PrefillEngine + TorchExecutor under ``combo`` (remote_attn,
-    attn_backend, pool_backend, kv_dtype) and ``mode``, at EngineConfig's
-    default buckets (8192, 32768, 131072): ``seq`` must be one of them, and
-    the wave must run at it as LONG_M chunks of seq / LONG_M. Returns (the
-    logits [n_req, Vpad] as numpy, the wave's record: ``dur`` and, with
-    ``telemetry``, the stage telemetry)."""
+    attn_backend, pool_backend, kv_dtype) and ``mode``, the SSD on K4
+    (``ssm_backend="cuda"``; RunConfig's default is the ``torch`` SSD), at
+    EngineConfig's default buckets (8192, 32768, 131072): ``seq`` must be
+    one of them, and the wave must run at it as LONG_M chunks of seq /
+    LONG_M. Returns (the logits [n_req, Vpad] as numpy, the wave's record:
+    ``dur`` and, with ``telemetry``, the stage telemetry)."""
     import numpy as np
     from repro_torch.configs import RunConfig
     from repro_torch.launch.serve import make_requests
@@ -2785,17 +2935,19 @@ def long_run(cfg, staged, combo, *, seq: int = LONG_SEQ, mode: str = "mocap",
     from repro_torch.runtime.engine import EngineConfig, PrefillEngine, TorchExecutor
     remote, attn, pool, kv = combo
     run = RunConfig(num_chunks=LONG_M, num_stages=N_STAGES, mbkr=mode == "mocap",
-                    remote_attn=remote, attn_backend=attn, pool_backend=pool, kv_dtype=kv)
+                    remote_attn=remote, attn_backend=attn, pool_backend=pool, kv_dtype=kv,
+                    ssm_backend="cuda")
     ex = TorchExecutor(cfg, staged, run, device="cuda")
     ex.collect_telemetry = telemetry
     ec = EngineConfig(model=cfg, num_stages=N_STAGES, tp=1, num_chunks=LONG_M,
                       max_batch=n_req, partition="uniform")
-    check(seq in ec.buckets, f"[long] S {seq} is not one of the buckets {ec.buckets}")
+    check(seq in ec.buckets, f"{phase} S {seq} is not one of the buckets {ec.buckets}")
     eng = PrefillEngine(ec, ex)
     for r in make_requests(n_req, seq, cfg.vocab_size, seed=0):
         eng.submit(r)
     eng.run_until_drained()
-    name = f"[long] {cfg.num_layers} layers S {seq} {mode} {'/'.join(combo)}"
+    who = "" if cfg.arch == "qwen3-8b" else f"{cfg.arch} B {n_req} "
+    name = f"{phase} {who}{cfg.num_layers} layers S {seq} {mode} {'/'.join(combo)}"
     check(len(ex.waves) == 1 and len(eng.done) == n_req, f"{name}: not one wave of {n_req}")
     check(ex.waves[0]["seq"] == seq and ex.waves[0]["chunks"] == [seq // LONG_M] * LONG_M,
           f"{name}: the wave ran S {ex.waves[0]['seq']} as {ex.waves[0]['chunks']}")
@@ -2985,7 +3137,9 @@ def long_witness_runs(cfg, staged, results: dict, failures: list) -> None:
     long_fault(name, k3, fault, lambda: held_run(LONG_PAGED), failures, results)
 
 
-def long_full_depth(full, results: dict, failures: list, counted=None) -> None:
+def long_full_depth(full, results: dict, failures: list, counted=None, *,
+                    seq: int = LONG_SEQ, batch: int = LONG_BATCH, phase: str = "[long]",
+                    traced=("mocap", "terapipe"), peaks: Optional[dict] = None) -> None:
     """(a) of ``long_phase``, on ``full`` (36 layers): the mocap wave of
     LONG_COMBO, then the same combination under terapipe, each under
     torch.profiler (``with_flops``) with the launch counters set to 0 just
@@ -3001,9 +3155,18 @@ def long_full_depth(full, results: dict, failures: list, counted=None) -> None:
     (``categorize``); the mocap wave's product FLOPs against the meta count
     of the same wave (``count_roofline_wave(LONG_SEQ, LONG_BATCH)``,
     ``counted``: counted beside the build), its bound / busy share and MFU;
-    the mocap logits against terapipe's at BF16_LOGIT_TOL["qwen3-8b"] of
-    max|logit| (two summation orders in bf16), argmax reported. Each wave's
-    numbers land under ``results[kernel]["long_s<LONG_SEQ>"]`` of K1 and K2."""
+    the mocap logits against terapipe's at BF16_LOGIT_TOL of max|logit|
+    (two summation orders in bf16), argmax reported. Each wave's numbers
+    land under ``results[kernel]["long_s<LONG_SEQ>"]`` of K1 and K2.
+
+    The same for another model at ``seq`` and ``batch`` (``phase``
+    [long-ssm]: zamba2-7b, K4 too, its launches in the closed form and its
+    numbers under ``"long_ssm_s<seq>"``): only the waves in ``traced`` run
+    under torch.profiler (the others untraced, the launches still counted),
+    and, with ``peaks`` (mode -> the meta count of that wave, ``counted``
+    the mocap one), each wave's measured peak must lie in [counted peak,
+    PEAK_SLACK[0] x counted + PEAK_SLACK[1]]."""
+    import contextlib as cl
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import RunConfig, ShapeConfig
@@ -3014,19 +3177,22 @@ def long_full_depth(full, results: dict, failures: list, counted=None) -> None:
     from repro_torch.roofline import analysis
 
     card = card_line()
-    plans = {mode: pp.build_plan(full, N_STAGES, LONG_SEQ,
+    tag = phase.strip("[]")
+    where = tag if phase == "[long]" else f"{tag} {full.arch}"
+    plans = {mode: pp.build_plan(full, N_STAGES, seq,
                                  RunConfig(num_chunks=LONG_M, num_stages=N_STAGES,
                                            mbkr=mode == "mocap", attn_backend="cuda",
-                                           pool_backend="cuda"), mode=mode)
+                                           pool_backend="cuda", ssm_backend="cuda"),
+                                 mode=mode)
              for mode in ("mocap", "terapipe")}
     plan = plans["mocap"]
     c, lps = plan.chunk_len, plan.layers_per_stage
     check(plan.pages_per_chunk == 1 and plan.page_tokens == c,
-          f"[long] {plan.pages_per_chunk} pages of {plan.page_tokens} a chunk")
-    page = lps * LONG_BATCH * c * full.num_kv_heads * full.resolved_head_dim * 2 * 2
+          f"{phase} {plan.pages_per_chunk} pages of {plan.page_tokens} a chunk")
+    page = lps * batch * c * full.num_kv_heads * full.resolved_head_dim * 2 * 2
     want_pool = {mode: (p.num_slots + 1) * N_STAGES * page for mode, p in plans.items()}
-    log(f"[long] {full.arch} bf16 S {LONG_SEQ} = M {LONG_M} x C {c}, N {N_STAGES}, "
-        f"B {LONG_BATCH}, {full.num_layers} layers (lps {lps}), on {card}; slots mocap "
+    log(f"{phase} {full.arch} bf16 S {seq} = M {LONG_M} x C {c}, N {N_STAGES}, "
+        f"B {batch}, {full.num_layers} layers (lps {lps}), on {card}; slots mocap "
         f"{plan.num_slots} (p2 {plan.p2}) / terapipe {plans['terapipe'].num_slots}; "
         f"a chunk-page {page / 1e6:.1f} MB; pools by the plan "
         + ", ".join(f"{m} {b / 1e9:.2f} GB" for m, b in want_pool.items()))
@@ -3041,54 +3207,69 @@ def long_full_depth(full, results: dict, failures: list, counted=None) -> None:
     log(f"  bf16 weights: {weights / 2**30:.2f} GiB in {time.perf_counter() - t0:.2f} s")
 
     # the counted main path: one mocap wave, one terapipe wave, each under
-    # torch.profiler (its device time by category; mocap's product FLOPs
-    # against the meta count)
+    # torch.profiler where ``traced`` (its device time by category; mocap's
+    # product FLOPs against the meta count)
     waves, logits = {}, {}
     for mode in ("mocap", "terapipe"):
         sizes: list = []
+        on = mode in traced
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
-        with swapped(pp, "alloc_kv_pool", pool_recorder(sizes)), profile(
+        with swapped(pp, "alloc_kv_pool", pool_recorder(sizes)), (profile(
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                with_flops=True) as prof:
-            logits[mode], wave = long_run(full, staged, LONG_COMBO, mode=mode, telemetry=True)
+                with_flops=True) if on else cl.nullcontext()) as prof:
+            logits[mode], wave = long_run(full, staged, LONG_COMBO, seq=seq, mode=mode,
+                                          n_req=batch, telemetry=True, phase=phase)
             torch.cuda.synchronize()
         launches = {k: v for k, v in ops.LAUNCHES.items() if v}
         peak = torch.cuda.max_memory_allocated() - before
         clocks = card_clocks()
-        prof_flops, spans = profiled_wave(prof)
-        del prof
-        check(bool(spans), f"[long] the {mode} wave holds no device time")
-        busy, window = busy_window(spans)
-        split, by_name = categorize(spans)
-        form = wave_launch_form(plans[mode])
+        form = wave_launch_form(plans[mode], full)
         kv_peaks = obs_t.TelemetryProfile.from_run(wave["telemetry"]).per_stage_peak(
             "kv_bytes")
         waves[mode] = dict(wave_s=wave["dur"], launches=launches, peak_gib=peak / 2**30,
                            rest_gib=(peak - weights) / 2**30, weights_gib=weights / 2**30,
                            pool_gb=sizes[0] / 1e9 if sizes else 0.0,
-                           kv_peak_bytes=float(kv_peaks.max()), flops=prof_flops,
-                           busy_s=busy, window_s=window, idle_share=1.0 - busy / window,
-                           device_s=split, card=card)
-        log(f"  [{card}] {mode}: wave {wave['dur']:.4f} s (host clock, traced; the first "
-            f"wave at full depth, the kernels warmed by (b)); launches {launches}, closed form "
-            f"{form}; peak {peak / 2**30:.2f} GiB (max_memory_allocated less what was "
-            f"allocated before the weights; less the weights {(peak - weights) / 2**30:.2f}); "
-            f"pool {sizes[0] / 1e9 if sizes else 0:.4f} GB allocated, "
-            f"{want_pool[mode] / 1e9:.4f} GB by the plan; per-stage peak kv_bytes GB "
+                           kv_peak_bytes=float(kv_peaks.max()), traced=on, card=card)
+        log(f"  [{card}] {mode}: wave {wave['dur']:.4f} s (host clock, "
+            f"{'traced' if on else 'untraced'}; the first wave at full depth, the kernels "
+            f"warmed by (b)); launches {launches}, closed form {form}; peak "
+            f"{peak / 2**30:.2f} GiB (max_memory_allocated less what was allocated before the "
+            f"weights; less the weights {(peak - weights) / 2**30:.2f}); pool "
+            f"{sizes[0] / 1e9 if sizes else 0:.4f} GB allocated, {want_pool[mode] / 1e9:.4f} GB "
+            f"by the plan; per-stage peak kv_bytes GB "
             f"{' '.join(f'{x / 1e9:.4f}' for x in kv_peaks)}")
-        log(f"[wave] {full.arch} bf16 S {LONG_SEQ} {mode} {'/'.join(LONG_COMBO)}: "
-            f"{len(spans)} device activities; busy {busy:.4f} s of a {window:.4f} s window, "
-            f"idle share {1.0 - busy / window:.4f}; card after it (SM clock, its max, power "
-            f"draw, temperature): {clocks}")
-        log_split(split, by_name, busy)
-        check(launches == form, f"[long] {mode} launches {launches} != closed form {form}")
+        if on:
+            prof_flops, spans = profiled_wave(prof)
+            del prof
+            check(bool(spans), f"{phase} the {mode} wave holds no device time")
+            busy, window = busy_window(spans)
+            split, by_name = categorize(spans)
+            waves[mode].update(flops=prof_flops, busy_s=busy, window_s=window,
+                               idle_share=1.0 - busy / window, device_s=split)
+            log(f"[wave] {full.arch} bf16 S {seq} {mode} {'/'.join(LONG_COMBO)}: "
+                f"{len(spans)} device activities; busy {busy:.4f} s of a {window:.4f} s "
+                f"window, idle share {1.0 - busy / window:.4f}; card after it (SM clock, its "
+                f"max, power draw, temperature): {clocks}")
+            log_split(split, by_name, busy)
+        if peaks is not None and mode in peaks:
+            cost = peaks[mode][0]
+            lo = cost.peak_live_bytes
+            hi = PEAK_SLACK[0] * lo + PEAK_SLACK[1]
+            waves[mode]["counted_peak_gib"] = lo / 2**30
+            log(f"  [{card}] {mode}: peak counted {lo / 2**30:.4f} <= measured "
+                f"{peak / 2**30:.4f} <= {hi / 2**30:.4f} GiB (PEAK_SLACK; the gap "
+                f"{(peak - lo) / 2**20:.1f} MiB); launches counted {cost.launches}")
+            check(lo <= peak <= hi, f"{phase} {mode} peak memory {peak} outside [{lo}, {hi}]")
+            check(cost.launches == launches,
+                  f"{phase} {mode} counted launches {cost.launches} != {launches}")
+        check(launches == form, f"{phase} {mode} launches {launches} != closed form {form}")
         check(sizes == [want_pool[mode]],
-              f"[long] {mode} pool bytes {sizes} != the plan's {want_pool[mode]}")
+              f"{phase} {mode} pool bytes {sizes} != the plan's {want_pool[mode]}")
         for k, n in launches.items():
             results.setdefault(k, {}).setdefault("launches_by_path", {})[
-                f"long S {LONG_SEQ} {mode} wave"] = n
+                f"{where} S {seq} {mode} wave"] = n
     ratio = waves["mocap"]["kv_peak_bytes"] / waves["terapipe"]["kv_peak_bytes"]
     slots = plan.num_slots / plans["terapipe"].num_slots
     log(f"  MBKR against terapipe: largest per-stage peak kv_bytes "
@@ -3097,48 +3278,51 @@ def long_full_depth(full, results: dict, failures: list, counted=None) -> None:
         f"GB = {ratio:.6f} (the plan's slots {slots:.6f}); measured peaks differ by "
         f"{waves['terapipe']['peak_gib'] - waves['mocap']['peak_gib']:.3f} GiB, the pools by "
         f"{(want_pool['terapipe'] - want_pool['mocap']) / 1e9:.3f} GB")
-    check(ratio == slots, f"[long] per-stage peak kv_bytes ratio {ratio} != {slots}")
+    check(ratio == slots, f"{phase} per-stage peak kv_bytes ratio {ratio} != {slots}")
     err, same = logit_err(logits["mocap"], logits["terapipe"])
     tol = BF16_LOGIT_TOL[full.arch]
     log(f"  mocap against terapipe logits: max abs err {err:.3e} of max|logit| (limit {tol}; "
         f"two bf16 summation orders), argmax mocap {logits['mocap'].argmax(-1).tolist()} / "
         f"terapipe {logits['terapipe'].argmax(-1).tolist()}, equal {same}/{len(logits['mocap'])}")
     if err > tol:
-        failures.append(f"[long] S {LONG_SEQ}: mocap vs terapipe logits err {err}")
+        failures.append(f"{phase} S {seq}: mocap vs terapipe logits err {err}")
 
     # the mocap wave's roofline against its meta count
-    cost, count_s = counted or count_roofline_wave(LONG_SEQ, LONG_BATCH)
+    cost, count_s = counted or count_roofline_wave(seq, batch, full.arch, "mocap")
     terms = analysis.analyze_counted(cost, full, ShapeConfig("long wave", "prefill",
-                                                             LONG_SEQ, LONG_BATCH))
+                                                             seq, batch))
     wave_s, busy, prof_flops = (waves["mocap"][k] for k in ("wave_s", "busy_s", "flops"))
     mfu = terms.model_flops / (analysis.HW_H100["peak_flops"] * wave_s)
     rel = abs(cost.product_flops - prof_flops) / max(prof_flops, 1.0)
     waves["mocap"].update(share=terms.bound_s / busy, mfu=mfu, bound_s=terms.bound_s,
                           counted_peak_gib=cost.peak_live_bytes / 2**30)
     log(f"  [{card}] roofline of the long wave (counted on meta in {count_s:.1f} s): FLOPs "
-        f"{cost.flops:.6e} (products {cost.product_flops:.6e}, K1 / K2 "
+        f"{cost.flops:.6e} (products {cost.product_flops:.6e}, "
+        f"{' / '.join(v for k, v in KERNEL_IDS.items() if k in cost.launches)} "
         f"{cost.kernel_flops:.6e}), model_flops {terms.model_flops:.6e}, bound_s "
         f"{terms.bound_s:.4f} ({terms.dominant}), counted peak "
         f"{cost.peak_live_bytes / 2**30:.2f} GiB, launches {cost.launches}; profiler product "
         f"FLOPs {prof_flops:.6e} (rel {rel:.3e}); share bound_s / busy "
         f"{terms.bound_s / busy:.4f}; MFU model_flops / (989e12 x {wave_s:.4f} s) {mfu:.4f}")
     check(cost.launches == waves["mocap"]["launches"],
-          f"[long] counted launches {cost.launches} != {waves['mocap']['launches']}")
+          f"{phase} counted launches {cost.launches} != {waves['mocap']['launches']}")
     check(prof_flops > 0 and rel <= 1e-6,
-          f"[long] product FLOPs: counted {cost.product_flops} vs profiler {prof_flops}")
+          f"{phase} product FLOPs: counted {cost.product_flops} vs profiler {prof_flops}")
     check(terms.bound_s <= BOUND_SLACK * busy,
-          f"[long] bound_s {terms.bound_s} > {BOUND_SLACK} x busy {busy}")
-    for k in ("chunk_attention", "pool_attention"):
-        results.setdefault(k, {})[f"long_s{LONG_SEQ}"] = {
+          f"{phase} bound_s {terms.bound_s} > {BOUND_SLACK} x busy {busy}")
+    for k in waves["mocap"]["launches"]:
+        results.setdefault(k, {})[f"{tag.replace('-', '_')}_s{seq}"] = {
             "mocap vs terapipe logits err": err, **waves}
     del staged
     torch.cuda.empty_cache()
 
 
-def long_fault(name: str, kind: str, fault, run, failures: list, results: dict) -> None:
+def long_fault(name: str, kind: str, fault, run, failures: list, results: dict,
+               phase: str = "[long]") -> None:
     """``fault`` in the place of ``ops.<kind>`` under the sliced per-launch
-    check; ``run`` stops at its first launch that breaks it, which must
-    come. Its reading lands under ``results[kind]["planted"]``."""
+    check (K4: every launch held whole); ``run`` stops at its first launch
+    that breaks it, which must come. Its reading lands under
+    ``results[kind]["planted"]``."""
     from repro_torch.kernels import ops
     worst, calls = [0.0], [0]
 
@@ -3147,16 +3331,186 @@ def long_fault(name: str, kind: str, fault, run, failures: list, results: dict) 
         return fault(*args, **kw)
     t0 = time.perf_counter()
     try:
+        q_block = None if kind == "ssd" else LONG_Q_BLOCK
         with swapped(ops, kind, stop_on_break(shadowed(counted, kind, worst,
-                                                       q_block=LONG_Q_BLOCK), worst)):
+                                                       q_block=q_block), worst)):
             run()
     except FaultSeen:
         pass
     log(f"  planted fault: {name}: worst {worst[0]:.3e} of the tolerance, at launch "
         f"{calls[0]} ({time.perf_counter() - t0:.1f} s)")
-    results.setdefault(kind, {}).setdefault("planted", {})[f"long: {name}"] = worst[0]
+    results.setdefault(kind, {}).setdefault("planted", {})[
+        f"{phase[1:-1]}: {name}"] = worst[0]
     if worst[0] <= 1.0:
-        failures.append(f"[long] planted fault '{name}' passes ({worst[0]})")
+        failures.append(f"{phase} planted fault '{name}' passes ({worst[0]})")
+
+
+# ----------------------------------------------------------------- long-ssm
+
+def long_ssm_phase(results: dict, counts: Optional[dict] = None) -> None:
+    """[long-ssm]: the Mamba2 families at full width, bf16, through
+    PrefillEngine + TorchExecutor at EngineConfig's default buckets
+    (``long_run``, the SSD on K4) at S = HELD_SEQ = 32768 (N 8, M 8, C
+    4096), where K4 runs 16 SSD chunks of 256 in one launch and K1-K3 see
+    4096-token chunks at zamba2-7b's shared block (32 heads of 112, MHA).
+
+    (b) zamba2-7b at one hybrid group a stage (45 layers), SSM_HELD_BATCH
+    request, mocap, first (its waves warm the kernels): a qship/cuda/cuda
+    wave with every K1 and K2 launch held against its plain version on
+    every row's last LONG_Q_BLOCK queries and every K4 launch held whole
+    (``shadowed``), then a qship/cuda/paged wave with every K1 and K3
+    launch held so; the two waves' logits within BF16_POOL_PAIR_TOL of
+    max|logit| (``long_ssm_held``);
+    (c) on (b)'s waves the planted faults only a long launch shows
+    (``long_faults``): K1, K2 and K3 dropping the keys past
+    LONG_FAULT_KEYS, K4 starting each SSD chunk at or past position
+    SSD_FAULT_POS from a zero state; each must break its per-launch check, its run stopping at
+    the first broken launch;
+    (a) zamba2-7b at full depth (81 layers, 2 groups a stage), a wave of
+    SSM_LONG_BATCH requests, the mocap wave under torch.profiler and the
+    terapipe wave untraced (``long_full_depth``): launches against the
+    closed form (K1 30, K2 60 / 30, K4 150), the pools' bytes exactly the
+    plan's (13.15 / 16.91 GB), the per-stage peak kv_bytes ratio exactly
+    6/8, each peak within PEAK_SLACK of its meta count (``counts``: mode ->
+    ``count_roofline_wave`` of that wave, counted beside the build), the
+    mocap wave's product FLOPs against its count, its device time by
+    category and idle share, mocap's logits against terapipe's;
+    (d) mamba2-130m at full depth (24 layers, 3 a stage), SSM_LONG_BATCH
+    requests, terapipe: one wave with every K4 launch held whole (K4 45
+    launches, the closed form), then the K4 fault of (c) on it
+    (``long_ssm_mamba``).
+    The weights of (b) are freed before (a)'s are drawn, (a)'s before
+    (d)'s."""
+    import torch
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core import pipeline as pp
+    from repro_torch.core.staging import init_staged
+
+    card = card_line()
+    full = get_config("zamba2-7b")
+    cfg = depth(full, N_STAGES)
+    failures: list = []
+    t0 = time.perf_counter()
+    staged = init_staged(cfg, pp.build_plan(cfg, N_STAGES, HELD_SEQ, RunConfig(
+        num_chunks=LONG_M, num_stages=N_STAGES)), torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    torch.cuda.synchronize()
+    log(f"[long-ssm] {full.arch} bf16 on {card}, N {N_STAGES}, M {LONG_M}, S {HELD_SEQ}, "
+        f"EngineConfig's default buckets; {cfg.num_layers} layers at full width (one hybrid "
+        f"group a stage): weights {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    long_ssm_held(cfg, staged, results, failures)
+    log(f"  (b), (c) S {HELD_SEQ} at {cfg.num_layers} layers, its faults: "
+        f"{time.perf_counter() - t0:.1f} s")
+    del staged
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counts = counts or {mode: count_roofline_wave(HELD_SEQ, SSM_LONG_BATCH, full.arch, mode)
+                        for mode in ("mocap", "terapipe")}
+    long_full_depth(full, results, failures, counts["mocap"], seq=HELD_SEQ,
+                    batch=SSM_LONG_BATCH, phase="[long-ssm]", traced=("mocap",), peaks=counts)
+    log(f"  (a) S {HELD_SEQ} at {full.num_layers} layers: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    long_ssm_mamba(results, failures)
+    log(f"  (d) mamba2-130m S {HELD_SEQ}: {time.perf_counter() - t0:.1f} s")
+    check(not failures, "; ".join(failures))
+
+
+def long_ssm_held(cfg, staged, results: dict, failures: list) -> None:
+    """(b) and (c) of ``long_ssm_phase``, on ``cfg`` (zamba2-7b, one hybrid
+    group a stage)."""
+    import contextlib as cl
+    from repro_torch.kernels import ops
+
+    def run(combo):
+        return long_run(cfg, staged, combo, seq=HELD_SEQ, n_req=SSM_HELD_BATCH,
+                        phase="[long-ssm]")
+
+    held = {}
+    for combo in (LONG_COMBO, LONG_PAGED):
+        kinds = (("chunk_attention", "pool_attention", "ssd") if combo[2] == "cuda"
+                 else ("chunk_attention", "pool_attention_paged"))
+        worst = {k: [0.0] for k in kinds}
+        t0 = time.perf_counter()
+        ops.reset_launches()
+        with cl.ExitStack() as stack:
+            for k in kinds:
+                q_block = None if k == "ssd" else LONG_Q_BLOCK
+                stack.enter_context(swapped(ops, k, shadowed(getattr(ops, k), k, worst[k],
+                                                             q_block=q_block)))
+            held[combo] = run(combo)[0]
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        log(f"  every launch of the wave above ({launches}) against its plain version (K1-K3 "
+            f"on every row's last {LONG_Q_BLOCK} queries, K4 whole): worst "
+            + ", ".join(f"{k} {w[0]:.3e}" for k, w in worst.items())
+            + f" of the tolerance ({time.perf_counter() - t0:.1f} s)")
+        for k, w in worst.items():
+            if w[0] > 1.0:
+                failures.append(f"[long-ssm] {k} per launch: {w[0]} of the tolerance")
+            res = results.setdefault(k, {})
+            res["max_err_long_ssm"] = max(res.get("max_err_long_ssm", 0.0), w[0])
+        for k, n in launches.items():
+            results.setdefault(k, {}).setdefault("launches_by_path", {})[
+                f"long-ssm {cfg.arch} S {HELD_SEQ} held {combo[2]} pool "
+                f"({cfg.num_layers} layers)"] = n
+    err, same = logit_err(held[LONG_COMBO], held[LONG_PAGED])
+    log(f"  cuda pool (K2) against paged pool (K3): {err:.3e} of max|logit| (limit "
+        f"{BF16_POOL_PAIR_TOL}), argmax equal {same}/{len(held[LONG_COMBO])}")
+    if err > BF16_POOL_PAIR_TOL:
+        failures.append(f"[long-ssm] K2 and K3 pools differ by {err}")
+
+    # (c) the faults only a long launch shows, on the waves above
+    faults = long_faults(ops.chunk_attention, ops.pool_attention_paged, ops.pool_attention,
+                         k4=ops.ssd)
+    for kind in ("chunk_attention", "pool_attention", "pool_attention_paged", "ssd"):
+        combo = LONG_PAGED if kind == "pool_attention_paged" else LONG_COMBO
+        name, fault = faults[kind]
+        long_fault(name, kind, fault, lambda: run(combo), failures, results,
+                   phase="[long-ssm]")
+
+
+def long_ssm_mamba(results: dict, failures: list) -> None:
+    """(d) of ``long_ssm_phase``: mamba2-130m at full depth, terapipe."""
+    import torch
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core import pipeline as pp
+    from repro_torch.core.staging import init_staged
+    from repro_torch.kernels import ops
+
+    cfg = get_config("mamba2-130m")
+    plan = pp.build_plan(cfg, N_STAGES, HELD_SEQ, RunConfig(
+        num_chunks=LONG_M, num_stages=N_STAGES, mbkr=False, ssm_backend="cuda"),
+        mode="terapipe")
+    staged = init_staged(cfg, plan, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+
+    def run():
+        return long_run(cfg, staged, LONG_COMBO, seq=HELD_SEQ, mode="terapipe",
+                        n_req=SSM_LONG_BATCH, phase="[long-ssm]")
+
+    worst = [0.0]
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    with swapped(ops, "ssd", shadowed(ops.ssd, "ssd", worst)):
+        run()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    form = wave_launch_form(plan, cfg)
+    log(f"  {cfg.arch} lps {plan.layers_per_stage}: launches {launches}, closed form {form}; "
+        f"every K4 launch against its plain version: worst {worst[0]:.3e} of the tolerance "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(launches == form, f"[long-ssm] {cfg.arch} launches {launches} != closed form {form}")
+    if worst[0] > 1.0:
+        failures.append(f"[long-ssm] {cfg.arch} ssd per launch: {worst[0]} of the tolerance")
+    res = results.setdefault("ssd", {})
+    res["max_err_long_ssm"] = max(res.get("max_err_long_ssm", 0.0), worst[0])
+    res.setdefault("launches_by_path", {})[
+        f"long-ssm {cfg.arch} S {HELD_SEQ} terapipe wave"] = launches["ssd"]
+    name, fault = long_faults(ops.chunk_attention, ops.pool_attention_paged,
+                              k4=ops.ssd)["ssd"]
+    long_fault(f"{name} ({cfg.arch})", "ssd", fault, run, failures, results,
+               phase="[long-ssm]")
+    del staged
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- frontends
@@ -5592,14 +5946,19 @@ def main() -> int:
 
         cli.start()      # the train phase's CLI runs (d) beside the build (GPU idle)
         # meta, no card, beside the build: the roofline wave, then [long]'s
+        # and [long-ssm]'s zamba2-7b waves
         counts = [counter.submit(count_roofline_wave),
-                  counter.submit(count_roofline_wave, LONG_SEQ, LONG_BATCH)]
+                  counter.submit(count_roofline_wave, LONG_SEQ, LONG_BATCH)] + [
+            counter.submit(count_roofline_wave, HELD_SEQ, SSM_LONG_BATCH, "zamba2-7b", mode)
+            for mode in ("mocap", "terapipe")]
         build_phase()
         t0 = time.perf_counter()
-        counted, counted_long = (f.result() for f in counts)   # before any timed phase
+        counted, counted_long, *counted_ssm = (f.result() for f in counts)  # before any timed phase
+        counted_ssm = dict(zip(("mocap", "terapipe"), counted_ssm))
         log(f"[roofline] the meta counts ({counted[1]:.1f} s and, S {LONG_SEQ} B "
             f"{LONG_BATCH}, {counted_long[1]:.1f} s, beside the build) joined "
-            f"{time.perf_counter() - t0:.1f} s after it")
+            f"{time.perf_counter() - t0:.1f} s after it; zamba2-7b S {HELD_SEQ} B "
+            f"{SSM_LONG_BATCH}: " + ", ".join(f"{m} {c[1]:.1f} s" for m, c in counted_ssm.items()))
 
         results: dict = {}
         t0 = time.perf_counter()
@@ -5614,6 +5973,9 @@ def main() -> int:
         t0 = time.perf_counter()
         long_phase(results, counted_long)
         log(f"[long] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        long_ssm_phase(results, counted_ssm)
+        log(f"[long-ssm] {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         roofline_phase(results, counted)
         log(f"[roofline] {time.perf_counter() - t0:.1f} s")

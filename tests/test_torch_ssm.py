@@ -77,6 +77,7 @@ SSD_GRID = [   # (rows, T, H, P, G, N, chunk): tests/test_kernels.py::test_ssd
     (1, 96, 4, 8, 4, 8, 32),
     (2, 48, 4, 8, 2, 8, 32),   # T not a multiple of the chunk: 32 -> 16
     (2, 16, 4, 16, 1, 16, 32),  # T < chunk (the smoke pipeline's C = 16)
+    (1, 256, 2, 8, 1, 8, 16),   # 16 chunks in one call, as K4's launches at C 4096
 ]
 
 
@@ -256,7 +257,20 @@ def test_k4_tile_algorithm_matches_plain(p, n, g, init, split):
     the card's 1e-3 check) and y within 5e-3 of max|y| (4x inside its
     2e-2). Without the hi / lo split of w o B the state is off by more than
     1e-3 of max|state|: the split is what keeps K4 inside the check."""
-    *args, st0 = _serve_inputs(2, 2 * TC_CHUNK, 4, p, g, n, init)
+    _tile_against_plain(2, 2, 4, p, n, g, init, split)
+
+
+@pytest.mark.parametrize("p,n", [(64, 64), (64, 128)])
+def test_k4_tile_algorithm_matches_plain_over_16_chunks(p, n):
+    """The same at the loop length K4 runs on the card at a 4096-token
+    pipeline chunk: 16 chunks of 256 in one call, the state carried in
+    fp32 across them (its bf16 copy taken afresh at every chunk), with a
+    non-zero init_state; the same bounds."""
+    _tile_against_plain(1, 16, 2, p, n, 1, True, True)
+
+
+def _tile_against_plain(r, chunks, h, p, n, g, init, split):
+    *args, st0 = _serve_inputs(r, chunks * TC_CHUNK, h, p, g, n, init)
     y, st = _tile_emulation(*args, init_state=st0, split=split)
     y_want, st_want = port_ref.ssd_plain(*args, chunk=TC_CHUNK, init_state=st0)
     st_err = (st - st_want).abs().max().item() / st_want.abs().max().item()
